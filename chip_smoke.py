@@ -4,25 +4,41 @@
 
 Phases (each asserts or exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the CUDA kernels from src/repro_torch/csrc with nvcc (sm_90a)
-     and print what -Xptxas -v reports;
-  3. hold each kernel against its plain PyTorch version at B=256: the
-     pyramid on the fusion group of each of the five topologies, the
-     single-layer kernel on every layer of cifar10, cifar10_full and
-     cifar10_strided, in fp32 and with act_bits=6, TF32 off;
-  4. the main path: compile cifar10 at full width from seeded params, run
+  2. build the CUDA kernels from src/repro_torch/csrc with nvcc (sm_90a),
+     one nvcc per source, all started together, and print what
+     -Xptxas -v reports;
+  3. hold each kernel against its plain PyTorch version at B=256, TF32
+     off: the fp32 pyramid on the fusion group of each of the five
+     topologies and the fp32 single-layer kernel on every layer of
+     cifar10, cifar10_full and cifar10_strided, in fp32 and with
+     act_bits=6; their int8 variants at act_bits=8 on the same groups and
+     layers; pow2_matmul in both modes at the cifar10 and lenet5 head
+     shapes;
+  4. the fp32 path: compile cifar10 at full width from seeded params, run
      B=256 through the fused plan and the vmem_budget=0 plan, and compare
      both with the plain-version forward;
   5. serve 24 requests of 1-256 frames with deadlines through
      Engine(plan, microbatch=256) with the flush loop on, and hold every
      answer against plan(x) and the plain-version forward;
-  6. time each kernel, its plain version and the library chain with CUDA
-     events at main-path shapes, beside the card's bound; then the fused
-     and per-layer plans, and one serving micro-batch piece by piece;
+  4b. the int8 and pow2 path on an on-grid B=256 batch: plan (a)
+     QuantSpec(weight_bits=8, act_bits=8, int8_compute=True), fused and
+     vmem_budget=0, bit for bit against the 8-bit fake-quant plan; plan
+     (b) QuantSpec(act_bits=8, pow2_weights=True, int8_compute=True,
+     per_layer_bits=(8, 8, 8)), bit for bit against its fake-quant twin
+     (fp32 kernels, fp32-decode head); plan (c) QuantSpec(pow2_weights=
+     True) against the plain-version forward;
+  5b. serve the same burst through Engine(plan (b)) and hold every answer
+     bit for bit against plan (b)(x);
+  6. time each kernel, its plain version and the library call with CUDA
+     events at main-path shapes, beside the card's bound; then the plans,
+     and one serving micro-batch piece by piece;
   7. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The launch counts are zeroed just before phase 4 and read just after
-phase 5: they show that the main path went through both kernels.
+phase 5 (the fp32 path), then zeroed just before phase 4b and read just
+after phase 5b (the int8 and pow2 path): they show that each path went
+through its kernels. Reference outputs that need kernel launches are
+computed before a path's counts are zeroed.
 Imports nothing of JAX and nothing of the reference package.
 """
 from __future__ import annotations
@@ -37,9 +53,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores and HBM3 bandwidth. The bound of a kernel is the larger of its
-# FLOPs over the first and its bytes over the second.
+# cores, dense int8 on the tensor cores, and HBM3 bandwidth. The bound of
+# a kernel is the larger of its operations over the peak for their type
+# and its bytes over the bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 SEED = 0
 BATCH = 256
@@ -52,6 +70,12 @@ QUANT_BITS = 6
 # another order lands on the other side of a rounding boundary; more than
 # this share of such elements would mean a real fault.
 QUANT_MAX_STEP_SHARE = 1e-3
+INT8_BITS = 8
+# pow2_matmul's fp32 mode against its plain version; the activations sit
+# on a 2^-4 grid, where every partial sum of these shapes is exact.
+POW2_RTOL, POW2_ATOL = 1e-5, 1e-6
+# (M, K, N) of the pow2 heads: cifar10's two FC layers, lenet5's two.
+POW2_SHAPES = ((BATCH, 1024, 64), (BATCH, 64, 10), (BATCH, 800, 500), (BATCH, 500, 10))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -71,7 +95,17 @@ def main() -> None:
 
     from repro_torch.core.dhm import Engine, QuantSpec, compile_dhm
     from repro_torch.core.dhm.fusion import plan_fusion_groups
+    from repro_torch.core.quant.fixed_point import dynamic_spec, quantize_fixed
+    from repro_torch.core.quant.packing import unpack_codes_u4
+    from repro_torch.core.quant.pow2 import decode_pow2
     from repro_torch.kernels import _nvcc
+    from repro_torch.kernels.pow2_matmul import pow2 as kpow2
+    from repro_torch.kernels.pow2_matmul import (
+        pow2_matmul,
+        pow2_matmul_int_ref,
+        pow2_matmul_ref,
+        quantize_weights,
+    )
     from repro_torch.kernels.stream_conv import conv as kconv
     from repro_torch.kernels.stream_conv import (
         stream_conv_block,
@@ -79,8 +113,13 @@ def main() -> None:
         stream_conv_pyramid,
         stream_conv_pyramid_ref,
     )
-    from repro_torch.kernels.stream_conv.epilogue import stream_quant_spec
-    from repro_torch.kernels.stream_conv.halo import as_pyramid_layers
+    from repro_torch.kernels.stream_conv.epilogue import (
+        Int8Scales,
+        quantize_stream,
+        stream_quant_spec,
+    )
+    from repro_torch.kernels.stream_conv.ops import _pad_same
+    from repro_torch.kernels.stream_conv.halo import as_pyramid_layers, group_geometry
     from repro_torch.models.cnn import ALL_TOPOLOGIES, cnn_apply_reference, init_cnn
 
     torch.backends.cudnn.allow_tf32 = False
@@ -99,13 +138,14 @@ def main() -> None:
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _nvcc.build(["stream_conv"])
+    logs = _nvcc.build(["stream_conv", "pow2_matmul"])
     print(f"[2] nvcc build: {time.perf_counter() - t0:.1f} s"
           + ("" if logs else " (library already built in this checkout)"))
     for name, log in logs.items():
         for line in log.strip().splitlines():
             print(f"[2] {name}.cu: {line}")
-    kconv._library()  # loads it and checks the descriptor layouts
+    kconv._library()  # loads them and checks the descriptor layouts
+    kpow2._library()
 
     gen = torch.Generator().manual_seed(SEED)
 
@@ -184,6 +224,82 @@ def main() -> None:
             h, w = spec.out_hw(h, w)
             c = spec.n_out
 
+    def bake_int8(w, bits):
+        spec = dynamic_spec(w, bits)
+        return quantize_fixed(w, spec).to(torch.int8).contiguous(), spec.scale
+
+    def compare_int8(out, ref, act, what):
+        """Equal on relu layers; where tanh follows, elements may sit one
+        quant step apart (the card's tanhf against torch.tanh), counted."""
+        if act == "relu":
+            check(torch.equal(out, ref), f"{what}: max |delta| {float((out - ref).abs().max())}")
+            return 0.0, 0
+        return compare_quant(out, ref, INT8_BITS, what)
+
+    errs.update(stream_conv_pyramid_int8=0.0, stream_conv_fused_int8=0.0,
+                pow2_matmul=0.0, pow2_matmul_int=0.0)
+    for name, topo in ALL_TOPOLOGIES.items():
+        h, w = topo.input_shape
+        x = randn(BATCH, h, w, topo.input_channels)
+        (grp,) = plan_fusion_groups(topo, tuple(range(len(topo.conv_layers))), elem_bytes=1)
+        layers = [topo.conv_layers[i] for i in grp.layers]
+        baked = [bake_int8(params[name]["conv"][i]["w"], INT8_BITS) for i in grp.layers]
+        ws = [c for c, _ in baked]
+        bs = [params[name]["conv"][i]["b"] for i in grp.layers]
+        scales = tuple(Int8Scales(in_bits=INT8_BITS, w_scale=sc) for _, sc in baked)
+        out = stream_conv_pyramid(x, ws, bs, layers=layers, act_bits=INT8_BITS,
+                                  int8_scales=scales, block_rows=grp.block_rows)
+        ref = stream_conv_pyramid_ref(x, ws, bs, layers=as_pyramid_layers(layers),
+                                      act_bits=INT8_BITS, int8_scales=scales)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape, f"{name} int8 pyramid shape {out.shape} vs {ref.shape}")
+        what = f"int8 pyramid {name} layers {grp.layers} block_rows {grp.block_rows}"
+        err, off = compare_int8(out, ref, layers[0].act, what)
+        errs["stream_conv_pyramid_int8"] = max(errs["stream_conv_pyramid_int8"], err)
+        print(f"[3] {what}: max |delta| {err:.3e}, {off} of {out.numel()} elements one step apart")
+    for name in ("cifar10", "cifar10_full", "cifar10_strided"):
+        topo = ALL_TOPOLOGIES[name]
+        h, w = topo.input_shape
+        c = topo.input_channels
+        for li, spec in enumerate(topo.conv_layers):
+            x = randn(BATCH, h, w, c)
+            wq, wsc = bake_int8(params[name]["conv"][li]["w"], INT8_BITS)
+            b = params[name]["conv"][li]["b"]
+            kw = dict(padding=spec.padding, stride=spec.stride, act=spec.act, pool=spec.pool,
+                      pool_stride=spec.pool_stride, act_bits=INT8_BITS,
+                      int8_scales=Int8Scales(in_bits=INT8_BITS, w_scale=wsc))
+            out = stream_conv_block(x, wq, b, **kw)
+            ref = stream_conv_block_ref(x, wq, b, **kw)
+            torch.cuda.synchronize()
+            check(out.shape == ref.shape, f"{name} int8 layer {li}: {out.shape} vs {ref.shape}")
+            what = f"int8 single-layer {name} layer {li}"
+            err, off = compare_int8(out, ref, spec.act, what)
+            errs["stream_conv_fused_int8"] = max(errs["stream_conv_fused_int8"], err)
+            print(f"[3] {what}: max |delta| {err:.3e}, {off} of {out.numel()} elements one "
+                  "step apart")
+            h, w = spec.out_hw(h, w)
+            c = spec.n_out
+    pow2_cases = {}
+    for m, k, n in POW2_SHAPES:
+        wt = randn(k, n) * (2.0 / k) ** 0.5
+        xg = torch.clamp(torch.round(randn(m, k) * 16) / 16, -2.0, 1.9375)
+        packed, scale = quantize_weights(wt)
+        pow2_cases[(m, k, n)] = (xg, packed, scale)
+        out = pow2_matmul(xg, packed, scale)
+        ref = pow2_matmul_ref(xg, packed, scale)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(torch.allclose(out, ref, rtol=POW2_RTOL, atol=POW2_ATOL),
+              f"pow2_matmul fp32 {(m, k, n)}: max |delta| {err}")
+        errs["pow2_matmul"] = max(errs["pow2_matmul"], err)
+        xspec = stream_quant_spec(INT8_BITS)
+        out = pow2_matmul(xg, packed, scale, x_spec=xspec)
+        ref = pow2_matmul_int_ref(xg, packed, scale, x_spec=xspec)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"pow2_matmul integer {(m, k, n)}: max |delta| "
+              f"{float((out - ref).abs().max())}")
+        print(f"[3] pow2_matmul {(m, k, n)}: fp32 decode max |delta| {err:.3e}, integer mode equal")
+
     # -- 4. + 5. the main path, with the launch counts ---------------------------
     topo = ALL_TOPOLOGIES["cifar10"]
     cparams = init_cnn(torch.Generator().manual_seed(SEED), topo, device=dev)
@@ -243,6 +359,78 @@ def main() -> None:
           f"{st.n_batches} micro-batches, 0 retries, 0 demotions")
     print(f"[5] main-path launches: {main_launches}")
 
+    # -- 4b. + 5b. the int8 and pow2 path, with its own launch counts ------------
+    qspec8 = stream_quant_spec(INT8_BITS)
+    xq = quantize_stream(x, INT8_BITS).to(torch.float32) * qspec8.scale  # on-grid batch
+    quant_a = QuantSpec(weight_bits=8, act_bits=8, int8_compute=True)
+    quant_b = QuantSpec(act_bits=8, pow2_weights=True, int8_compute=True, per_layer_bits=(8, 8, 8))
+    quant_c = QuantSpec(pow2_weights=True)
+    # Reference outputs first, outside the counted window: the fake-quant
+    # twins of plans (a) and (b) run the fp32 kernels.
+    want_a = compile_dhm(topo, cparams, quant=QuantSpec(weight_bits=8, act_bits=8))(xq)
+    want_b = compile_dhm(topo, cparams, quant=QuantSpec(
+        act_bits=8, pow2_weights=True, per_layer_bits=(8, 8, 8)))(xq)
+    plain_a = cnn_apply_reference(cparams, topo, xq, weight_bits=8, act_bits=8)
+    plain_c = cnn_apply_reference(cparams, topo, x, pow2_weights=True)
+    q_frames = [(quantize_stream(torch.from_numpy(f), INT8_BITS).to(torch.float32)
+                 * qspec8.scale).numpy() for f in frames]
+    torch.cuda.synchronize()
+    kconv.reset_launch_counts()
+    kpow2.reset_launch_counts()
+    plan_a = compile_dhm(topo, cparams, quant=quant_a)
+    plan_a0 = compile_dhm(topo, cparams, quant=quant_a, vmem_budget=0)
+    plan_b = compile_dhm(topo, cparams, quant=quant_b)
+    plan_c = compile_dhm(topo, cparams, quant=quant_c)
+    check([g.layers for g in plan_a.fusion_groups] == [(0, 1, 2)],
+          f"int8 plan groups {plan_a.fusion_groups}")
+    check(all(not g.fused for g in plan_a0.fusion_groups), "int8 vmem_budget=0 plan fuses")
+    logits_a = plan_a(xq)
+    logits_a0 = plan_a0(xq)
+    logits_b = plan_b(xq)
+    logits_c = plan_c(x)
+    eng_b = Engine(plan_b, microbatch=BATCH, auto_flush=True, default_deadline_ms=10_000.0)
+    eng_b.reset_stats()
+    t0 = time.perf_counter()
+    reqs = [eng_b.submit(f) for f in q_frames]
+    results_b = [r.result(timeout=120.0) for r in reqs]
+    wall_b = time.perf_counter() - t0
+    eng_b.stop()
+    torch.cuda.synchronize()
+    int8_launches = {**kconv.LAUNCHES, **kpow2.LAUNCHES}
+    for what, out, want in (("plan (a) fused", logits_a, want_a),
+                            ("plan (a) vmem_budget=0", logits_a0, want_a),
+                            ("plan (b)", logits_b, want_b)):
+        check(out.shape == (BATCH, topo.n_classes) and bool(torch.isfinite(out).all()),
+              f"{what}: logits {tuple(out.shape)} not finite/shaped")
+        check(torch.equal(out, want), f"{what}: max |delta| {float((out - want).abs().max())} "
+              "against its fake-quant twin")
+        print(f"[4b] cifar10 {what}, B={BATCH}, on-grid batch: logits equal to the fake-quant "
+              "twin bit for bit")
+    for what, out, plain in (("plan (a) fused", logits_a, plain_a), ("plan (c)", logits_c, plain_c)):
+        err = float((out - plain).abs().max())
+        check(torch.allclose(out, plain, rtol=LOGITS_RTOL, atol=LOGITS_ATOL),
+              f"{what}: max |delta| {err} against the plain forward")
+        print(f"[4b] cifar10 {what}, B={BATCH}: logits max |delta| {err:.3e} against the "
+              "plain-version forward")
+    st_b = eng_b.stats()
+    for f, got in zip(q_frames, results_b):
+        want = plan_b(f).cpu()
+        check(torch.equal(got, want), f"engine (b) logits max |delta| "
+              f"{float((got - want).abs().max())} against plan(x)")
+    check(eng_b.rung == "fused", f"engine (b) rung {eng_b.rung!r}")
+    check(eng_b.demotions == [], f"engine (b) demotions {eng_b.demotions}")
+    check(st_b.n_retries == 0, f"engine (b) retries {st_b.n_retries}")
+    check(st_b.n_ok == len(frames) and st_b.n_errors == 0, f"engine (b) outcomes: {st_b.summary()}")
+    for key in ("stream_conv_pyramid_int8", "stream_conv_fused_int8", "pow2_matmul",
+                "pow2_matmul_int"):
+        check(int8_launches[key] > 0, f"the int8 and pow2 path never launched {key}")
+    lat = st_b.rung_latency_ms["fused"]
+    print(f"[5b] engine on plan (b): {len(frames)} requests / {n_frames} frames on rung "
+          f"{eng_b.rung}, p50 {lat['p50_ms']:.3f} ms p99 {lat['p99_ms']:.3f} ms, "
+          f"{st_b.frames_per_s:.0f} frames/s busy, {n_frames / wall_b:.0f} frames/s wall, "
+          f"{st_b.n_batches} micro-batches, 0 retries, 0 demotions, every answer equal to plan(x)")
+    print(f"[5b] int8 and pow2 path launches: {int8_launches}")
+
     # -- 6. timing at main-path shapes -------------------------------------------
     def time_ms(fn, iters=50, warmup=5):
         for _ in range(warmup):
@@ -257,10 +445,11 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    def cost(layer_idxs):
-        """(FLOPs, bytes) of a run of cifar10 conv layers at B=BATCH: 2 per
-        conv MAC over the frame's real outputs; the input, weights and
-        biases read once and the output written once, in fp32."""
+    def cost(layer_idxs, code_bytes=4):
+        """(operations, bytes) of a run of cifar10 conv layers at B=BATCH: 2
+        per conv MAC over the frame's real outputs; the input and weights
+        read once at ``code_bytes`` per element (4 fp32, 1 int8 codes), the
+        biases read once and the output written once in fp32."""
         hh, ww = topo.input_shape
         cc = topo.input_channels
         flops, nbytes = 0, 0
@@ -268,17 +457,17 @@ def main() -> None:
             hc, wc = spec.conv_hw(hh, ww)
             if i in layer_idxs:
                 if i == layer_idxs[0]:
-                    nbytes += BATCH * hh * ww * cc * 4
+                    nbytes += BATCH * hh * ww * cc * code_bytes
                 flops += 2 * BATCH * hc * wc * spec.kernel ** 2 * cc * spec.n_out
-                nbytes += (spec.kernel ** 2 * cc + 1) * spec.n_out * 4
+                nbytes += spec.kernel ** 2 * cc * spec.n_out * code_bytes + spec.n_out * 4
             hh, ww = spec.out_hw(hh, ww)
             cc = spec.n_out
             if i == layer_idxs[-1]:
                 nbytes += BATCH * hh * ww * cc * 4
         return flops, nbytes
 
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S
+    def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
     ws = [p["w"] for p in plan.conv_params]
@@ -344,9 +533,109 @@ def main() -> None:
         ms=tot["ms"], plain_ms=tot["plain"], bound_ms=b_ms, bound_by=b_by,
         library_ms=tot["lib"],
     ))
+
+    # The int8 kernels, timed at their own wrappers on the codes the plan
+    # hands them (frame quantized and, for the single layer, padded): the
+    # host-side quantize is not the kernel's. The library yardstick is the
+    # fp32 cuDNN chain on the same shapes: PyTorch has no int8 conv on CUDA.
+    ws8 = [p["w"] for p in plan_a.conv_params]
+    bs8 = [p["b"] for p in plan_a.conv_params]
+    sc8 = plan_a.int8_scales
+    bits8 = (INT8_BITS,) * len(specs)
+    g8 = group_geometry(h, w, topo.input_channels, pyr_layers, tuple(s.kernel for s in specs),
+                        tuple(s.n_out for s in specs),
+                        block_rows=plan_a.fusion_groups[0].block_rows)
+    x8 = quantize_stream(xq, INT8_BITS)
+    ms = time_ms(lambda: kconv.stream_conv_pyramid_cuda(x8, ws8, bs8, geom=g8, act_bits=bits8,
+                                                        int8_scales=sc8))
+    plain = time_ms(lambda: stream_conv_pyramid_ref(xq, ws8, bs8, layers=pyr_layers,
+                                                    act_bits=bits8, int8_scales=sc8))
+    lib = time_ms(lambda: library_chain((0, 1, 2), x_nchw))
+    b_ms, b_by = bound(*cost((0, 1, 2), code_bytes=1), peak=PEAK_INT8_OPS)
+    print(f"[6] int8 pyramid cifar10 B={BATCH}: {ms:.4f} ms, plain {plain:.4f} ms, library "
+          f"(fp32 cuDNN chain) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    kernels.append(dict(
+        name="stream_conv_pyramid_int8", route="cuda", source="src/repro_torch/csrc/stream_conv.cu",
+        replaces="src/repro/kernels/stream_conv/conv.py:440",
+        launches=int8_launches["stream_conv_pyramid_int8"],
+        max_abs_err=errs["stream_conv_pyramid_int8"],
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+    ))
+    layers_in8 = [xq]
+    for spec, p, sc in zip(specs, plan_a.conv_params, sc8):
+        layers_in8.append(stream_conv_block_ref(
+            layers_in8[-1], p["w"], p["b"], padding=spec.padding, act=spec.act, pool=spec.pool,
+            act_bits=INT8_BITS, int8_scales=sc))
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "flops": 0, "bytes": 0}
+    for i, spec in enumerate(specs):
+        xi, p, sc = layers_in8[i], plan_a.conv_params[i], sc8[i]
+        codes_i = _pad_same(quantize_stream(xi, sc.in_bits), spec.kernel).contiguous()
+        kw = dict(padding=spec.padding, act=spec.act, pool=spec.pool, act_bits=INT8_BITS,
+                  int8_scales=sc)
+        t_k = time_ms(lambda: kconv.stream_conv_fused_cuda(
+            codes_i, p["w"], p["b"], act=spec.act, pool=spec.pool, act_bits=INT8_BITS,
+            int8_scales=sc))
+        t_p = time_ms(lambda: stream_conv_block_ref(xi, p["w"], p["b"], **kw))
+        t_l = time_ms(lambda: library_chain((i,), layers_in_nchw[i]))
+        f_i, b_i = cost((i,), code_bytes=1)
+        lb_ms, lb_by = bound(f_i, b_i, peak=PEAK_INT8_OPS)
+        print(f"[6] int8 single-layer cifar10 layer {i} B={BATCH}: {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, library (fp32 cuDNN) {t_l:.4f} ms, bound {lb_ms:.4f} ms ({lb_by})")
+        for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l), ("flops", f_i), ("bytes", b_i)):
+            tot[key] += val
+    b_ms, b_by = bound(tot["flops"], tot["bytes"], peak=PEAK_INT8_OPS)
+    print(f"[6] int8 single-layer cifar10 stack (3 launches): {tot['ms']:.4f} ms, plain "
+          f"{tot['plain']:.4f} ms, library {tot['lib']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    kernels.append(dict(
+        name="stream_conv_fused_int8", route="cuda", source="src/repro_torch/csrc/stream_conv.cu",
+        replaces="src/repro/kernels/stream_conv/conv.py:168",
+        launches=int8_launches["stream_conv_fused_int8"],
+        max_abs_err=errs["stream_conv_fused_int8"],
+        ms=tot["ms"], plain_ms=tot["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=tot["lib"],
+    ))
+
+    # pow2_matmul at the cifar10 head's two shapes, summed (one head).
+    for mode in ("pow2_matmul", "pow2_matmul_int"):
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+        bound_by = set()
+        for shape in POW2_SHAPES[:2]:
+            m, k, n = shape
+            xg, packed, scale = pow2_cases[shape]
+            w_dec = decode_pow2(unpack_codes_u4(packed), torch.ones((), device=dev))[:, :n].contiguous()
+            if mode == "pow2_matmul":
+                t_k = time_ms(lambda: kpow2.pow2_matmul_cuda(xg, packed, scale))
+                t_p = time_ms(lambda: pow2_matmul_ref(xg, packed, scale))
+                ops, peak, x_bytes = 2 * m * k * n, PEAK_FP32_FLOPS, 4 * m * k
+            else:
+                xc = quantize_fixed(xg, qspec8).to(torch.int8)
+                t_k = time_ms(lambda: kpow2.pow2_matmul_cuda(xc, packed, scale,
+                                                             x_scale=qspec8.scale))
+                t_p = time_ms(lambda: pow2_matmul_int_ref(xg, packed, scale, x_spec=qspec8))
+                ops, peak, x_bytes = 2 * m * k * n, PEAK_INT8_OPS, m * k
+            t_l = time_ms(lambda: torch.matmul(xg, w_dec) * scale)
+            nbytes = x_bytes + packed.numel() + 4 * n + 4 * m * n
+            t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES_S
+            bound_by.add("operations" if t_ops >= t_bytes else "bytes")
+            print(f"[6] {mode} {shape}: {t_k:.4f} ms, plain {t_p:.4f} ms, library "
+                  f"(torch.matmul on decoded weights) {t_l:.4f} ms, bound "
+                  f"{max(t_ops, t_bytes) * 1e3:.6f} ms")
+            for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l),
+                             ("bound", max(t_ops, t_bytes) * 1e3)):
+                tot[key] += val
+        kernels.append(dict(
+            name=mode, route="cuda", source="src/repro_torch/csrc/pow2_matmul.cu",
+            replaces="src/repro/kernels/pow2_matmul/pow2.py:77",
+            launches=int8_launches[mode], max_abs_err=errs[mode],
+            ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
+            bound_by="bytes" if "bytes" in bound_by else "operations", library_ms=tot["lib"],
+        ))
     fwd_ms = time_ms(lambda: plan(x), iters=20)
     fwd0_ms = time_ms(lambda: plan0(x), iters=20)
     print(f"[6] cifar10 plan(x) B={BATCH}: fused {fwd_ms:.4f} ms, vmem_budget=0 {fwd0_ms:.4f} ms")
+    plan_ms = {name_: time_ms(lambda: p_(xq), iters=20)
+               for name_, p_ in (("(a) fused", plan_a), ("(a) vmem_budget=0", plan_a0),
+                                 ("(b)", plan_b), ("(c)", plan_c))}
+    print(f"[6] cifar10 plan(x) B={BATCH}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in plan_ms.items()))
     # One serving micro-batch, piece by piece: the host-to-card copy of a
     # packed batch, the conv features (one pyramid launch), the FC head,
     # and the logits' copy back; beside the Engine's host-clock time per

@@ -14,12 +14,15 @@ lowering path:
    launch of the pyramid kernel, a singleton as one launch of the
    single-layer kernel.
 5. **Emit** per-stage closures with the quantization baked in: weights
-   fake-quantized once at compile time, the feature stream quantized in
-   the kernels' epilogue (``act_bits``).
+   fake-quantized, pow2-projected or baked to int8 codes once at compile
+   time, the feature stream quantized in the kernels' epilogue
+   (``act_bits``). Under ``int8_compute`` the conv kernels run their int8
+   variants; under ``pow2_weights`` (with no ``weight_bits``) the FC head
+   runs through the packed ``pow2_matmul`` kernel, in integers when the
+   plan is also ``int8_compute``.
 
 The plan lives on one device: the card unless ``device="cpu"``, where the
-kernel wrappers run their plain versions. True-int8 plans and the packed
-pow2 head are later slices of the port and raise ``NotImplementedError``.
+kernel wrappers run their plain versions.
 """
 from __future__ import annotations
 
@@ -30,14 +33,26 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from repro_torch.core.dhm.fusion import DEFAULT_VMEM_BUDGET, plan_fusion_groups
+from repro_torch.core.dhm.fusion import (
+    DEFAULT_VMEM_BUDGET,
+    plan_elem_bytes,
+    plan_fusion_groups,
+)
 from repro_torch.core.dhm.graph import DataflowGraph, cnn_to_dpn
 from repro_torch.core.dhm.mapping import StageAssignment, partition_stages
 from repro_torch.core.dhm.pipeline import StageIOSpec
-from repro_torch.core.quant.fixed_point import fake_quant_dynamic, fake_quant_ste
+from repro_torch.core.quant.fixed_point import (
+    dynamic_spec,
+    fake_quant_dynamic,
+    fake_quant_ste,
+    quantize_fixed,
+)
+from repro_torch.core.quant.pow2 import project_pow2, project_pow2_ste
 from repro_torch.kernels.backends import resolve_device
+from repro_torch.kernels.pow2_matmul import pow2_matmul, quantize_weights
 from repro_torch.kernels.stream_conv.epilogue import (
     ACTS,
+    Int8Scales,
     normalize_pool,
     stream_quant_spec,
 )
@@ -64,8 +79,13 @@ class QuantSpec:
     power-of-two scales, STE gradients). ``act_bits``: fixed-point width of
     the inter-actor feature stream, applied inside the kernel epilogue.
     ``per_layer_bits``: per-conv-layer widths overriding both for that
-    layer. ``pow2_weights`` and ``int8_compute`` are part of the contract
-    but not yet lowered by the port (``compile_dhm`` raises).
+    layer. ``pow2_weights``: project weights onto the {0, ±2^k} codebook;
+    the FC head then runs through the packed ``pow2_matmul`` kernel (when
+    no ``weight_bits`` is stacked on top). ``int8_compute``: run the conv
+    layers in true integer arithmetic (int8 weight codes with a static
+    pow2 scale, int8 stream codes, int32 accumulation); requires a weight
+    AND act width (<= 8) for every conv layer. Int8 plans are
+    forward-only.
     """
 
     weight_bits: Optional[int] = None
@@ -219,6 +239,7 @@ def emit_conv_stage(
     specs: Sequence,
     *,
     act_bits=None,  # int | None | per-layer tuple
+    int8_scales: Optional[Sequence] = None,  # per-layer Int8Scales | None
     block_r: int = 8,
     groups: Optional[Sequence] = None,
 ) -> Callable:
@@ -230,6 +251,9 @@ def emit_conv_stage(
     ``stream_conv_pyramid`` launch; a singleton through one
     ``stream_conv_block`` launch (``block_r`` conv rows per CUDA block).
     ``groups=None`` means all-singleton — the per-layer stage body.
+    ``int8_scales`` (one ``Int8Scales`` per stage layer) switches the
+    kernels to their int8 variants; ``params`` then hold int8 weight
+    codes.
 
     The returned ``stage_fn(params, x)`` runs the stage on the device of
     ``x``; ``params`` is a list with one ``{"w", "b"}`` dict per layer (a
@@ -251,6 +275,12 @@ def emit_conv_stage(
     if len(bits) != len(specs):
         raise ValueError(
             f"act_bits tuple has {len(bits)} entries for a "
+            f"{len(specs)}-layer stage"
+        )
+    scales = None if int8_scales is None else tuple(int8_scales)
+    if scales is not None and len(scales) != len(specs):
+        raise ValueError(
+            f"int8_scales has {len(scales)} entries for a "
             f"{len(specs)}-layer stage"
         )
     layer_kw = []
@@ -280,8 +310,9 @@ def emit_conv_stage(
             if len(g) == 1:
                 p = layer_params[g[0]]
                 x = stream_conv_block(
-                    x, p["w"], p["b"], act_bits=bits[g[0]], block_r=block_r,
-                    **layer_kw[g[0]],
+                    x, p["w"], p["b"], act_bits=bits[g[0]],
+                    int8_scales=None if scales is None else scales[g[0]],
+                    block_r=block_r, **layer_kw[g[0]],
                 )
             else:
                 x = stream_conv_pyramid(
@@ -290,6 +321,9 @@ def emit_conv_stage(
                     [layer_params[li]["b"] for li in g],
                     layers=[specs[li] for li in g],
                     act_bits=tuple(bits[li] for li in g),
+                    int8_scales=(
+                        None if scales is None else tuple(scales[li] for li in g)
+                    ),
                     block_rows=block_rows,
                 )
         return x
@@ -302,42 +336,115 @@ def emit_conv_stage(
 
 
 def _bake_conv_params(conv_params, quant: QuantSpec, device) -> tuple:
-    """Fixed-point fake-quant of every conv tensor (dynamic pow2 scales),
-    once, at compile time; float32 contiguous tensors on ``device``."""
-    out = []
+    """Bake every conv tensor once, at compile time, onto ``device``, in
+    the reference's order: pow2 projection first, then fixed-point
+    fake-quant (dynamic pow2 scales).
+
+    Returns ``(baked_params, w_scales)``. Under ``quant.int8_compute`` the
+    weights bake to int8 CODES on the grid ``fake_quant_dynamic`` would
+    use (``codes * scale == fake_quant_dynamic(w, bits)`` exactly) and
+    ``w_scales`` carries each layer's static pow2 scale; otherwise
+    ``w_scales`` is None."""
+    out, w_scales = [], []
     for i, p in enumerate(conv_params):
         w = p["w"].to(device, torch.float32).contiguous()
         b = p["b"].to(device, torch.float32).contiguous()
         wb = quant.conv_weight_bits(i)
-        if wb is not None:
-            w = fake_quant_dynamic(w, wb).contiguous()
-            b = fake_quant_dynamic(b, wb).contiguous()
-        out.append({"w": w, "b": b})
-    return tuple(out)
+        if quant.pow2_weights:
+            w = project_pow2_ste(w)
+        if quant.int8_compute:
+            wspec = dynamic_spec(w, wb)
+            w = quantize_fixed(w, wspec).to(torch.int8)
+            b = fake_quant_dynamic(b, wb)
+            w_scales.append(float(wspec.scale))
+        elif wb is not None:
+            w = fake_quant_dynamic(w, wb)
+            b = fake_quant_dynamic(b, wb)
+        out.append({"w": w.contiguous(), "b": b.contiguous()})
+    return tuple(out), (tuple(w_scales) if quant.int8_compute else None)
 
 
-def _emit_head(fc_params, quant: QuantSpec, device) -> tuple:
+class _Pow2LinearSTE(torch.autograd.Function):
+    """Forward through the packed pow2 kernel; backward straight-through,
+    as if the layer were ``x @ project_pow2(w)``."""
+
+    @staticmethod
+    def forward(ctx, x, w, packed, scale, x_spec):
+        ctx.save_for_backward(x, w)
+        return pow2_matmul(x, packed, scale, x_spec=x_spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        w_proj = project_pow2(w, channel_axis=1)
+        return (
+            torch.matmul(g, w_proj.T.to(g.dtype)),
+            torch.matmul(x.T.to(g.dtype), g),  # STE: identity through the projection
+            None, None, None,
+        )
+
+
+def _pow2_linear_ste(x, w, x_spec=None, *, packed=None, scale=None):
+    """``x @ decode(pack(w))`` through the packed pow2 kernel, with
+    straight-through gradients (so pow2 QAT keeps training). A static
+    ``x_spec`` (the activation's fixed-point grid) forwards through the
+    true-integer rendering. ``packed``/``scale`` are ``quantize_weights(w)``
+    when the caller baked them already (the compiled head does, once)."""
+    if packed is None:
+        packed, scale = quantize_weights(w)
+    return _Pow2LinearSTE.apply(x, w, packed, scale, x_spec)
+
+
+def _emit_head(fc_params, quant: QuantSpec, device, head_in_bits=None) -> tuple:
     """Emit the classifier head: flatten -> FC stack (tanh + feature-stream
     quant between hidden layers; logits unquantized, as in the reference).
-    The products are ``torch.matmul`` in float32; PyTorch's default keeps
-    TF32 off for them (``torch.backends.cuda.matmul.allow_tf32``). Returns
-    ``(head_fn, baked_params)``."""
+    Dense products are ``torch.matmul`` in float32; PyTorch's default keeps
+    TF32 off for them (``torch.backends.cuda.matmul.allow_tf32``).
+
+    With the packed pow2 head each FC runs through ``pow2_matmul`` on codes
+    packed once here. Under ``int8_compute`` (with ``act_bits``) it runs in
+    integers: the first FC's input grid is the LAST conv layer's stream
+    spec (``head_in_bits``), later FCs see the head's own ``act_bits``
+    stream quant. Returns ``(head_fn, baked_params)``."""
     baked = []
     for p in fc_params:
         w = p["w"].to(device, torch.float32)
         b = p["b"].to(device, torch.float32)
+        if quant.pow2_weights and not quant.packed_fc_head:
+            w = project_pow2_ste(w)
         if quant.weight_bits is not None:
             w = fake_quant_dynamic(w, quant.weight_bits)
             b = fake_quant_dynamic(b, quant.weight_bits)
-        baked.append({"w": w, "b": b})
+        entry = {"w": w, "b": b}
+        if quant.packed_fc_head:
+            entry["packed"], entry["scale"] = quantize_weights(w)
+        baked.append(entry)
     qact_spec = (
         stream_quant_spec(quant.act_bits) if quant.act_bits is not None else None
+    )
+    int_head = (
+        quant.int8_compute and quant.packed_fc_head and quant.act_bits is not None
+    )
+    # The activation grid each FC's input lives on: the conv stream for the
+    # first FC, the head's own stream quant after that.
+    first_spec = (
+        stream_quant_spec(
+            head_in_bits if head_in_bits is not None else quant.act_bits
+        )
+        if int_head
+        else None
     )
 
     def head_fn(h):
         h = h.reshape(h.shape[0], -1)
         for i, p in enumerate(baked):
-            h = torch.matmul(h, p["w"]) + p["b"]
+            if quant.packed_fc_head:
+                x_spec = (first_spec if i == 0 else qact_spec) if int_head else None
+                h = _pow2_linear_ste(
+                    h, p["w"], x_spec, packed=p["packed"], scale=p["scale"]
+                ) + p["b"]
+            else:
+                h = torch.matmul(h, p["w"]) + p["b"]
             if i < len(baked) - 1:
                 h = torch.tanh(h)
                 if qact_spec is not None:
@@ -379,9 +486,10 @@ class CompiledDHM:
     stages: tuple
     conv_params: tuple  # per conv layer {"w", "b"}, quantization baked
     head_fn: Callable
-    fc_params: tuple = ()  # per FC layer {"w", "b"}, quantization baked
+    fc_params: tuple = ()  # per FC layer {"w", "b"[, "packed", "scale"]}, baked
     vmem_budget: int = DEFAULT_VMEM_BUDGET
     block_r: int = 8
+    int8_scales: tuple = ()  # per conv layer Int8Scales when int8_compute
 
     @property
     def n_stages(self) -> int:
@@ -389,15 +497,17 @@ class CompiledDHM:
 
     def stage_quant_kwargs(self, stage: int) -> dict:
         """The quantization kwargs ``emit_conv_stage`` needs to re-emit
-        stage ``stage``'s body (the Engine's per-layer rung)."""
-        if not self.quant.mixed_bitwidth:
+        stage ``stage``'s body (the Engine's per-layer rung must inherit the
+        plan's int8 / mixed-bitwidth contract, not just ``act_bits``)."""
+        st = self.stages[stage]
+        if not self.int8_scales and not self.quant.mixed_bitwidth:
             return {"act_bits": self.quant.act_bits}
-        return {
-            "act_bits": tuple(
-                self.quant.conv_act_bits(i)
-                for i in self.stages[stage].conv_layers
-            )
+        kw = {
+            "act_bits": tuple(self.quant.conv_act_bits(i) for i in st.conv_layers)
         }
+        if self.int8_scales:
+            kw["int8_scales"] = tuple(self.int8_scales[i] for i in st.conv_layers)
+        return kw
 
     @property
     def fusion_groups(self) -> tuple:
@@ -496,18 +606,6 @@ def compile_dhm(
         fuses into one group; 0 = per-layer plan).
     """
     dev = resolve_device(device)
-    if quant.int8_compute:
-        raise NotImplementedError(
-            "int8_compute plans are not lowered by the port yet: the int8 "
-            "pyramid and single-layer kernels are the next slice "
-            "(ROADMAP.md, Queue 1, next slice)"
-        )
-    if quant.pow2_weights:
-        raise NotImplementedError(
-            "pow2_weights plans are not lowered by the port yet: "
-            "pow2_matmul and the packed pow2 head are the next slice "
-            "(ROADMAP.md, Queue 1, next slice)"
-        )
     validate_topology(topo)
     n_conv = len(topo.conv_layers)
     if not 1 <= n_stages <= n_conv:
@@ -527,7 +625,17 @@ def compile_dhm(
 
     graph = _cached_dpn(topo, quant.stream_bits)
     assignment = _cached_layout(topo, quant.stream_bits, n_stages)
-    conv_params = _bake_conv_params(params["conv"], quant, dev)
+    conv_params, w_scales = _bake_conv_params(params["conv"], quant, dev)
+    if quant.int8_compute:
+        # Layer i's input stream is layer i-1's quantized output; layer 0
+        # quantizes the frame onto its own stream grid.
+        int8_scales = tuple(
+            Int8Scales(in_bits=quant.conv_act_bits(max(i - 1, 0)), w_scale=w_scales[i])
+            for i in range(n_conv)
+        )
+    else:
+        int8_scales = ()
+    elem_bytes = plan_elem_bytes(quant)
     per_layer_act = tuple(quant.conv_act_bits(i) for i in range(n_conv))
 
     stages = []
@@ -540,7 +648,9 @@ def compile_dhm(
         for spec in specs:
             h, w = spec.out_hw(h, w)
             c = spec.n_out
-        groups = plan_fusion_groups(topo, idxs, vmem_budget=budget)
+        groups = plan_fusion_groups(
+            topo, idxs, vmem_budget=budget, elem_bytes=elem_bytes
+        )
         local_groups = tuple(
             (tuple(li - idxs[0] for li in g.layers), g.block_rows)
             for g in groups
@@ -557,6 +667,11 @@ def compile_dhm(
                         if quant.mixed_bitwidth
                         else quant.act_bits
                     ),
+                    int8_scales=(
+                        tuple(int8_scales[i] for i in idxs)
+                        if quant.int8_compute
+                        else None
+                    ),
                     block_r=block_r,
                     groups=local_groups,
                 ),
@@ -566,7 +681,9 @@ def compile_dhm(
             )
         )
 
-    head_fn, fc_params = _emit_head(params["fc"], quant, dev)
+    head_fn, fc_params = _emit_head(
+        params["fc"], quant, dev, head_in_bits=per_layer_act[-1]
+    )
     return CompiledDHM(
         topo=topo,
         quant=quant,
@@ -579,4 +696,5 @@ def compile_dhm(
         fc_params=fc_params,
         vmem_budget=budget,
         block_r=block_r,
+        int8_scales=int8_scales,
     )

@@ -1,1 +1,2 @@
-"""Quantization of the port (fixed-point Q-formats)."""
+"""Quantization of the port: fixed-point Q-formats, the pow2 codebook and
+4-bit code packing."""

@@ -37,8 +37,9 @@ class Int8Scales:
     ``in_bits`` names the input stream's Q-format (the producer's
     ``act_bits``); ``w_scale`` is the baked weights' static pow2 scale, so
     the int32 accumulator dequantizes with one exact pow2 multiply
-    (``in_scale * w_scale``). The port carries the descriptor for API
-    parity; int8 kernels land in a later slice.
+    (``in_scale * w_scale``) back to the fp32 values the fake-quant plan
+    computes. The int8 kernels (``csrc/stream_conv.cu``) take
+    ``deq_scale`` as their dequantization factor.
     """
 
     in_bits: int
@@ -126,10 +127,21 @@ def _maxpool_window(y: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     return out
 
 
+def quantize_stream(x: torch.Tensor, act_bits: int) -> torch.Tensor:
+    """Quantize fp32 values onto the ``act_bits`` stream grid as int8
+    CODES (value = code * scale). Exact (a pure representation change)
+    when ``x`` already sits on the grid, which every fused-kernel boundary
+    guarantees. int8 holds any stream code: ``act_bits <= 8`` is enforced
+    by the compile-time ``int8_compute`` validation."""
+    spec = stream_quant_spec(act_bits)
+    q = torch.clamp(torch.round(x / spec.scale), spec.qmin, spec.qmax)
+    return q.to(torch.int8)
+
+
 def apply_epilogue(
     y: torch.Tensor, bias: torch.Tensor, *, act: str, pool: int,
     pool_stride: int | None = None, act_bits: int | None = None,
-    pool_first: bool = False,
+    pool_first: bool = False, codes_out: bool = False,
 ) -> torch.Tensor:
     """y: (..., H, W, N) f32; bias: (N,). Returns the block after
     bias + activation + optional pool x pool / pool_stride max-pool (VALID
@@ -140,8 +152,15 @@ def apply_epilogue(
     cross-layer pyramid kernel. Max-pool commutes with the monotone
     activations, so both orders agree; the single-layer kernel keeps the
     paper's conv -> act -> pool order.
+
+    ``codes_out=True`` (true-int8 pyramid interiors) returns the stream
+    quantization's int8 CODES instead of the dequantized fp32 values: the
+    inter-layer slab the next layer's integer product consumes. Requires
+    ``act_bits``.
     """
     validate_epilogue(act, pool, pool_stride, act_bits)
+    if codes_out and act_bits is None:
+        raise ValueError("codes_out requires act_bits")
     pw, ps = normalize_pool(pool, pool_stride)
     y = y + bias.to(torch.float32)
     if pool_first and pw:
@@ -155,5 +174,5 @@ def apply_epilogue(
     if act_bits is not None:
         spec = stream_quant_spec(act_bits)
         q = torch.clamp(torch.round(y / spec.scale), spec.qmin, spec.qmax)
-        y = q * spec.scale
+        y = q.to(torch.int8) if codes_out else q * spec.scale
     return y

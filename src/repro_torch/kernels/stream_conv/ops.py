@@ -22,6 +22,7 @@ from repro_torch.kernels.stream_conv.conv import (
 )
 from repro_torch.kernels.stream_conv.epilogue import (
     normalize_pool,
+    quantize_stream,
     validate_epilogue,
 )
 from repro_torch.kernels.stream_conv.halo import (
@@ -84,6 +85,26 @@ def _validate_fused(x, w, b, *, padding, stride, act, pool, pool_stride,
         raise ValueError(f"conv output {h_out}x{w_out} too small for {pw}x{pw} pool")
 
 
+def _validate_int8(int8_scales, act_bits, w) -> None:
+    if int8_scales is None:
+        return
+    if act_bits is None:
+        raise ValueError("int8_scales requires act_bits (the stream grid)")
+    if w.dtype.is_floating_point or not w.dtype.is_signed:
+        raise ValueError(
+            f"int8_scales requires int8 weight codes, got {w.dtype} — bake "
+            "weights with quantize_fixed(w, dynamic_spec(w, bits))"
+        )
+
+
+def _as_codes(x: torch.Tensor, in_bits: int) -> torch.Tensor:
+    """Quantize a float frame onto the input stream grid as int8 codes
+    BEFORE the launch (the reference does it outside its pallas_call too):
+    the kernel's resident frame is 1 byte/element. Integer input is taken
+    as codes already."""
+    return quantize_stream(x, in_bits) if x.is_floating_point() else x
+
+
 def stream_conv2d(
     x: torch.Tensor,  # (B, H, W, C)
     w: torch.Tensor,  # (K, K, C, N) HWIO
@@ -112,28 +133,39 @@ def stream_conv_block(
     pool: int = 2,
     pool_stride: int | None = None,
     act_bits: int | None = None,
+    int8_scales=None,
     block_r: int = 8,
 ) -> torch.Tensor:
     """Fused conv -> bias -> act -> NxN/stride-s-max-pool block (one DHM
     pipeline stage). ``pool=0`` disables pooling, ``pool_stride=None``
     means window == stride; ``act_bits`` quantizes the output feature
     stream inside the same fused epilogue. ``block_r`` is the conv rows a
-    CUDA block streams (rounded to the halo rule's multiple)."""
+    CUDA block streams (rounded to the halo rule's multiple).
+
+    ``int8_scales`` (an ``epilogue.Int8Scales``) switches to true integer
+    arithmetic: ``w`` must be int8 weight codes, the input is quantized
+    onto its stream grid (exact for on-grid values), and the conv sums
+    int8 x int8 products into int32 before the requantizing epilogue —
+    fp32 values on the ``act_bits`` grid out."""
     _validate_fused(
         x, w, b, padding=padding, stride=stride, act=act, pool=pool,
         pool_stride=pool_stride, act_bits=act_bits,
     )
+    _validate_int8(int8_scales, act_bits, w)
     if not _on_cuda(x):
         return stream_conv_block_ref(
             x, w, b, padding=padding, stride=stride, act=act, pool=pool,
             pool_stride=pool_stride, act_bits=act_bits,
+            int8_scales=int8_scales,
         )
+    if int8_scales is not None:
+        x = _as_codes(x, int8_scales.in_bits)  # pad zeros below are code 0
     if padding == "SAME":
         x = _pad_same(x, w.shape[0], stride)
     return stream_conv_fused_cuda(
         x.contiguous(), w.contiguous(), b.contiguous(), stride=stride,
         act=act, pool=pool, pool_stride=pool_stride, act_bits=act_bits,
-        block_r=block_r,
+        int8_scales=int8_scales, block_r=block_r,
     )
 
 
@@ -144,6 +176,7 @@ def stream_conv_pyramid(
     *,
     layers,  # sequence of layer specs (padding/stride/act/pool[/pool_stride])
     act_bits=None,  # int | None | per-layer tuple
+    int8_scales=None,  # None | per-layer tuple of Int8Scales
     block_rows: int = 0,
 ) -> torch.Tensor:
     """Cross-layer fused conv pyramid: a whole fusion group of consecutive
@@ -151,7 +184,13 @@ def stream_conv_pyramid(
     inter-layer slab in shared memory. ``block_rows`` sets the final
     output rows one CUDA block streams (0 = whole frame; the input halo is
     the composed per-layer requirement of ``halo.group_geometry``).
-    ``act_bits`` may be a per-layer tuple (mixed-bitwidth plans)."""
+    ``act_bits`` may be a per-layer tuple (mixed-bitwidth plans).
+
+    ``int8_scales`` (per-layer tuple of ``Int8Scales``) selects true
+    integer arithmetic: the frame is quantized onto layer 0's stream grid
+    before the launch (1-byte frame), interior layers consume and emit
+    int8 stream codes, and each ``Int8Scales.in_bits`` must name the
+    previous layer's ``act_bits`` (the code chain contract)."""
     weights = tuple(weights)
     biases = tuple(biases)
     layers = tuple(layers)
@@ -175,11 +214,29 @@ def stream_conv_pyramid(
             f"act_bits tuple has {len(bits)} entries for "
             f"{len(layers)} layers"
         )
+    if int8_scales is not None:
+        int8_scales = tuple(int8_scales)
+        if len(int8_scales) != len(layers):
+            raise ValueError(
+                f"int8_scales has {len(int8_scales)} entries for "
+                f"{len(layers)} layers"
+            )
+        for li, (sc, w) in enumerate(zip(int8_scales, weights)):
+            _validate_int8(sc, bits[li], w)
+            if li and sc.in_bits != bits[li - 1]:
+                raise ValueError(
+                    f"pyramid layer {li}: in_bits={sc.in_bits} must equal "
+                    f"the previous layer's act_bits={bits[li - 1]} (the "
+                    "inter-layer code chain)"
+                )
     pyr = as_pyramid_layers(layers)
     if not _on_cuda(x):
         return stream_conv_pyramid_ref(
-            x, weights, biases, layers=pyr, act_bits=bits
+            x, weights, biases, layers=pyr, act_bits=bits,
+            int8_scales=int8_scales,
         )
+    if int8_scales is not None:
+        x = _as_codes(x, int8_scales[0].in_bits)
     b_, h, w, c = x.shape
     geom = group_geometry(
         h, w, c, pyr, tuple(wt.shape[0] for wt in weights),
@@ -188,4 +245,5 @@ def stream_conv_pyramid(
     return stream_conv_pyramid_cuda(
         x.contiguous(), [wt.contiguous() for wt in weights],
         [bs.contiguous() for bs in biases], geom=geom, act_bits=bits,
+        int8_scales=int8_scales,
     )

@@ -32,6 +32,7 @@ from repro_torch.core.quant.fixed_point import (
     fake_quant_dynamic,
     fake_quant_ste,
 )
+from repro_torch.core.quant.pow2 import project_pow2_ste
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.kernels.stream_conv.halo import same_pads
 
@@ -254,16 +255,21 @@ def cnn_apply(
     *,
     weight_bits: int | None = None,
     act_bits: int | None = None,
+    pow2_weights: bool = False,
     vmem_budget: int | None = None,
 ) -> torch.Tensor:
     """Forward pass through the DHM compiler on the device of ``x``.
-    x: (B, H, W, C) NHWC -> logits (B, n_classes)."""
+    x: (B, H, W, C) NHWC -> logits (B, n_classes). ``pow2_weights``
+    projects every weight onto the {0, ±2^k} codebook (STE) and runs the FC
+    head through the packed ``pow2_matmul`` kernel."""
     from repro_torch.core.dhm.compiler import QuantSpec, compile_dhm
     from repro_torch.core.dhm.engine import forward
 
     plan = compile_dhm(
         topo, params,
-        quant=QuantSpec(weight_bits=weight_bits, act_bits=act_bits),
+        quant=QuantSpec(
+            weight_bits=weight_bits, act_bits=act_bits, pow2_weights=pow2_weights
+        ),
         device=x.device, vmem_budget=vmem_budget,
     )
     return forward(plan, x)
@@ -276,9 +282,18 @@ def cnn_apply_reference(
     *,
     weight_bits: int | None = None,
     act_bits: int | None = None,
+    pow2_weights: bool = False,
 ) -> torch.Tensor:
     """The hand-composed forward pass (separate conv / bias / pool / act /
     fake-quant ops) — the oracle compiled plans are tested against."""
+    if pow2_weights:
+        params = {
+            group: [
+                {name: project_pow2_ste(t) if t.ndim > 1 else t for name, t in p.items()}
+                for p in layers
+            ]
+            for group, layers in params.items()
+        }
     if weight_bits is not None:
         params = quantize_cnn_params(params, weight_bits)
 

@@ -195,18 +195,6 @@ def test_cnn_apply_and_reference_forward_match(name, bits):
     np.testing.assert_allclose(got, want, **tol)
 
 
-@pytest.mark.parametrize(
-    "quant,item",
-    [(dict(int8_compute=True, weight_bits=8, act_bits=8), "int8"),
-     (dict(pow2_weights=True), "pow2")],
-)
-def test_unported_quant_modes_raise(quant, item):
-    params, _ = _setup("lenet5")
-    with pytest.raises(NotImplementedError, match=item):
-        tcompiler.compile_dhm(TORCH_TOPOLOGIES["lenet5"], params_from_numpy(params, "cpu"),
-                              quant=tcompiler.QuantSpec(**quant), device="cpu")
-
-
 def test_validation_errors_match_reference():
     import dataclasses
 
