@@ -14,6 +14,11 @@ Phases (each asserts or exits non-zero):
      act_bits=6; their int8 variants at act_bits=8 on the same groups and
      layers; pow2_matmul in both modes at the cifar10 and lenet5 head
      shapes;
+  3c. hold the selective scan against its plain version at the
+     falcon-mamba layer (Bz 4, S 512, D 8192, N 16) in bf16 and f32 with
+     zero and carried state, at decode (S = 1) and at a D that block_d
+     does not divide; and the seed conv at the kernel bench's shape, at
+     B=256 and on an odd frame;
   4. the fp32 path: compile cifar10 at full width from seeded params, run
      B=256 through the fused plan and the vmem_budget=0 plan, and compare
      both with the plain-version forward;
@@ -29,16 +34,28 @@ Phases (each asserts or exits non-zero):
      True) against the plain-version forward;
   5b. serve the same burst through Engine(plan (b)) and hold every answer
      bit for bit against plan (b)(x);
+  4c. the fp32 gate: falcon-mamba at full width and depth in float32,
+     drawn on the card; prefill (B=2, S=256) through the kernel against
+     the same prefill through the plain scan, and prefill of S-1 tokens
+     plus one decode_step against the full forward's last two rows;
+  5c. serving at the config's dtype (bf16), full depth: prefill 4
+     prompts of 512 tokens, then 32 greedy decode steps; ssm_scan
+     launched once per layer per call, the plain scan never called;
+  5d. the seed conv's own path, what the kernel bench runs on it: the
+     seed kernel beside the single-layer kernel on cifar10 conv1;
   6. time each kernel, its plain version and the library call with CUDA
      events at main-path shapes, beside the card's bound; then the plans,
-     and one serving micro-batch piece by piece;
+     and one serving micro-batch piece by piece; then the LM's prefill
+     and decode step, with their device time by kernel;
   7. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The launch counts are zeroed just before phase 4 and read just after
-phase 5 (the fp32 path), then zeroed just before phase 4b and read just
-after phase 5b (the int8 and pow2 path): they show that each path went
-through its kernels. Reference outputs that need kernel launches are
-computed before a path's counts are zeroed.
+phase 5 (the fp32 path), zeroed just before phase 4b and read just after
+phase 5b (the int8 and pow2 path), zeroed just before phase 4c's kernel
+runs and read just after phase 5c (the LM path), and zeroed just before
+phase 5d and read just after it: they show that each path went through
+its kernels. Reference outputs that need kernel launches are computed
+before a path's counts are zeroed.
 Imports nothing of JAX and nothing of the reference package.
 """
 from __future__ import annotations
@@ -76,6 +93,26 @@ INT8_BITS = 8
 POW2_RTOL, POW2_ATOL = 1e-5, 1e-6
 # (M, K, N) of the pow2 heads: cifar10's two FC layers, lenet5's two.
 POW2_SHAPES = ((BATCH, 1024, 64), (BATCH, 64, 10), (BATCH, 800, 500), (BATCH, 500, 10))
+# The selective scan against its plain version: (Bz, S, D, N, x/B/C dtype,
+# with h0). The falcon-mamba layer at prefill in bf16 and f32, zero and
+# carried state; decode (S = 1, carried state); a D that block_d=256 does
+# not divide. Both sides compute in f32: the reference's own tolerance.
+SSM_CASES = (("prefill bf16", 4, 512, 8192, 16, "bfloat16", False),
+             ("prefill f32", 4, 512, 8192, 16, "float32", False),
+             ("prefill f32 carried state", 4, 512, 8192, 16, "float32", True),
+             ("decode bf16", 4, 1, 8192, 16, "bfloat16", True),
+             ("decode f32", 4, 1, 8192, 16, "float32", True),
+             ("ragged D", 2, 37, 200, 16, "float32", True))
+# The seed conv: the kernel bench's cifar10-conv1 shape (8 frames of
+# 32x32x3 SAME-padded to 36x36, K 5, N 32), the same at B=256, and an odd
+# frame: (B, H, W, C, N, K).
+SEED_SHAPES = ((8, 36, 36, 3, 32, 5), (BATCH, 36, 36, 3, 32, 5), (3, 13, 17, 5, 7, 3))
+# SFU throughput for expf (16 per clock per SM) and the boost clock at
+# which the published peaks above are taken.
+SFU_PER_CLOCK_PER_SM, N_SMS, BOOST_CLOCK_HZ = 16, 132, 1.98e9
+LM_ARCH = "falcon-mamba-7b"
+LM_GATE_BATCH, LM_GATE_LEN = 2, 256  # the fp32 gate's prompt
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 32  # bf16 serving
 
 
 def check(cond: bool, msg: str) -> None:
@@ -93,6 +130,10 @@ def main() -> None:
     import numpy as np
     import torch.nn.functional as F
 
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.dhm import Engine, QuantSpec, compile_dhm
     from repro_torch.core.dhm.fusion import plan_fusion_groups
     from repro_torch.core.quant.fixed_point import dynamic_spec, quantize_fixed
@@ -106,8 +147,15 @@ def main() -> None:
         pow2_matmul_ref,
         quantize_weights,
     )
+    from repro_torch.kernels.ssm_scan import ops as kssm_ops
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
     from repro_torch.kernels.stream_conv import conv as kconv
+    from repro_torch.kernels.stream_conv import legacy as klegacy
     from repro_torch.kernels.stream_conv import (
+        stream_conv2d,
+        stream_conv2d_ref,
+        stream_conv2d_seed,
         stream_conv_block,
         stream_conv_block_ref,
         stream_conv_pyramid,
@@ -120,6 +168,9 @@ def main() -> None:
     )
     from repro_torch.kernels.stream_conv.ops import _pad_same
     from repro_torch.kernels.stream_conv.halo import as_pyramid_layers, group_geometry
+    from repro_torch.models import ssm as mssm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.accounting import model_flops, param_bytes, param_count
     from repro_torch.models.cnn import ALL_TOPOLOGIES, cnn_apply_reference, init_cnn
 
     torch.backends.cudnn.allow_tf32 = False
@@ -138,7 +189,7 @@ def main() -> None:
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _nvcc.build(["stream_conv", "pow2_matmul"])
+    logs = _nvcc.build(["stream_conv", "pow2_matmul", "ssm_scan", "stream_conv_seed"])
     print(f"[2] nvcc build: {time.perf_counter() - t0:.1f} s"
           + ("" if logs else " (library already built in this checkout)"))
     for name, log in logs.items():
@@ -146,6 +197,8 @@ def main() -> None:
             print(f"[2] {name}.cu: {line}")
     kconv._library()  # loads them and checks the descriptor layouts
     kpow2._library()
+    kscan._library()
+    klegacy._library()
 
     gen = torch.Generator().manual_seed(SEED)
 
@@ -300,6 +353,41 @@ def main() -> None:
               f"{float((out - ref).abs().max())}")
         print(f"[3] pow2_matmul {(m, k, n)}: fp32 decode max |delta| {err:.3e}, integer mode equal")
 
+    # -- 3c. the selective scan and the seed conv against their plain versions --
+    errs.update(ssm_scan=0.0, stream_conv2d_seed=0.0)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def ssm_inputs(bz, s, d, n, dtype, with_h0):
+        x = (randn(bz, s, d) * 0.5).to(dtypes[dtype])
+        dt = F.softplus(randn(bz, s, d))
+        b, c = randn(bz, s, n).to(dtypes[dtype]), randn(bz, s, n).to(dtypes[dtype])
+        a = -torch.exp(randn(d, n) * 0.3)
+        return x, dt, b, c, a, randn(d), (randn(bz, d, n) if with_h0 else None)
+
+    for what, bz, s, d, n, dtype, with_h0 in SSM_CASES:
+        args = ssm_inputs(bz, s, d, n, dtype, with_h0)
+        y, h_last = ssm_scan(*args)
+        y_ref, h_ref = ssm_scan_ref(*args)
+        torch.cuda.synchronize()
+        err = max(float((y - y_ref).abs().max()), float((h_last - h_ref).abs().max()))
+        for name_, got, want in (("y", y, y_ref), ("h_last", h_last, h_ref)):
+            check(got.shape == want.shape and torch.allclose(got, want, rtol=FP32_RTOL,
+                                                             atol=FP32_ATOL),
+                  f"ssm_scan {what} {name_}: max |delta| {float((got - want).abs().max())}")
+        errs["ssm_scan"] = max(errs["ssm_scan"], err)
+        print(f"[3c] ssm_scan {what} (Bz {bz}, S {s}, D {d}, N {n}, {dtype}, "
+              f"h0 {'carried' if with_h0 else 'zero'}): max |delta| {err:.3e}")
+    for b_, h_, w_, c_, n_, k_ in SEED_SHAPES:
+        xs, wt = randn(b_, h_, w_, c_), randn(k_, k_, c_, n_) * 0.2
+        out = stream_conv2d_seed(xs, wt.reshape(k_ * k_, c_, n_), k=k_)
+        ref = stream_conv2d_ref(xs, wt)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(out.shape == ref.shape and torch.allclose(out, ref, rtol=FP32_RTOL, atol=FP32_ATOL),
+              f"seed conv {(b_, h_, w_, c_, n_, k_)}: max |delta| {err}")
+        errs["stream_conv2d_seed"] = max(errs["stream_conv2d_seed"], err)
+        print(f"[3c] seed conv {b_}x{h_}x{w_}x{c_}, K {k_}, N {n_}: max |delta| {err:.3e}")
+
     # -- 4. + 5. the main path, with the launch counts ---------------------------
     topo = ALL_TOPOLOGIES["cifar10"]
     cparams = init_cnn(torch.Generator().manual_seed(SEED), topo, device=dev)
@@ -430,6 +518,124 @@ def main() -> None:
           f"{st_b.frames_per_s:.0f} frames/s busy, {n_frames / wall_b:.0f} frames/s wall, "
           f"{st_b.n_batches} micro-batches, 0 retries, 0 demotions, every answer equal to plan(x)")
     print(f"[5b] int8 and pow2 path launches: {int8_launches}")
+
+    # -- 4c. + 5c. the falcon-mamba LM path, with its own launch counts ----------
+    # The fp32 gate first: full width and depth in float32, prefill through
+    # the kernel against the same prefill through the plain scan, and
+    # prefill + one decode step against the full forward. Then serving at
+    # the config's dtype (bf16). The plain path's reference logits are
+    # computed before the counts are zeroed; every call to the plain scan
+    # through the dispatch is counted, and the serving run must make none.
+    lm_cfg = get_arch(LM_ARCH)
+    cfg32 = dataclasses.replace(lm_cfg, dtype="float32")
+    n_lm_layers = lm_cfg.n_layers
+    kernel_scan = mssm.ssm_scan
+    plain_calls = [0]
+    dispatch_plain = kssm_ops.ssm_scan_ref
+
+    def counted_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return dispatch_plain(*args, **kwargs)
+
+    kssm_ops.ssm_scan_ref = counted_plain
+
+    def plain_scan(x_, dt_, b_, c_, a_, d_skip_, h0_=None, **_):
+        return ssm_scan_ref(x_, dt_, b_, c_, a_, d_skip_, h0_)
+
+    t0 = time.perf_counter()
+    params32 = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg32)
+    torch.cuda.synchronize()
+    print(f"[4c] {LM_ARCH} float32 at full width and depth ({n_lm_layers} layers, "
+          f"{param_count(cfg32):,} params, {param_bytes(cfg32) / 1e9:.1f} GB) drawn on the card "
+          f"in {time.perf_counter() - t0:.1f} s")
+    gate_toks = torch.randint(0, lm_cfg.vocab_size, (LM_GATE_BATCH, LM_GATE_LEN),
+                              generator=gen).to(dev)
+    mssm.ssm_scan = plain_scan
+    try:
+        plain_logits, _ = T.prefill(params32, cfg32, gate_toks, max_len=LM_GATE_LEN + 1)
+        torch.cuda.synchronize()
+    finally:
+        mssm.ssm_scan = kernel_scan
+    kscan.reset_launch_counts()
+    plain_calls[0] = 0
+    logits32, _ = T.prefill(params32, cfg32, gate_toks, max_len=LM_GATE_LEN + 1)
+    h32, _, _ = T.forward_hidden(params32, cfg32, gate_toks)
+    full_last2 = T.unembed(params32, cfg32, h32[:, -2:])
+    pre32, cache32 = T.prefill(params32, cfg32, gate_toks[:, :-1], max_len=LM_GATE_LEN)
+    dec32, _ = T.decode_step(params32, cfg32, gate_toks[:, -1:], cache32, LM_GATE_LEN - 1)
+    torch.cuda.synchronize()
+    gate_launches = kscan.LAUNCHES["ssm_scan"]
+    check(gate_launches == 4 * n_lm_layers, f"fp32 gate launched ssm_scan {gate_launches} times")
+    for what, got, want in (("prefill, kernel vs plain scan", logits32, plain_logits),
+                            ("prefill(S-1) vs full forward row S-2", pre32, full_last2[:, 0]),
+                            ("decode_step vs full forward row S-1", dec32, full_last2[:, 1])):
+        err = float((got - want).abs().max())
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"fp32 gate {what}: {tuple(got.shape)} vs {tuple(want.shape)} or not finite")
+        check(torch.allclose(got, want, rtol=LOGITS_RTOL, atol=LOGITS_ATOL),
+              f"fp32 gate {what}: max |delta| {err}")
+        print(f"[4c] {what}, B={LM_GATE_BATCH}, S={LM_GATE_LEN}: logits max |delta| {err:.3e} "
+              f"(max |logit| {float(want.abs().max()):.3f})")
+    del params32, cache32, h32
+    torch.cuda.empty_cache()
+
+    params16 = T.init_params(torch.Generator(device=dev).manual_seed(SEED), lm_cfg)
+    prompts = torch.randint(0, lm_cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen).to(dev)
+    torch.cuda.synchronize()
+    before = kscan.LAUNCHES["ssm_scan"]
+    t0 = time.perf_counter()
+    lm_logits, lm_cache = T.prefill(params16, lm_cfg, prompts, max_len=LM_PROMPT + LM_NEW)
+    torch.cuda.synchronize()
+    prefill_wall = time.perf_counter() - t0
+    check(kscan.LAUNCHES["ssm_scan"] - before == n_lm_layers,
+          f"prefill launched ssm_scan {kscan.LAUNCHES['ssm_scan'] - before} times")
+    check(lm_logits.shape == (LM_BATCH, lm_cfg.vocab_size) and lm_logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(lm_logits).all()), "bf16 prefill logits not finite/shaped")
+    tok = lm_logits.argmax(-1, keepdim=True)
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(LM_NEW):
+        before = kscan.LAUNCHES["ssm_scan"]
+        lm_logits, lm_cache = T.decode_step(params16, lm_cfg, tok, lm_cache, LM_PROMPT + i)
+        check(kscan.LAUNCHES["ssm_scan"] - before == n_lm_layers,
+              f"decode step {i} launched ssm_scan {kscan.LAUNCHES['ssm_scan'] - before} times")
+        check(bool(torch.isfinite(lm_logits).all()), f"decode step {i}: logits not finite")
+        tok = lm_logits.argmax(-1, keepdim=True)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_wall = time.perf_counter() - t0
+    lm_launches = dict(kscan.LAUNCHES)
+    check(plain_calls[0] == 0, f"the LM path called the plain scan {plain_calls[0]} times")
+    kssm_ops.ssm_scan_ref = dispatch_plain
+    gen_toks = torch.cat(generated, dim=1)
+    print(f"[5c] {LM_ARCH} bf16 serving: prefill {LM_BATCH}x{LM_PROMPT} in "
+          f"{prefill_wall * 1e3:.1f} ms (first call), {LM_NEW} greedy decode steps in "
+          f"{decode_wall * 1e3:.1f} ms; ssm_scan {n_lm_layers} launches per prefill and per "
+          f"step, the plain scan never called; {len(set(gen_toks.flatten().tolist()))} distinct "
+          f"tokens generated, sequence 0 starts {gen_toks[0, :8].tolist()}")
+    print(f"[5c] LM path launches: {lm_launches}")
+
+    # -- 5d. the seed conv's own path: what the kernel bench runs on it ----------
+    # benchmarks/kernel_bench.py runs the seed kernel once on cifar10 conv1
+    # (8 frames, SAME-padded to 36x36) beside the single-layer kernel on the
+    # same frames; here the two outputs must agree.
+    sb, sh, sw, sc, sn, sk = SEED_SHAPES[0]
+    bench_x = randn(sb, sh - sk + 1, sw - sk + 1, sc)
+    bench_w = randn(sk, sk, sc, sn) * 0.2
+    bench_pad = F.pad(bench_x, (0, 0, sk // 2, sk // 2, sk // 2, sk // 2))
+    bench_taps = bench_w.reshape(sk * sk, sc, sn)
+    torch.cuda.synchronize()
+    klegacy.reset_launch_counts()
+    seed_out = stream_conv2d_seed(bench_pad, bench_taps, k=sk)
+    fused_out = stream_conv2d(bench_x, bench_w, padding="SAME")
+    torch.cuda.synchronize()
+    seed_launches = dict(klegacy.LAUNCHES)
+    check(seed_launches["stream_conv2d_seed"] == 1, f"seed path launches {seed_launches}")
+    check(torch.allclose(seed_out, fused_out, rtol=FP32_RTOL, atol=FP32_ATOL),
+          f"seed vs single-layer kernel: max |delta| {float((seed_out - fused_out).abs().max())}")
+    print(f"[5d] kernel bench path: seed conv and single-layer kernel on {sb}x{sh}x{sw}x{sc}, "
+          f"K {sk}, N {sn} agree (max |delta| {float((seed_out - fused_out).abs().max()):.3e}); "
+          f"launches {seed_launches}")
 
     # -- 6. timing at main-path shapes -------------------------------------------
     def time_ms(fn, iters=50, warmup=5):
@@ -653,6 +859,116 @@ def main() -> None:
     print(f"[6] engine micro-batch of {BATCH}: {per_batch_ms:.4f} ms host clock; on the card "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
           + f"; card share {sum(parts.values()) / per_batch_ms:.3f}")
+
+    # The selective scan at the LM path's shapes: the falcon-mamba layer at
+    # prefill (bf16 x, B and C, the zero cache as h0, as prefill passes it)
+    # and at decode (S = 1, the carried state). The bound is the largest of
+    # its bytes (x, dt and y per element, B, C, A, D_skip and both states)
+    # over the memory rate, its expf over the SFU rate, and its FLOPs (six
+    # per state update, three per channel and step) over the fp32 peak.
+    def ssm_bound(bz, s, d, n, elem):
+        nbytes = bz * s * d * (elem + 4 + 4) + 2 * bz * s * n * elem + d * n * 4 + d * 4 \
+            + 2 * bz * d * n * 4
+        t_bytes = nbytes / PEAK_BYTES_S
+        t_exp = bz * s * d * n / (SFU_PER_CLOCK_PER_SM * N_SMS * BOOST_CLOCK_HZ)
+        t_ops = bz * s * d * (6 * n + 3) / PEAK_FP32_FLOPS
+        by = "bytes" if t_bytes >= max(t_exp, t_ops) else "operations"
+        return max(t_bytes, t_exp, t_ops) * 1e3, by, (t_bytes * 1e3, t_exp * 1e3, t_ops * 1e3)
+
+    di_lm, n_lm = lm_cfg.ssm_expand * lm_cfg.d_model, lm_cfg.ssm_state
+    ssm_times = {}
+    for what, s in (("prefill", LM_PROMPT), ("decode", 1)):
+        x_, dt_, b_, c_, a_, dsk_, h0_ = ssm_inputs(LM_BATCH, s, di_lm, n_lm, "bfloat16", True)
+        if what == "prefill":
+            h0_ = torch.zeros_like(h0_)
+        t_k = time_ms(lambda: ssm_scan(x_, dt_, b_, c_, a_, dsk_, h0_),
+                      iters=50 if s > 1 else 500)
+        t_p = time_ms(lambda: ssm_scan_ref(x_, dt_, b_, c_, a_, dsk_, h0_),
+                      iters=3 if s > 1 else 50, warmup=1)
+        b_ms, b_by, terms = ssm_bound(LM_BATCH, s, di_lm, n_lm, 2)
+        ssm_times[what] = (t_k, t_p, b_ms, b_by)
+        print(f"[6] ssm_scan {what} (Bz {LM_BATCH}, S {s}, D {di_lm}, N {n_lm}, bf16): {t_k:.4f} ms, "
+              f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes {terms[0]:.4f}, expf "
+              f"{terms[1]:.4f}, FLOPs {terms[2]:.4f} ms), no library call")
+    kernels.append(dict(
+        name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan/scan.py:61",
+        launches=lm_launches["ssm_scan"], max_abs_err=errs["ssm_scan"],
+        ms=ssm_times["prefill"][0], plain_ms=ssm_times["prefill"][1],
+        bound_ms=ssm_times["prefill"][2], bound_by=ssm_times["prefill"][3], library_ms=None,
+    ))
+
+    # The LM end to end at bf16, full depth: prefill and one decode step.
+    # The decode step's bound is reading every weight once.
+    pf_ms = time_ms(lambda: T.prefill(params16, lm_cfg, prompts, max_len=LM_PROMPT + LM_NEW),
+                    iters=5, warmup=1)
+    pf_flops = model_flops(lm_cfg, ShapeConfig("prefill", LM_PROMPT, LM_BATCH, "prefill"))
+    print(f"[6] prefill {LM_BATCH}x{LM_PROMPT} bf16: {pf_ms:.3f} ms, "
+          f"{LM_BATCH * LM_PROMPT / pf_ms * 1e3:.0f} tokens/s, {pf_flops / pf_ms / 1e9:.1f} "
+          f"TFLOP/s of model FLOPs ({pf_flops / 1e12:.2f} TFLOP), {n_lm_layers} scans "
+          f"{n_lm_layers * ssm_times['prefill'][0]:.3f} ms of it")
+    dec_args = (params16, lm_cfg, tok, lm_cache, LM_PROMPT + LM_NEW)
+    dec_ms = time_ms(lambda: T.decode_step(*dec_args), iters=10, warmup=2)
+    dec_bound = param_bytes(lm_cfg) / PEAK_BYTES_S * 1e3
+    print(f"[6] decode step B={LM_BATCH} bf16: {dec_ms:.3f} ms per step (CUDA events), "
+          f"{decode_wall / LM_NEW * 1e3:.3f} ms host clock in phase 5c, "
+          f"{LM_BATCH / dec_ms * 1e3:.0f} tokens/s; weight-read bound {dec_bound:.3f} ms; "
+          f"{n_lm_layers} scans {n_lm_layers * ssm_times['decode'][0]:.4f} ms of it")
+    # Where a prefill's and a decode step's time goes: device time by
+    # kernel under the profiler, against the host clock.
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_breakdown(what, fn, reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        rows = []
+        for evt in prof.key_averages():
+            if not str(evt.device_type).endswith("CUDA"):
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            us = evt.self_cuda_time_total if us is None else us
+            rows.append((us / 1e3 / reps, evt.count // reps, evt.key))
+        rows.sort(reverse=True)
+        busy_ms = sum(r[0] for r in rows)
+        print(f"[6] {what} under the profiler: {wall_ms:.3f} ms host clock, device busy "
+              f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of it) in {sum(r[1] for r in rows)} "
+              "kernels")
+        for ms_, cnt, key in rows[:8]:
+            print(f"[6]   {ms_:.4f} ms  x{cnt}  {key[:90]}")
+
+    device_breakdown(f"prefill {LM_BATCH}x{LM_PROMPT}",
+                     lambda: T.prefill(params16, lm_cfg, prompts, max_len=LM_PROMPT + LM_NEW), 1)
+    device_breakdown("decode step", lambda: T.decode_step(*dec_args), 2)
+
+    # The seed conv beside the single-layer kernel (the same bare conv on the
+    # same padded frame) and cuDNN, at the kernel bench's shape and at B=256.
+    seed_times = {}
+    for b_, h_, w_, c_, n_, k_ in SEED_SHAPES[:2]:
+        xp, wt = randn(b_, h_, w_, c_), randn(k_, k_, c_, n_) * 0.2
+        taps = wt.reshape(k_ * k_, c_, n_)
+        xp_nchw, w_oihw = xp.permute(0, 3, 1, 2).contiguous(), wt.permute(3, 2, 0, 1).contiguous()
+        t_k = time_ms(lambda: stream_conv2d_seed(xp, taps, k=k_))
+        t_f = time_ms(lambda: stream_conv2d(xp, wt, padding="VALID"))
+        t_l = time_ms(lambda: F.conv2d(xp_nchw, w_oihw))
+        t_p = time_ms(lambda: stream_conv2d_ref(xp, wt))
+        ho, wo = h_ - k_ + 1, w_ - k_ + 1
+        b_ms, b_by = bound(2 * b_ * ho * wo * k_ * k_ * c_ * n_,
+                           4 * (b_ * h_ * w_ * c_ + k_ * k_ * c_ * n_ + b_ * ho * wo * n_))
+        seed_times[b_] = (t_k, t_p, b_ms, b_by, t_l)
+        print(f"[6] seed conv {b_}x{h_}x{w_}x{c_}, K {k_}, N {n_}: {t_k:.4f} ms, single-layer "
+              f"kernel {t_f:.4f} ms, cuDNN {t_l:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by})")
+    t_k, t_p, b_ms, b_by, t_l = seed_times[SEED_SHAPES[0][0]]
+    kernels.append(dict(
+        name="stream_conv2d_seed", route="cuda", source="src/repro_torch/csrc/stream_conv_seed.cu",
+        replaces="src/repro/kernels/stream_conv/legacy.py:44",
+        launches=seed_launches["stream_conv2d_seed"], max_abs_err=errs["stream_conv2d_seed"],
+        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
+    ))
 
     # -- 7. the record ------------------------------------------------------------
     print(json.dumps({"kernels": kernels}))

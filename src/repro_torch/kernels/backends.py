@@ -7,12 +7,14 @@ same algorithm. The port has no such fallback. It has two devices:
   ``cuda``  the default. Kernel wrappers launch the hand-written Hopper
             kernels on CUDA tensors. With no card this raises.
   ``cpu``   only when the caller asks for it. Kernel wrappers run their
-            plain PyTorch versions (``stream_conv/ref.py``) on CPU tensors;
-            this is what the CPU tests use.
+            plain PyTorch versions (each kernel's ``ref.py``) on CPU
+            tensors; this is what the CPU tests use.
 
 Entry points that create tensors (``compile_dhm``, ``Engine``,
-``params_from_numpy``) take ``device=`` and resolve it here; the kernel
-wrappers follow the device of the tensor they are given.
+``params_from_numpy``, ``transformer.init_params``,
+``lm_params_from_numpy``) take ``device=`` and resolve it here; the
+kernel wrappers follow the device of the tensor they are given
+(``on_cuda``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,17 @@ import torch
 VALID_DEVICES = ("cuda", "cpu")
 
 DEFAULT_DEVICE = "cuda"
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """The kernel wrappers' dispatch: True for a CUDA tensor (launch the
+    kernel), False for a CPU tensor (run the plain version); a tensor on
+    any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}; expected cuda or cpu")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from repro_torch.core.quant.fixed_point import quantize_fixed
 from repro_torch.core.quant.packing import pack_codes_u4
 from repro_torch.core.quant.pow2 import pow2_codes
+from repro_torch.kernels.backends import on_cuda
 from repro_torch.kernels.pow2_matmul.pow2 import pow2_matmul_cuda
 from repro_torch.kernels.pow2_matmul.ref import pow2_matmul_int_ref, pow2_matmul_ref
 
@@ -64,12 +65,10 @@ def pow2_matmul(
             f"the integer rendering takes int8 activation codes; x_spec has "
             f"{x_spec.bits} bits"
         )
-    if x.device.type == "cpu":
+    if not on_cuda(x):
         if x_spec is not None:
             return pow2_matmul_int_ref(x, packed, scale, x_spec=x_spec)
         return pow2_matmul_ref(x, packed, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}; expected cuda or cpu")
     if x_spec is None:
         return pow2_matmul_cuda(
             x.contiguous(), packed.contiguous(), scale.contiguous()

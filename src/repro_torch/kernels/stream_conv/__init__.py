@@ -1,3 +1,4 @@
+from repro_torch.kernels.stream_conv.legacy import stream_conv2d_seed
 from repro_torch.kernels.stream_conv.ops import (
     stream_conv2d,
     stream_conv_block,
@@ -16,4 +17,5 @@ __all__ = [
     "stream_conv2d_ref",
     "stream_conv_block_ref",
     "stream_conv_pyramid_ref",
+    "stream_conv2d_seed",
 ]

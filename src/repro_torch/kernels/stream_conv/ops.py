@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.backends import on_cuda
 from repro_torch.kernels.stream_conv.conv import (
     stream_conv_fused_cuda,
     stream_conv_pyramid_cuda,
@@ -34,14 +35,6 @@ from repro_torch.kernels.stream_conv.ref import (
     stream_conv_block_ref,
     stream_conv_pyramid_ref,
 )
-
-
-def _on_cuda(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {x.device}; expected cuda or cpu")
 
 
 def _pad_same(x: torch.Tensor, k: int, stride: int = 1) -> torch.Tensor:
@@ -152,7 +145,7 @@ def stream_conv_block(
         pool_stride=pool_stride, act_bits=act_bits,
     )
     _validate_int8(int8_scales, act_bits, w)
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return stream_conv_block_ref(
             x, w, b, padding=padding, stride=stride, act=act, pool=pool,
             pool_stride=pool_stride, act_bits=act_bits,
@@ -230,7 +223,7 @@ def stream_conv_pyramid(
                     "inter-layer code chain)"
                 )
     pyr = as_pyramid_layers(layers)
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return stream_conv_pyramid_ref(
             x, weights, biases, layers=pyr, act_bits=bits,
             int8_scales=int8_scales,

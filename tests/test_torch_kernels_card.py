@@ -19,7 +19,10 @@ they are held equal on the relu topologies; where tanh follows, the
 card's ``tanhf`` and the plain version's ``torch.tanh`` may still put an
 element one quant step apart (counted, as above). ``pow2_matmul``'s
 integer mode is held equal, its fp32 mode at rtol 1e-5 / atol 1e-6 on
-activations on a 2^-4 grid (every partial sum exact in float32).
+activations on a 2^-4 grid (every partial sum exact in float32). The
+selective scan and the seed conv at the fp32 tolerance (both compute in
+f32); the scaled-down falcon-mamba on the card against the CPU: f32
+logits at rtol/atol 1e-4, bf16 by a relative L2 error under 3e-2.
 """
 import pytest
 
@@ -340,3 +343,123 @@ def test_int8_and_pow2_plans_on_the_card(card):
         p2(x), cnn_apply_reference(params, topo, x, pow2_weights=True), rtol=1e-4, atol=1e-4
     )
     assert kpow2.LAUNCHES["pow2_matmul"] == before + 2
+
+
+# ---------------------------------------------------------------------------
+# The selective scan, the seed conv and the Mamba LM.
+
+# (Bz, S, D, N, x/B/C dtype, with h0): the falcon-mamba layer at prefill
+# (bf16 and f32, zero and carried state), decode (S = 1, carried state),
+# a D that block_d=256 does not divide, and a narrow N.
+SSM_CASES = [
+    (4, 512, 8192, 16, torch.bfloat16, False),
+    (4, 512, 8192, 16, torch.float32, True),
+    (4, 1, 8192, 16, torch.bfloat16, True),
+    (2, 37, 200, 16, torch.float32, True),
+    (3, 20, 64, 3, torch.bfloat16, False),
+]
+
+
+def _ssm_inputs(dev, bz, s, d, n, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to(dev).to(dt)
+
+    return (t(rng.normal(size=(bz, s, d)) * 0.5, dtype),
+            t(np.logaddexp(0.0, rng.normal(size=(bz, s, d)))),
+            t(rng.normal(size=(bz, s, n)), dtype), t(rng.normal(size=(bz, s, n)), dtype),
+            t(-np.exp(rng.normal(size=(d, n)) * 0.3)), t(rng.normal(size=(d,))),
+            t(rng.normal(size=(bz, d, n))))
+
+
+@pytest.mark.parametrize("bz,s,d,n,dtype,with_h0", SSM_CASES)
+def test_ssm_scan_matches_its_plain_version(card, bz, s, d, n, dtype, with_h0):
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+
+    x, dt, b, c, a, d_skip, h0 = _ssm_inputs(card, bz, s, d, n, dtype)
+    h0 = h0 if with_h0 else None
+    before = kscan.LAUNCHES["ssm_scan"]
+    y, h_last = ssm_scan(x, dt, b, c, a, d_skip, h0)
+    assert kscan.LAUNCHES["ssm_scan"] == before + 1
+    y_ref, h_ref = ssm_scan_ref(x, dt, b, c, a, d_skip, h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, **FP32)
+    torch.testing.assert_close(h_last, h_ref, **FP32)
+
+
+def test_ssm_scan_reads_strided_views_of_one_projection(card):
+    """mamba_apply hands the kernel B and C as slices of x_proj's output."""
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.kernels.ssm_scan import ssm_scan_ref
+
+    x, dt, b, c, a, d_skip, h0 = _ssm_inputs(card, 2, 33, 512, 16, torch.bfloat16, seed=1)
+    proj = torch.cat([torch.zeros_like(b[..., :5]), b, c], dim=-1)
+    b_v, c_v = proj[..., 5:21], proj[..., 21:]
+    assert not b_v.is_contiguous()
+    y, h_last = kscan.ssm_scan_cuda(x, dt, b_v, c_v, a, d_skip, h0, block_d=128)
+    y_ref, h_ref = ssm_scan_ref(x, dt, b, c, a, d_skip, h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, **FP32)
+    torch.testing.assert_close(h_last, h_ref, **FP32)
+    with pytest.raises(ValueError, match="unit stride"):
+        kscan.ssm_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), dt, b, c, a, d_skip)
+    with pytest.raises(ValueError, match="dt must be float32"):
+        kscan.ssm_scan_cuda(x, dt.to(torch.bfloat16), b, c, a, d_skip)
+    with pytest.raises(ValueError, match="b must be bfloat16"):
+        kscan.ssm_scan_cuda(x, dt, b.float(), c, a, d_skip)
+
+
+@pytest.mark.parametrize("b,h,w,c,n,k", [(8, 36, 36, 3, 32, 5), (256, 36, 36, 3, 32, 5),
+                                         (3, 13, 17, 5, 7, 3), (2, 9, 9, 70, 40, 1)])
+def test_seed_conv_matches_its_plain_version(card, b, h, w, c, n, k):
+    from repro_torch.kernels.stream_conv import legacy as klegacy
+    from repro_torch.kernels.stream_conv import stream_conv2d_ref, stream_conv2d_seed
+
+    x = _frames(card, 7, b, h, w, c)
+    wt = _frames(card, 8, k, k, c, n) * 0.2
+    before = klegacy.LAUNCHES["stream_conv2d_seed"]
+    out = stream_conv2d_seed(x, wt.reshape(k * k, c, n), k=k)
+    assert klegacy.LAUNCHES["stream_conv2d_seed"] == before + 1
+    _assert_matches(out, stream_conv2d_ref(x, wt), None, f"seed {(b, h, w, c, n, k)}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_lm_on_the_card_matches_the_cpu(card, dtype):
+    """A scaled-down falcon-mamba: prefill and decode through the kernel on
+    the card against the plain versions on the CPU, same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_arch("falcon-mamba-7b").scaled_down(n_layers=3, dtype=dtype),
+                              d_model=256)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    on_card = _to(params, card)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 17)))
+    kscan.reset_launch_counts()
+    logits, cache = T.prefill(on_card, cfg, toks[:, :16].to(card), max_len=20)
+    assert kscan.LAUNCHES["ssm_scan"] == cfg.n_layers
+    step, _ = T.decode_step(on_card, cfg, toks[:, 16:].to(card), cache, 16)
+    assert kscan.LAUNCHES["ssm_scan"] == 2 * cfg.n_layers
+    ref, ref_cache = T.prefill(params, cfg, toks[:, :16], max_len=20)
+    ref_step, _ = T.decode_step(params, cfg, toks[:, 16:], ref_cache, 16)
+    for got, want in ((logits, ref), (step, ref_step)):
+        got, want = got.cpu().float(), want.float()
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            # cuBLAS and the CPU round bf16 at other places: about 1 %
+            # apart, as the two packages are on the CPU (test_torch_lm.py).
+            assert float((got - want).norm() / want.norm()) < 3e-2
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return None if tree is None else tree.to(dev)
