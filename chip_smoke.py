@@ -44,7 +44,9 @@ Phases (each asserts or exits non-zero):
   5d. the seed conv's own path, what the kernel bench runs on it: the
      seed kernel beside the single-layer kernel on cifar10 conv1;
   6. time each kernel, its plain version and the library call with CUDA
-     events at main-path shapes, beside the card's bound; then the plans,
+     events at main-path shapes, beside the card's bound; the fp32 conv
+     kernels and the cuDNN chain also by their device time on the
+     profiler's clock, with the kernels' CTAs per SM; then the plans,
      and one serving micro-batch piece by piece; then the LM's prefill
      and decode step, with their device time by kernel;
   7. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
@@ -701,43 +703,99 @@ def main() -> None:
             layers_in[-1], p["w"], p["b"], padding=spec.padding, act=spec.act, pool=spec.pool))
     layers_in_nchw = [t.permute(0, 3, 1, 2).contiguous() for t in layers_in]
 
+    # Device time on the profiler's clock: the wrappers' host work (group
+    # geometry, ctypes descriptors) can set the pace of a loop of CUDA-event
+    # timed calls near 0.1 ms, so the fp32 conv kernels and the cuDNN chain
+    # are also timed by the kernels' own time.
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn, reps=20, kernel=None):
+        """Device time per call: the CUDA kernels ``reps`` calls launch (those
+        whose name holds ``kernel``, or all), summed on the profiler's clock,
+        over ``reps``."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for evt in prof.key_averages():
+            if str(evt.device_type).endswith("CUDA") and (kernel is None or kernel in evt.key):
+                us = getattr(evt, "self_device_time_total", None)
+                total_us += evt.self_cuda_time_total if us is None else us
+        check(total_us > 0, f"the profiler saw no device time of {kernel or 'any kernel'}")
+        return total_us / 1e3 / reps
+
     kernels = []
     pyr_layers = as_pyramid_layers(specs)
     block_rows = plan.fusion_groups[0].block_rows
-    ms = time_ms(lambda: stream_conv_pyramid(x, ws, bs, layers=specs, block_rows=block_rows))
+    geom = group_geometry(h, w, topo.input_channels, pyr_layers, tuple(s.kernel for s in specs),
+                          tuple(s.n_out for s in specs), block_rows=block_rows)
+    pyr_smem = kconv.pyramid_smem_bytes(geom)
+    pyr_ctas = kconv.ctas_per_sm("stream_conv_pyramid", pyr_smem)
+
+    def run_pyramid():
+        return stream_conv_pyramid(x, ws, bs, layers=specs, block_rows=block_rows)
+
+    ms = time_ms(run_pyramid)
     plain = time_ms(lambda: stream_conv_pyramid_ref(x, ws, bs, layers=pyr_layers))
     lib = time_ms(lambda: library_chain((0, 1, 2), x_nchw))
+    dev_k = device_ms(run_pyramid, kernel="sc_pyramid_kernel")
+    dev_lib = device_ms(lambda: library_chain((0, 1, 2), x_nchw))
     b_ms, b_by = bound(*cost((0, 1, 2)))
-    print(f"[6] pyramid cifar10 B={BATCH}: {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"library {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"[6] pyramid cifar10 B={BATCH}: {ms:.4f} ms (CUDA events), {dev_k:.4f} ms device, "
+          f"plain {plain:.4f} ms, library {lib:.4f} ms ({dev_lib:.4f} ms device), bound "
+          f"{b_ms:.4f} ms ({b_by}); {dev_k / dev_lib:.3f}x the cuDNN chain's device time "
+          f"({'beats' if dev_k < dev_lib else 'behind'} it), {b_ms / dev_k:.3f} of the bound; "
+          f"{pyr_smem} B of shared memory, {pyr_ctas} CTAs per SM")
     kernels.append(dict(
         name="stream_conv_pyramid", route="cuda", source="src/repro_torch/csrc/stream_conv.cu",
         replaces="src/repro/kernels/stream_conv/conv.py:440",
         launches=main_launches["stream_conv_pyramid"], max_abs_err=errs["stream_conv_pyramid"],
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        device_ms=dev_k, library_device_ms=dev_lib, ctas_per_sm=pyr_ctas,
     ))
-    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "flops": 0, "bytes": 0}
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "dev": 0.0, "dev_lib": 0.0, "flops": 0,
+           "bytes": 0}
+    fused_ctas = []
     for i, spec in enumerate(specs):
         xi, p = layers_in[i], plan.conv_params[i]
         kw = dict(padding=spec.padding, act=spec.act, pool=spec.pool)
+        hp, wp = xi.shape[1] + spec.kernel - 1, xi.shape[2] + spec.kernel - 1  # SAME, stride 1
+        g_i = kconv.fused_geometry(hp, wp, xi.shape[3], k=spec.kernel, stride=1, pool=spec.pool,
+                                   pool_stride=spec.pool_stride, block_r=8, n_out=spec.n_out)
+        fused_ctas.append(kconv.ctas_per_sm("stream_conv_fused", g_i["smem"], g_i["threads"]))
         t_k = time_ms(lambda: stream_conv_block(xi, p["w"], p["b"], **kw))
         t_p = time_ms(lambda: stream_conv_block_ref(xi, p["w"], p["b"], **kw))
         t_l = time_ms(lambda: library_chain((i,), layers_in_nchw[i]))
+        d_k = device_ms(lambda: stream_conv_block(xi, p["w"], p["b"], **kw),
+                        kernel="sc_fused_kernel")
+        d_l = device_ms(lambda: library_chain((i,), layers_in_nchw[i]))
         f_i, b_i = cost((i,))
         lb_ms, lb_by = bound(f_i, b_i)
-        print(f"[6] single-layer cifar10 layer {i} B={BATCH}: {t_k:.4f} ms, plain {t_p:.4f} ms, "
-              f"library {t_l:.4f} ms, bound {lb_ms:.4f} ms ({lb_by})")
-        for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l), ("flops", f_i), ("bytes", b_i)):
+        print(f"[6] single-layer cifar10 layer {i} B={BATCH}: {t_k:.4f} ms (CUDA events), "
+              f"{d_k:.4f} ms device (the kernel alone), plain {t_p:.4f} ms, library "
+              f"{t_l:.4f} ms ({d_l:.4f} ms device), bound {lb_ms:.4f} ms ({lb_by}); "
+              f"{g_i['smem']} B of shared memory, {g_i['threads']} threads x {fused_ctas[-1]} "
+              f"CTAs per SM, TN {g_i['tn']}, "
+              f"{g_i['n_rb']} row blocks x {BATCH} images")
+        for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l), ("dev", d_k),
+                         ("dev_lib", d_l), ("flops", f_i), ("bytes", b_i)):
             tot[key] += val
     b_ms, b_by = bound(tot["flops"], tot["bytes"])
-    print(f"[6] single-layer cifar10 per-layer stack (3 launches): {tot['ms']:.4f} ms, "
-          f"plain {tot['plain']:.4f} ms, library {tot['lib']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"[6] single-layer cifar10 per-layer stack (3 launches): {tot['ms']:.4f} ms "
+          f"(CUDA events), {tot['dev']:.4f} ms device, plain {tot['plain']:.4f} ms, library "
+          f"{tot['lib']:.4f} ms ({tot['dev_lib']:.4f} ms device), bound {b_ms:.4f} ms ({b_by}); "
+          f"{tot['dev'] / tot['dev_lib']:.3f}x the cuDNN layers' device time "
+          f"({'beats' if tot['dev'] < tot['dev_lib'] else 'behind'} them)")
     kernels.append(dict(
         name="stream_conv_fused", route="cuda", source="src/repro_torch/csrc/stream_conv.cu",
         replaces="src/repro/kernels/stream_conv/conv.py:168",
         launches=main_launches["stream_conv_fused"], max_abs_err=errs["stream_conv_fused"],
         ms=tot["ms"], plain_ms=tot["plain"], bound_ms=b_ms, bound_by=b_by,
-        library_ms=tot["lib"],
+        library_ms=tot["lib"], device_ms=tot["dev"], library_device_ms=tot["dev_lib"],
+        ctas_per_sm=min(fused_ctas),
     ))
 
     # The int8 kernels, timed at their own wrappers on the codes the plan
@@ -916,8 +974,6 @@ def main() -> None:
           f"{n_lm_layers} scans {n_lm_layers * ssm_times['decode'][0]:.4f} ms of it")
     # Where a prefill's and a decode step's time goes: device time by
     # kernel under the profiler, against the host clock.
-    from torch.profiler import ProfilerActivity, profile
-
     def device_breakdown(what, fn, reps):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()

@@ -14,25 +14,23 @@
 //             group's final output rows.
 //   Bound on this card: operations. cifar10 at B=256 is 6.29 GFLOP of fp32
 //             FMA against 67 TFLOP/s (about 94 us) while its bytes (frame,
-//             weights, logits-side features: about 4.5 MB) take about
-//             1.4 us at 3.35 TB/s. In practice the inner loop is bounded by
-//             shared-memory load issue: one broadcast LDS per FMA.
-//   Design:   one CTA per (row block, image). The CTA reads only its halo'd
-//             layer-0 rows from global memory (zeros outside the frame and
-//             in the SAME pad columns stand in for the host padding of the
-//             reference), then keeps every inter-layer slab in shared
-//             memory, ping-ponging two buffers. Each layer's epilogue writes
-//             straight into the next layer's column-padded layout and zeroes
-//             the rows outside the next layer's frame (SAME row padding by
-//             masking, as the reference does), so rows that only feed the
-//             masked padding are never computed. Weights stay in global
-//             memory and L2 (cifar10 holds 316,800 B of fp32 conv weights,
-//             too many to stage beside the slabs); a warp reads 32
-//             consecutive output channels of one tap, so each weight load
-//             is coalesced and each slab load is a broadcast. Each thread
-//             computes one pooled output: the pool window's conv positions
-//             share every weight load (pw*pw FMAs per load). Accumulation
-//             is IEEE fp32 FMA on CUDA cores: no TF32.
+//             weights, features: about 4.5 MB) take about 1.4 us at
+//             3.35 TB/s. What limits a direct conv on CUDA cores is the
+//             shared-memory traffic and the latency per FMA: one thread per
+//             output reads one slab word per FMA and waits on one weight
+//             from L2 every pw*pw FMAs (about 7.7 TFLOP/s here).
+//   Design:   one CTA per (row block, image), 256 threads, two CTAs per SM.
+//             The CTA reads only its halo'd layer-0 rows from global memory
+//             (zeros outside the frame and in the SAME pad columns), then
+//             keeps every inter-layer slab in shared memory, ping-ponging
+//             two buffers. A slab holds only the rows that the conv
+//             positions the block really computes will read (the SAME
+//             padding rows among them as zeros), so rows that only feed the
+//             masked padding are neither computed nor stored. Each layer
+//             is an implicit GEMM (sc_gemm below): M = the pooled windows'
+//             conv positions, N = n_out, K = k*k*C in the weights' (ki, kj,
+//             c) order. Two CTAs fit an SM (cifar10: 108,096 B of shared
+//             memory each), so the 256 images of B=256 run in one wave.
 //
 // sc_fused_kernel
 //   Replaces: src/repro/kernels/stream_conv/conv.py:stream_conv_fused_pallas
@@ -40,13 +38,44 @@
 //   Computes: one conv layer on a host-SAME-padded frame with the fused
 //             bias -> act -> max-pool -> stream-quant epilogue (the paper's
 //             conv -> act -> pool order).
-//   Bound on this card: operations, as above (cifar10 layer 1 at B=256:
-//             3.36 GFLOP against 67 TFLOP/s).
+//   Bound on this card: operations, as above (cifar10's three layers at
+//             B=256: 6.29 GFLOP against 67 TFLOP/s).
 //   Design:   one CTA per (row block, image). The CTA stages its input rows
 //             (block rows plus the halo of _block_multiple: the conv window
 //             overlap and the recomputed pool-overlap rows) in shared
-//             memory, then each thread computes one pooled output with the
-//             same weight-sharing inner loop as the pyramid.
+//             memory, then runs the same implicit GEMM as one pyramid layer.
+//             Its size is the host's (conv.py fused_tile): one warp per
+//             warp task, up to eight, so a block of few windows takes the
+//             larger tile (TN = 8) in a smaller CTA rather than TN = 4.
+//
+// sc_gemm, the core of both fp32 kernels (IEEE fp32 FMA, no TF32):
+//   - Weights: K-slices of SC_KC rows are copied into shared memory with
+//     cp.async (16-byte copies where N % 4 == 0), double-buffered and read
+//     by every warp of the CTA as float4 broadcasts.
+//   - A operand: gathered straight from the slab through a per-layer table
+//     of tap offsets (k -> ki * rs + kj * cs + c) plus each conv
+//     position's base; patches are never materialised. Stride 2 only
+//     changes the bases.
+//   - Register tile: each thread holds whole pool windows (PW*PW conv
+//     positions, four windows when there is no pool) times TN = 4 or 8
+//     output channels, so the max-pool stays in registers. Per k it loads
+//     one slab word per position and TN/4 float4 weights for TM*TN FMAs.
+//     A warp covers 16 windows x 2 channel groups: the two halves share
+//     each slab word (broadcast) and each half shares one weight float4.
+//   - Bank conflicts: a slab column is cs = C words for odd C and C + 1
+//     for even C, and a slab row rs = cols * cs words plus a pad that the
+//     host picks (conv.py row_stride), so the 16 windows of a warp, whose
+//     bases differ by multiples of the pool stride times cs and rs, fall
+//     in distinct banks where the geometry allows (C = 32 with cs = C
+//     would put all 16 in one bank).
+//   - The K loop runs in (ki, kj, c) order with one accumulator per
+//     output: one fp32 FMA chain, no split of K. Ragged M and N are
+//     masked at the store (clamped reads), ragged K with zero weight rows.
+//   - Epilogue in registers, in the reference orders: pyramid bias ->
+//     max-pool -> act -> quant (the bias added once after the max, since
+//     max(a + b, c + b) == max(a, c) + b), single layer bias -> act ->
+//     pool -> quant; it writes straight into the next slab's padded layout
+//     or to global memory.
 //
 // sc_pyramid_i8_kernel, sc_fused_i8_kernel
 //   Replace:  the int8 paths of the same two Pallas kernels
@@ -64,21 +93,22 @@
 //             of int8 weights, 1.0 MB of fp32 output) take 0.6 us at
 //             3.35 TB/s. These kernels run on CUDA cores, whose int32 rate
 //             is far below that peak.
-//   Design:   the fp32 kernels' structure with 1-byte slabs (a quarter of
-//             the shared memory). Where the channel count is a multiple of
-//             four (every layer but a 3-channel frame) the inner loop
-//             reads four channels of the slab as one 32-bit word and packs
-//             the four weight bytes of one output channel, then issues one
-//             __dp4a per conv position of the pool window; otherwise it
-//             multiplies byte by byte. Weights stay in global memory and
-//             L2 (79,200 B of int8 for cifar10), read coalesced across the
-//             warp's 32 output channels.
+//   Design:   one CTA per (row block, image) over 1-byte slabs of the whole
+//             halo'd rows, one thread per pooled output. Where the channel
+//             count is a multiple of four (every layer but a 3-channel
+//             frame) the inner loop reads four channels of the slab as one
+//             32-bit word and packs the four weight bytes of one output
+//             channel, then issues one __dp4a per conv position of the pool
+//             window; otherwise it multiplies byte by byte. Weights stay in
+//             global memory and L2 (79,200 B of int8 for cifar10), read
+//             coalesced across the warp's 32 output channels.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
 
 #define SC_MAX_LAYERS 4
 #define SC_THREADS 256
+#define SC_KC 64  // weight rows (K) per shared-memory stage
 
 struct ScLayer {
   const float* w;  // (K, K, C, N) HWIO, contiguous (int8 codes in the int8 kernel)
@@ -90,6 +120,10 @@ struct ScLayer {
   int out_cols, n_out;
   int in_mult, in_off, in_slab_rows, out_slab_rows;
   float deq;  // int8 kernels: int32 accumulator -> fp32 (a power of two)
+  // fp32 kernels: slab column and row strides (words), output channels per
+  // thread (4 or 8), staged weight row stride (N rounded up to tn), and
+  // whether the weights may be copied 16 bytes at a time.
+  int cs, rs, tn, np, wvec;
 };
 
 struct ScPyramid {
@@ -97,6 +131,9 @@ struct ScPyramid {
   float* out;      // (B, out_rows, out_cols, N_last)
   int batch, n_layers, n_rb, block_rows, out_rows;
   int buf0_elems;  // elements of the first ping-pong buffer
+  // fp32 kernel: float offsets of the tap table and the two weight stages,
+  // and the floats of one stage.
+  int tap_off, wst_off, wst_elems;
   ScLayer L[SC_MAX_LAYERS];
 };
 
@@ -109,6 +146,8 @@ struct ScFused {
   float qscale, qmin, qmax;
   int h_keep, w_keep, r, r_o, in_rows_blk, n_rb;
   float deq;  // int8 kernel: int32 accumulator -> fp32 (a power of two)
+  int cs, rs, tn, np, wvec, tap_off, wst_off, wst_elems;  // fp32 kernel, as above
+  int threads;  // fp32 kernel: threads per CTA (a multiple of 32, at most 256)
 };
 
 __device__ __forceinline__ float sc_act(float y, int act) {
@@ -126,198 +165,397 @@ __device__ __forceinline__ float sc_quant(float y, int qbits, float scale,
   return q * scale;
 }
 
-// The PW x PW conv outputs of one pool window, for output channel n:
-// conv position (cr0 + i, cc0 + j) reads slab rows (cr0 + i) * s + ki and
-// columns (cc0 + j) * s + kj of an HWC slab `cols` columns wide.
-template <int PW>
-__device__ __forceinline__ void sc_window(
-    const float* __restrict__ in, int cols, int C,
-    const float* __restrict__ w, int N, int n, int k, int s, int cr0,
-    int cc0, float (&acc)[PW][PW]) {
+// ---------------------------------------------------------------------------
+// The implicit-GEMM core of the fp32 kernels.
+
+__device__ __forceinline__ void sc_cp16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void sc_cp4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+template <int N>
+__device__ __forceinline__ void sc_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One layer's implicit GEMM: conv positions of whole pool windows against
+// the layer's weights, then the fused epilogue.
+struct ScJob {
+  const float* in;  // slab: row 0 is the first row window row 0 reads
+  int rs, cs, s;    // slab row and column strides (floats), conv stride
+  int ps;           // pool stride (1 without a pool)
+  int n_wr, n_wc;   // pooled output rows and columns computed
+  int n, kdim;      // N, K = k * k * C
+  const int* taps;  // shared: slab offset of each k, round_up(K, 4) entries
+  const float* w;   // global (K, N)
+  const float* b;   // global (N,)
+  int np, wvec;     // staged row stride; 16-byte copies allowed
+  float* wst;       // shared: two stages of SC_KC x np floats
+  int wst_elems;
+  int act, qbits;
+  float qscale, qmin, qmax;
+  float* dst;  // output element (r, c, n) at dst[r*dst_rs + (c+dst_co)*dst_cs + n]
+  int dst_rs, dst_cs, dst_co;
+};
+
+// Weight rows [k0, k0 + kc) into one stage (row stride np), rows
+// [kc, kc4) zeroed; commits one cp.async group.
+__device__ __forceinline__ void sc_stage_weights(const ScJob& J, float* st, int k0,
+                                                 int kc, int kc4) {
+  if (J.wvec) {
+    const int n4 = J.n >> 2;
+    for (int i = threadIdx.x; i < kc * n4; i += blockDim.x) {
+      const int r = i / n4, q = i - r * n4;
+      sc_cp16(st + r * J.np + 4 * q, J.w + (size_t)(k0 + r) * J.n + 4 * q);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kc * J.n; i += blockDim.x) {
+      const int r = i / J.n, q = i - r * J.n;
+      sc_cp4(st + r * J.np + q, J.w + (size_t)(k0 + r) * J.n + q);
+    }
+  }
+  for (int i = threadIdx.x; i < (kc4 - kc) * J.np; i += blockDim.x)
+    st[kc * J.np + i] = 0.0f;
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The tap table of a slab with row stride rs and column stride cs.
+__device__ __forceinline__ void sc_build_taps(int* taps, int k, int C, int rs, int cs) {
+  const int kdim = k * k * C;
+  const int k4 = (kdim + 3) & ~3;
+  for (int i = threadIdx.x; i < k4; i += blockDim.x) {
+    int off = 0;
+    if (i < kdim) {
+      const int ki = i / (k * C);
+      const int rem = i - ki * k * C;
+      const int kj = rem / C;
+      off = ki * rs + kj * cs + (rem - kj * C);
+    }
+    taps[i] = off;
+  }
+}
+
+// PW: pool window (1 = none); WPT: windows per thread; TN: channels per
+// thread. Every thread of the CTA calls it (it synchronises).
+template <int PW, int WPT, int TN, bool POOL_FIRST>
+__device__ __forceinline__ void sc_gemm(const ScJob& J) {
+  constexpr int PP = PW * PW;
+  constexpr int TM = WPT * PP;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int n_win = J.n_wr * J.n_wc;
+  const int groups = (J.n + TN - 1) / TN;
+  const int gpairs = (groups + 1) >> 1;
+  const int tasks = ((n_win + 16 * WPT - 1) / (16 * WPT)) * gpairs;
+  const int rounds = (tasks + n_warps - 1) / n_warps;
+  const int nchunks = (J.kdim + SC_KC - 1) / SC_KC;
+  const int win_step = J.ps * J.s;
+
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int task = rd * n_warps + warp;
+    const bool live = task < tasks;
+    const int t = live ? task : 0;
+    const int wb = t / gpairs;
+    const int g = (t - wb * gpairs) * 2 + (lane >> 4);
+    const int n0 = min(g, groups - 1) * TN;  // clamped: reads stay in the stage
+    int win[WPT];
+    int pbase[TM];
 #pragma unroll
-  for (int i = 0; i < PW; ++i)
+    for (int w = 0; w < WPT; ++w) {
+      win[w] = wb * 16 * WPT + (lane & 15) + 16 * w;
+      const int wv = win[w] < n_win ? win[w] : 0;
+      const int wr = wv / J.n_wc;
+      const int wc = wv - wr * J.n_wc;
+      const int base = wr * win_step * J.rs + wc * win_step * J.cs;
 #pragma unroll
-    for (int j = 0; j < PW; ++j) acc[i][j] = 0.0f;
-  const int rs = cols * C;
-  for (int ki = 0; ki < k; ++ki) {
-    for (int kj = 0; kj < k; ++kj) {
-      const float* wp = w + (size_t)((ki * k + kj) * C) * N + n;
-      const float* ip = in + (cr0 * s + ki) * rs + (cc0 * s + kj) * C;
-      for (int c = 0; c < C; ++c) {
-        const float wv = __ldg(wp + (size_t)c * N);
+      for (int i = 0; i < PW; ++i)
 #pragma unroll
-        for (int i = 0; i < PW; ++i)
+        for (int j = 0; j < PW; ++j)
+          pbase[w * PP + i * PW + j] = base + i * J.s * J.rs + j * J.s * J.cs;
+    }
+    float acc[TM][TN];
 #pragma unroll
-          for (int j = 0; j < PW; ++j)
-            acc[i][j] = fmaf(ip[i * s * rs + j * s * C + c], wv, acc[i][j]);
+    for (int p = 0; p < TM; ++p)
+#pragma unroll
+      for (int q = 0; q < TN; ++q) acc[p][q] = 0.0f;
+
+    {
+      const int kc = min(SC_KC, J.kdim);
+      sc_stage_weights(J, J.wst, 0, kc, (kc + 3) & ~3);
+    }
+    for (int c = 0; c < nchunks; ++c) {
+      if (c + 1 < nchunks) {
+        const int k1 = (c + 1) * SC_KC;
+        const int kc = min(SC_KC, J.kdim - k1);
+        sc_stage_weights(J, J.wst + ((c + 1) & 1) * J.wst_elems, k1, kc, (kc + 3) & ~3);
+        sc_cp_wait<1>();
+      } else {
+        sc_cp_wait<0>();
+      }
+      __syncthreads();
+      const int k0 = c * SC_KC;
+      const int kc4 = (min(SC_KC, J.kdim - k0) + 3) & ~3;
+      const float* ws = J.wst + (c & 1) * J.wst_elems + n0;
+      const int* tp = J.taps + k0;
+#pragma unroll 2
+      for (int kk = 0; kk < kc4; kk += 4) {
+        const int4 o4 = *reinterpret_cast<const int4*>(tp + kk);
+        const int offs[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float a[TM];
+#pragma unroll
+          for (int p = 0; p < TM; ++p) a[p] = J.in[pbase[p] + offs[u]];
+          float bv[TN];
+          const float4* wp = reinterpret_cast<const float4*>(ws + (kk + u) * J.np);
+#pragma unroll
+          for (int q = 0; q < TN / 4; ++q) {
+            const float4 v = wp[q];
+            bv[4 * q] = v.x;
+            bv[4 * q + 1] = v.y;
+            bv[4 * q + 2] = v.z;
+            bv[4 * q + 3] = v.w;
+          }
+#pragma unroll
+          for (int p = 0; p < TM; ++p)
+#pragma unroll
+            for (int q = 0; q < TN; ++q) acc[p][q] = fmaf(a[p], bv[q], acc[p][q]);
+        }
+      }
+      __syncthreads();  // the stage is refilled two chunks on
+    }
+
+    if (!live || g >= groups) continue;
+#pragma unroll
+    for (int w = 0; w < WPT; ++w) {
+      if (win[w] >= n_win) continue;
+      const int wr = win[w] / J.n_wc;
+      const int wc = win[w] - wr * J.n_wc;
+      float* d = J.dst + wr * J.dst_rs + (wc + J.dst_co) * J.dst_cs;
+#pragma unroll
+      for (int q = 0; q < TN; ++q) {
+        const int n = n0 + q;
+        if (n >= J.n) break;
+        const float bv = __ldg(J.b + n);
+        float y;
+        if (POOL_FIRST) {
+          float m = acc[w * PP][q];
+#pragma unroll
+          for (int p = 1; p < PP; ++p) m = fmaxf(m, acc[w * PP + p][q]);
+          y = sc_act(m + bv, J.act);
+        } else {
+          y = sc_act(acc[w * PP][q] + bv, J.act);
+#pragma unroll
+          for (int p = 1; p < PP; ++p) y = fmaxf(y, sc_act(acc[w * PP + p][q] + bv, J.act));
+        }
+        d[n] = sc_quant(y, J.qbits, J.qscale, J.qmin, J.qmax);
       }
     }
   }
 }
 
-// One pooled output of channel n through the fused epilogue.
-// POOL_FIRST: bias -> pool -> act -> quant (pyramid); else bias -> act ->
-// pool -> quant (single layer). max(a + b, c + b) == max(a, c) + b exactly,
-// so the pool-first path adds the bias once after the max.
-template <int PW, bool POOL_FIRST>
-__device__ __forceinline__ float sc_point(
-    const float* __restrict__ in, int cols, int C,
-    const float* __restrict__ w, const float* __restrict__ bias, int N,
-    int n, int k, int s, int cr0, int cc0, int act, int qbits, float qscale,
-    float qmin, float qmax) {
-  float acc[PW][PW];
-  sc_window<PW>(in, cols, C, w, N, n, k, s, cr0, cc0, acc);
-  const float bv = __ldg(bias + n);
-  float y;
-  if (POOL_FIRST) {
-    float m = acc[0][0];
-#pragma unroll
-    for (int i = 0; i < PW; ++i)
-#pragma unroll
-      for (int j = 0; j < PW; ++j) m = fmaxf(m, acc[i][j]);
-    y = sc_act(m + bv, act);
+// The instantiations the host may pick (conv.py _tile_n): no pool takes
+// four windows per thread, pool windows 2 and 3 one; pool window 3 only
+// with TN = 4.
+template <bool POOL_FIRST>
+__device__ __forceinline__ void sc_gemm_dispatch(const ScJob& J, int pw, int tn) {
+  if (pw == 2) {
+    if (tn == 8) sc_gemm<2, 1, 8, POOL_FIRST>(J);
+    else sc_gemm<2, 1, 4, POOL_FIRST>(J);
+  } else if (pw == 3) {
+    sc_gemm<3, 1, 4, POOL_FIRST>(J);
   } else {
-    y = sc_act(acc[0][0] + bv, act);
-#pragma unroll
-    for (int i = 0; i < PW; ++i)
-#pragma unroll
-      for (int j = 0; j < PW; ++j) y = fmaxf(y, sc_act(acc[i][j] + bv, act));
-  }
-  return sc_quant(y, qbits, qscale, qmin, qmax);
-}
-
-// Pooled rows [r_lo, r_hi) of one pyramid layer's output slab into dst:
-// element (r, c, n) lands at dst[r * dst_rs + (c + dst_co) * N + n].
-template <int PW>
-__device__ void sc_pyramid_layer(const ScLayer& L, const float* __restrict__ in,
-                                 float* __restrict__ dst, int dst_rs,
-                                 int dst_co, int r_lo, int r_hi) {
-  const int cols = L.in_cols + L.pad_l + L.pad_r;
-  const int N = L.n_out;
-  const int items = (r_hi - r_lo) * L.out_cols * N;
-  for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
-    const int n = idx % N;
-    const int pos = idx / N;
-    const int oc = pos % L.out_cols;
-    const int r = r_lo + pos / L.out_cols;
-    dst[r * dst_rs + (oc + dst_co) * N + n] = sc_point<PW, true>(
-        in, cols, L.in_ch, L.w, L.b, N, n, L.k, L.stride, r * L.ps,
-        oc * L.ps, L.act, L.qbits, L.qscale, L.qmin, L.qmax);
+    if (tn == 8) sc_gemm<1, 4, 8, POOL_FIRST>(J);
+    else sc_gemm<1, 4, 4, POOL_FIRST>(J);
   }
 }
 
-__global__ void __launch_bounds__(SC_THREADS)
+__device__ __forceinline__ ScJob sc_job(const ScLayer& L, const float* in, int rs,
+                                        int n_wr, const int* taps, float* wst,
+                                        int wst_elems) {
+  ScJob J;
+  J.in = in;
+  J.rs = rs;
+  J.cs = L.cs;
+  J.s = L.stride;
+  J.ps = L.ps;
+  J.n_wr = n_wr;
+  J.n_wc = L.out_cols;
+  J.n = L.n_out;
+  J.kdim = L.k * L.k * L.in_ch;
+  J.taps = taps;
+  J.w = L.w;
+  J.b = L.b;
+  J.np = L.np;
+  J.wvec = L.wvec;
+  J.wst = wst;
+  J.wst_elems = wst_elems;
+  J.act = L.act;
+  J.qbits = L.qbits;
+  J.qscale = L.qscale;
+  J.qmin = L.qmin;
+  J.qmax = L.qmax;
+  return J;
+}
+
+__global__ void __launch_bounds__(SC_THREADS, 2)
     sc_pyramid_kernel(const ScPyramid P) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* const buf0 = smem;
   float* const buf1 = smem + P.buf0_elems;
+  int* const taps = reinterpret_cast<int*>(smem + P.tap_off);
+  float* const wst = smem + P.wst_off;
   const int rb = blockIdx.x;
   const int bi = blockIdx.y;
 
-  {  // Layer 0's halo'd rows, column-padded, zero outside the frame.
+  // Rows of each layer's output that this block computes, [olo, ohi) in
+  // out-slab coordinates, and the input rows they read, [ilo, ihi) in
+  // in-slab coordinates, last layer first: a layer computes the rows of
+  // the next layer's frame that the next layer reads (conv.py
+  // pyramid_rows is the same walk on the host).
+  int olo[SC_MAX_LAYERS], ohi[SC_MAX_LAYERS], ilo[SC_MAX_LAYERS], ihi[SC_MAX_LAYERS];
+#pragma unroll 1
+  for (int li = P.n_layers - 1; li >= 0; --li) {
+    {
+      const ScLayer& L = P.L[li];
+      int lo, hi;
+      if (li + 1 < P.n_layers) {
+        const int nx = li + 1;
+        const ScLayer& Nx = P.L[nx];
+        const int start = Nx.in_mult * rb + Nx.in_off;
+        lo = max(max(0, -start), ilo[nx]);
+        hi = min(min(L.out_slab_rows, Nx.in_rows - start), ihi[nx]);
+      } else {
+        lo = 0;
+        hi = min(P.block_rows, P.out_rows - rb * P.block_rows);
+      }
+      olo[li] = lo;
+      ohi[li] = hi;
+      if (hi > lo) {
+        ilo[li] = lo * L.ps * L.stride;
+        ihi[li] = ((hi - 1) * L.ps + L.pw - 1) * L.stride + L.k;
+      } else {
+        ilo[li] = ihi[li] = 0;
+      }
+    }
+  }
+
+  {  // Layer 0's rows [ilo, ihi), column-padded, zero outside the frame.
     const ScLayer& L0 = P.L[0];
     const int cols = L0.in_cols + L0.pad_l + L0.pad_r;
     const int C = L0.in_ch;
-    const int start = L0.in_mult * rb + L0.in_off;
-    const int total = L0.in_slab_rows * cols * C;
+    const int start = L0.in_mult * rb + L0.in_off + ilo[0];
+    const int total = (ihi[0] - ilo[0]) * cols * C;
     const float* xb = P.x + (size_t)bi * L0.in_rows * L0.in_cols * C;
     for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
       const int c = idx % C;
       const int pc = (idx / C) % cols;
-      const int gr = start + idx / (C * cols);
+      const int rr = idx / (C * cols);
+      const int gr = start + rr;
       const int gc = pc - L0.pad_l;
       float v = 0.0f;
       if (gr >= 0 && gr < L0.in_rows && gc >= 0 && gc < L0.in_cols)
         v = __ldg(xb + ((size_t)gr * L0.in_cols + gc) * C + c);
-      buf0[idx] = v;
+      buf0[rr * L0.rs + pc * L0.cs + c] = v;
     }
   }
-  __syncthreads();
 
-  // Unrolled over the layer slots so every P.L[li] is a constant offset
-  // into the parameter bank.
-#pragma unroll
-  for (int li = 0; li < SC_MAX_LAYERS; ++li) {
-    if (li < P.n_layers) {
+  // Not unrolled: one inlined copy of each GEMM instantiation.
+#pragma unroll 1
+  for (int li = 0; li < P.n_layers; ++li) {
+    {
       const ScLayer& L = P.L[li];
       const float* in = (li & 1) ? buf1 : buf0;
-      float* dst;
-      int dst_rs, dst_co, r_lo, r_hi;
+      sc_build_taps(taps, L.k, L.in_ch, L.rs, L.cs);
+      ScJob J = sc_job(L, in, L.rs, ohi[li] - olo[li], taps, wst, P.wst_elems);
       if (li + 1 < P.n_layers) {
-        const ScLayer& Nx = P.L[li + 1 < SC_MAX_LAYERS ? li + 1 : li];
+        const int nx = li + 1;
+        const ScLayer& Nx = P.L[nx];
         const int cols_n = Nx.in_cols + Nx.pad_l + Nx.pad_r;
+        float* dst = (li & 1) ? buf0 : buf1;
+        J.dst_rs = Nx.rs;
+        J.dst_cs = Nx.cs;
+        J.dst_co = Nx.pad_l;
+        J.dst = dst + (olo[li] - ilo[nx]) * J.dst_rs;
+        // The next layer's SAME padding: its stored rows outside the
+        // computed ones and its pad columns read as zero.
         const int N = L.n_out;
-        dst = (li & 1) ? buf0 : buf1;
-        dst_rs = cols_n * N;
-        dst_co = Nx.pad_l;
-        const int start = Nx.in_mult * rb + Nx.in_off;
-        r_lo = max(0, -start);
-        r_hi = min(L.out_slab_rows, Nx.in_rows - start);
-        // The next layer's SAME padding: rows outside its frame and its
-        // pad columns read as zero.
-        const int total = L.out_slab_rows * cols_n * N;
+        const int total = (ihi[nx] - ilo[nx]) * cols_n * N;
         for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+          const int n = idx % N;
           const int pc = (idx / N) % cols_n;
-          const int r = idx / (N * cols_n);
-          if (r < r_lo || r >= r_hi || pc < Nx.pad_l ||
-              pc >= Nx.pad_l + Nx.in_cols)
-            dst[idx] = 0.0f;
+          const int rr = idx / (N * cols_n);
+          const int r = ilo[nx] + rr;
+          if (r < olo[li] || r >= ohi[li] || pc < Nx.pad_l || pc >= Nx.pad_l + Nx.in_cols)
+            dst[rr * Nx.rs + pc * Nx.cs + n] = 0.0f;
         }
       } else {
-        dst = P.out + ((size_t)bi * P.out_rows + (size_t)rb * P.block_rows) *
-                          L.out_cols * L.n_out;
-        dst_rs = L.out_cols * L.n_out;
-        dst_co = 0;
-        r_lo = 0;
-        r_hi = min(P.block_rows, P.out_rows - rb * P.block_rows);
+        J.dst = P.out + ((size_t)bi * P.out_rows + (size_t)rb * P.block_rows) *
+                            L.out_cols * L.n_out;
+        J.dst_rs = L.out_cols * L.n_out;
+        J.dst_cs = L.n_out;
+        J.dst_co = 0;
       }
-      if (r_hi > r_lo) {
-        switch (L.pw) {
-          case 2: sc_pyramid_layer<2>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
-          case 3: sc_pyramid_layer<3>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
-          default: sc_pyramid_layer<1>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
-        }
-      }
+      if (ohi[li] > olo[li]) sc_gemm_dispatch<true>(J, L.pw, L.tn);
       __syncthreads();
     }
   }
 }
 
-template <int PW>
-__device__ void sc_fused_body(const ScFused& F, const float* __restrict__ in,
-                              int rb, int bi) {
-  const int po_lo = rb * F.r_o;
-  const int po_hi = min(F.h_keep, po_lo + F.r_o);
-  const int items = (po_hi - po_lo) * F.w_keep * F.n;
-  float* out = F.out + (size_t)bi * F.h_keep * F.w_keep * F.n;
-  for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
-    const int n = idx % F.n;
-    const int pos = idx / F.n;
-    const int oc = pos % F.w_keep;
-    const int po = po_lo + pos / F.w_keep;
-    out[((size_t)po * F.w_keep + oc) * F.n + n] = sc_point<PW, false>(
-        in, F.w_in, F.c, F.w, F.b, F.n, n, F.k, F.stride,
-        po * F.ps - rb * F.r, oc * F.ps, F.act, F.qbits, F.qscale, F.qmin,
-        F.qmax);
-  }
-}
-
-__global__ void __launch_bounds__(SC_THREADS) sc_fused_kernel(const ScFused F) {
-  extern __shared__ float slab[];
+__global__ void __launch_bounds__(SC_THREADS, 2) sc_fused_kernel(const ScFused F) {
+  extern __shared__ __align__(16) float smem[];
+  float* const slab = smem;
+  int* const taps = reinterpret_cast<int*>(smem + F.tap_off);
+  float* const wst = smem + F.wst_off;
   const int rb = blockIdx.x;
   const int bi = blockIdx.y;
   const int row0 = rb * F.r * F.stride;
   const int total = F.in_rows_blk * F.w_in * F.c;
   const float* xb = F.x + ((size_t)bi * F.h + row0) * F.w_in * F.c;
   const int valid = (F.h - row0) * F.w_in * F.c;  // rows past the frame read 0
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x)
-    slab[idx] = idx < valid ? __ldg(xb + idx) : 0.0f;
-  __syncthreads();
-  switch (F.pw) {
-    case 2: sc_fused_body<2>(F, slab, rb, bi); break;
-    case 3: sc_fused_body<3>(F, slab, rb, bi); break;
-    default: sc_fused_body<1>(F, slab, rb, bi); break;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int pix = idx / F.c;
+    const int row = pix / F.w_in;
+    slab[row * F.rs + (pix - row * F.w_in) * F.cs + (idx - pix * F.c)] =
+        idx < valid ? __ldg(xb + idx) : 0.0f;
   }
+  const int rs = F.rs;
+  sc_build_taps(taps, F.k, F.c, rs, F.cs);
+  const int po_lo = rb * F.r_o;
+  const int po_hi = min(F.h_keep, po_lo + F.r_o);
+  ScJob J;
+  J.in = slab;
+  J.rs = rs;
+  J.cs = F.cs;
+  J.s = F.stride;
+  J.ps = F.ps;
+  J.n_wr = po_hi - po_lo;
+  J.n_wc = F.w_keep;
+  J.n = F.n;
+  J.kdim = F.k * F.k * F.c;
+  J.taps = taps;
+  J.w = F.w;
+  J.b = F.b;
+  J.np = F.np;
+  J.wvec = F.wvec;
+  J.wst = wst;
+  J.wst_elems = F.wst_elems;
+  J.act = F.act;
+  J.qbits = F.qbits;
+  J.qscale = F.qscale;
+  J.qmin = F.qmin;
+  J.qmax = F.qmax;
+  J.dst = F.out + ((size_t)bi * F.h_keep + po_lo) * F.w_keep * F.n;
+  J.dst_rs = F.w_keep * F.n;
+  J.dst_cs = F.n;
+  J.dst_co = 0;
+  sc_gemm_dispatch<false>(J, F.pw, F.tn);  // its first barrier covers the slab and taps
 }
 
 // ---------------------------------------------------------------------------
@@ -559,6 +797,20 @@ static int sc_opt_in_smem(const void* kernel, int smem_bytes) {
 extern "C" int sc_pyramid_desc_bytes() { return (int)sizeof(ScPyramid); }
 extern "C" int sc_fused_desc_bytes() { return (int)sizeof(ScFused); }
 
+// CTAs of the fp32 pyramid (which = 0) or single-layer kernel (1) that fit
+// on one SM at `threads` per CTA and smem_bytes of dynamic shared memory;
+// negative: a CUDA error.
+extern "C" int sc_ctas_per_sm(int which, int smem_bytes, int threads) {
+  const void* kernel =
+      which == 0 ? (const void*)sc_pyramid_kernel : (const void*)sc_fused_kernel;
+  int err = sc_opt_in_smem(kernel, smem_bytes);
+  if (err) return -err;
+  int n = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                           smem_bytes);
+  return err ? -err : n;
+}
+
 extern "C" int sc_pyramid_launch(const ScPyramid* desc, int smem_bytes,
                                  void* stream) {
   int err = sc_opt_in_smem((const void*)sc_pyramid_kernel, smem_bytes);
@@ -574,7 +826,7 @@ extern "C" int sc_fused_launch(const ScFused* desc, int smem_bytes,
   int err = sc_opt_in_smem((const void*)sc_fused_kernel, smem_bytes);
   if (err) return err;
   dim3 grid(desc->n_rb, desc->batch);
-  sc_fused_kernel<<<grid, SC_THREADS, smem_bytes, (cudaStream_t)stream>>>(
+  sc_fused_kernel<<<grid, desc->threads, smem_bytes, (cudaStream_t)stream>>>(
       *desc);
   return (int)cudaGetLastError();
 }

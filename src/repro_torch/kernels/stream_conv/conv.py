@@ -7,7 +7,10 @@ one CTA per (row block, image) over a host-SAME-padded frame, fused
 bias -> act -> pool -> quant epilogue. ``stream_conv_pyramid_cuda``
 replaces the cross-layer pyramid (``stream_conv_pyramid_pallas``): one CTA
 per (row block, image) streams a whole fusion group with every
-inter-layer slab in shared memory. Each has an int8 variant
+inter-layer slab in shared memory. The fp32 kernels run each layer as a
+register-tiled implicit GEMM over the slab (weights staged in shared
+memory); this module sizes their shared-memory layout
+(``pyramid_layout``, ``fused_geometry``). Each has an int8 variant
 (``int8_scales``): int8 frame and weight codes, int32 accumulation, the
 exact pow2 dequantization, and int8 codes between pyramid layers. The
 design notes and bounds of all four kernels are in the source.
@@ -22,6 +25,8 @@ the input tensor.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -37,6 +42,8 @@ from repro_torch.kernels.stream_conv.epilogue import (
 # Shared memory one block may use on Hopper (227 KB of the SM's 256 KB).
 SMEM_LIMIT = 232_448
 MAX_PYRAMID_LAYERS = 4  # SC_MAX_LAYERS in the source
+THREADS = 256  # SC_THREADS in the source
+K_STAGE = 64  # SC_KC in the source: weight rows per shared-memory stage
 POOL_WINDOWS = (0, 2, 3)  # pool windows the kernels are instantiated for
 ACT_CODES = {"none": 0, "relu": 1, "tanh": 2}
 
@@ -70,6 +77,8 @@ class _ScLayer(ctypes.Structure):
         ("in_mult", ctypes.c_int), ("in_off", ctypes.c_int),
         ("in_slab_rows", ctypes.c_int), ("out_slab_rows", ctypes.c_int),
         ("deq", ctypes.c_float),
+        ("cs", ctypes.c_int), ("rs", ctypes.c_int), ("tn", ctypes.c_int),
+        ("np", ctypes.c_int), ("wvec", ctypes.c_int),
     ]
 
 
@@ -80,6 +89,8 @@ class _ScPyramid(ctypes.Structure):
         ("n_rb", ctypes.c_int), ("block_rows", ctypes.c_int),
         ("out_rows", ctypes.c_int),
         ("buf0_elems", ctypes.c_int),
+        ("tap_off", ctypes.c_int), ("wst_off", ctypes.c_int),
+        ("wst_elems", ctypes.c_int),
         ("L", _ScLayer * MAX_PYRAMID_LAYERS),
     ]
 
@@ -97,6 +108,10 @@ class _ScFused(ctypes.Structure):
         ("h_keep", ctypes.c_int), ("w_keep", ctypes.c_int), ("r", ctypes.c_int),
         ("r_o", ctypes.c_int), ("in_rows_blk", ctypes.c_int),
         ("n_rb", ctypes.c_int), ("deq", ctypes.c_float),
+        ("cs", ctypes.c_int), ("rs", ctypes.c_int), ("tn", ctypes.c_int),
+        ("np", ctypes.c_int), ("wvec", ctypes.c_int), ("tap_off", ctypes.c_int),
+        ("wst_off", ctypes.c_int), ("wst_elems", ctypes.c_int),
+        ("threads", ctypes.c_int),
     ]
 
 
@@ -105,6 +120,8 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_sc_checked", False):
         for fn in (lib.sc_pyramid_desc_bytes, lib.sc_fused_desc_bytes):
             fn.argtypes, fn.restype = [], ctypes.c_int
+        lib.sc_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.sc_ctas_per_sm.restype = ctypes.c_int
         for fn in (lib.sc_pyramid_launch, lib.sc_fused_launch,
                    lib.sc_pyramid_i8_launch, lib.sc_fused_i8_launch):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -159,6 +176,96 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
+def ctas_per_sm(kernel: str, smem_bytes: int, threads: int = THREADS) -> int:
+    """CTAs of the fp32 ``stream_conv_pyramid`` or ``stream_conv_fused``
+    kernel that fit on one SM of the current card at ``threads`` per CTA
+    and ``smem_bytes`` of dynamic shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    which = {"stream_conv_pyramid": 0, "stream_conv_fused": 1}[kernel]
+    n = _library().sc_ctas_per_sm(which, smem_bytes, threads)
+    _raise_on(-n if n < 0 else 0, f"{kernel} occupancy query")
+    return n
+
+
+# ---------------------------------------------------------------------------
+# The fp32 kernels' implicit-GEMM layout (sc_gemm in the source).
+
+
+def column_stride(c: int) -> int:
+    """Words per slab column of the fp32 kernels: C for odd C, C + 1 for
+    even C, so neighbouring windows of a warp fall in different banks."""
+    return c if c % 2 else c + 1
+
+
+def _windows_per_thread(pw: int) -> int:
+    return 4 if pw in (0, 1) else 1
+
+
+@functools.lru_cache(maxsize=1024)
+def row_stride(cols: int, cs: int, step: int, out_cols: int, n_windows: int) -> int:
+    """Words per slab row of the fp32 kernels: ``cols * cs`` plus the pad
+    (0-31 words) that puts the 16 windows a warp gathers at one tap in the
+    fewest shared-memory wavefronts (the most lanes on one of the 32
+    banks, summed over the warps' window sets). ``step`` is the window
+    pitch in conv-input pixels (pool stride times conv stride); windows
+    run row-major over ``out_cols`` columns."""
+    base = cols * cs
+    bases = [((w // out_cols) * step, (w % out_cols) * step * cs)
+             for w in range(n_windows)]
+    sets = [bases[w0:w0 + 16] for w0 in range(0, n_windows, 16)]
+
+    def wavefronts(rs):
+        total = 0
+        for group in sets:
+            banks = [0] * 32
+            for r, c in group:
+                banks[(r * rs + c) % 32] += 1
+            total += max(banks)
+        return total
+
+    return base + min(range(32), key=lambda pad: (wavefronts(base + pad), pad))
+
+
+def _warp_tasks(pw: int, n_out: int, n_windows: int, tn: int) -> int:
+    """Warp tasks (16 windows x 2 channel groups of ``tn``) of one layer
+    in one CTA; ``n_windows`` is the pooled outputs (conv positions
+    without a pool) the CTA computes."""
+    groups = -(-n_out // tn)
+    return -(-n_windows // (16 * _windows_per_thread(pw))) * ((groups + 1) // 2)
+
+
+def tile_n(pw: int, n_out: int, n_windows: int) -> int:
+    """Output channels per thread of a pyramid layer (TN in the source):
+    8, unless the pool window is 3 (register pressure) or the layer has
+    too few warp tasks at 8 to occupy the CTA's eight warps, then 4."""
+    if pw == 3 or _warp_tasks(pw, n_out, n_windows, 8) < THREADS // 32:
+        return 4
+    return 8
+
+
+def fused_tile(pw: int, n_out: int, n_windows: int) -> tuple:
+    """(TN, threads per CTA) of the single-layer kernel, whose CTA size is
+    free: TN = 8 with one warp per task (four to eight warps) where the
+    layer has four tasks at 8, else TN = 4 (always at pool window 3) and
+    up to eight warps. A larger tile per thread reads fewer shared-memory
+    words per FMA; smaller CTAs keep 16 warps per SM."""
+    if pw != 3:
+        tasks = _warp_tasks(pw, n_out, n_windows, 8)
+        if tasks >= 4:
+            return 8, 32 * min(THREADS // 32, tasks)
+    return 4, 32 * min(THREADS // 32, _warp_tasks(pw, n_out, n_windows, 4))
+
+
+def _taps_words(k: int, c: int) -> int:
+    return round_up(k * k * c, 4)
+
+
+def _stage_words(n_out: int, tn: int) -> tuple:
+    """(staged weight row stride, floats of one stage)."""
+    np_ = round_up(n_out, tn)
+    return np_, K_STAGE * np_
+
+
 # ---------------------------------------------------------------------------
 # Single-layer fused conv.
 
@@ -178,23 +285,44 @@ def _block_multiple(k: int, s: int, pw: int, ps: int) -> tuple:
 
 def fused_geometry(h: int, wd: int, c: int, *, k: int, stride: int,
                    pool: int, pool_stride, block_r: int,
-                   elem_bytes: int = 4) -> dict:
+                   n_out: int | None = None, elem_bytes: int = 4) -> dict:
     """Row blocking of the single-layer kernel over an already padded
     (h, wd, c) frame: conv rows per block ``r`` (a multiple of
     ``_block_multiple``), pooled rows per block ``r_o``, input rows per
-    block (with the halo) and the block's shared-memory bytes at
-    ``elem_bytes`` per slab element (4 fp32, 1 int8). Halves the block
-    toward the multiple until the slab fits; raises if even that does
-    not."""
+    block (with the halo) and the block's shared-memory bytes. At
+    ``elem_bytes=1`` (the int8 kernel) that is the slab at one byte per
+    element; at 4 (the fp32 kernel, which needs ``n_out``) the slab with
+    ``column_stride`` words per column, the tap table and two weight
+    stages, laid out as the returned word offsets say. Halves the block
+    toward the multiple until it fits; raises if even that does not."""
     pw, ps = normalize_pool(pool, pool_stride)
     s = stride
     h_out, w_out = (h - k) // s + 1, (wd - k) // s + 1
+    h_keep = pool_out_dim(h_out, pw, ps) if pw else h_out
+    w_keep = pool_out_dim(w_out, pw, ps) if pw else w_out
     mult, _, overlap = _block_multiple(k, s, pw, ps)
+    if elem_bytes == 4 and n_out is None:
+        raise ValueError("fused_geometry needs n_out to size the fp32 kernel's weight stages")
+
+    def layout(r):
+        in_rows = (r + overlap - 1) * s + k
+        if elem_bytes == 1:
+            return in_rows, {}, in_rows * wd * c
+        r_o = r // ps if pw else r
+        tn, threads = fused_tile(pw, n_out, r_o * w_keep)
+        np_, stage = _stage_words(n_out, tn)
+        cs = column_stride(c)
+        rs = row_stride(wd, cs, (ps or 1) * s, w_keep, r_o * w_keep)
+        tap_off = round_up(in_rows * rs, 4)
+        wst_off = tap_off + _taps_words(k, c)
+        fp32 = dict(threads=threads, cs=cs, rs=rs, tn=tn, np=np_, tap_off=tap_off, wst_off=wst_off,
+                    wst_elems=stage)
+        return in_rows, fp32, 4 * (wst_off + 2 * stage)
+
     r = round_up(max(block_r, mult), mult)
     r = min(r, round_up(h_out, mult))
     while True:
-        in_rows = (r + overlap - 1) * s + k
-        smem = in_rows * wd * c * elem_bytes
+        in_rows, fp32, smem = layout(r)
         if smem <= SMEM_LIMIT or r == mult:
             break
         r = max(mult, round_up(r // 2, mult))
@@ -203,12 +331,10 @@ def fused_geometry(h: int, wd: int, c: int, *, k: int, stride: int,
             f"single-layer block of {r} conv rows needs {smem} B of shared "
             f"memory, above the {SMEM_LIMIT} B a Hopper block may use"
         )
-    h_keep = pool_out_dim(h_out, pw, ps) if pw else h_out
-    w_keep = pool_out_dim(w_out, pw, ps) if pw else w_out
     r_o = r // ps if pw else r
     return dict(
         r=r, r_o=r_o, in_rows_blk=in_rows, h_keep=h_keep, w_keep=w_keep,
-        n_rb=-(-h_keep // r_o), smem=smem,
+        n_rb=-(-h_keep // r_o), smem=smem, **fp32,
     )
 
 
@@ -221,6 +347,29 @@ def _int8_operands(name: str, int8_scales, act_bits) -> tuple:
     if any(b is None for b in act_bits):
         raise ValueError(f"{name}: int8_scales requires act_bits on every layer")
     return torch.int8, 1
+
+
+def _weights_16b(w: torch.Tensor) -> int:
+    """Whether the kernel may copy rows of ``w`` 16 bytes at a time."""
+    return int(w.shape[-1] % 4 == 0 and w.data_ptr() % 16 == 0)
+
+
+def _fused_desc(x, w, bias, out, g, *, stride, act, pw, ps, act_bits,
+                int8_scales) -> _ScFused:
+    b_, h, wd, c = x.shape
+    k, n = w.shape[0], w.shape[3]
+    fp32 = {} if int8_scales is not None else dict(
+        threads=g["threads"], cs=g["cs"], rs=g["rs"], tn=g["tn"], np=g["np"], wvec=_weights_16b(w),
+        tap_off=g["tap_off"], wst_off=g["wst_off"], wst_elems=g["wst_elems"],
+    )
+    return _ScFused(
+        x=x.data_ptr(), w=w.data_ptr(), b=bias.data_ptr(), out=out.data_ptr(),
+        batch=b_, h=h, w_in=wd, c=c, n=n, k=k, stride=stride,
+        act=ACT_CODES[act], pw=pw or 1, ps=ps or 1, **_quant_fields(act_bits),
+        h_keep=g["h_keep"], w_keep=g["w_keep"], r=g["r"], r_o=g["r_o"],
+        in_rows_blk=g["in_rows_blk"], n_rb=g["n_rb"],
+        deq=1.0 if int8_scales is None else int8_scales.deq_scale, **fp32,
+    )
 
 
 def stream_conv_fused_cuda(
@@ -254,18 +403,12 @@ def stream_conv_fused_cuda(
     if b_ > 65535:
         raise ValueError(f"batch {b_} above the grid's 65535 images")
     g = fused_geometry(h, wd, c, k=k, stride=stride, pool=pool,
-                       pool_stride=pool_stride, block_r=block_r,
+                       pool_stride=pool_stride, block_r=block_r, n_out=n,
                        elem_bytes=elem_bytes)
     out = torch.empty((b_, g["h_keep"], g["w_keep"], n), device=x.device,
                       dtype=torch.float32)
-    desc = _ScFused(
-        x=x.data_ptr(), w=w.data_ptr(), b=bias.data_ptr(), out=out.data_ptr(),
-        batch=b_, h=h, w_in=wd, c=c, n=n, k=k, stride=stride,
-        act=ACT_CODES[act], pw=pw or 1, ps=ps or 1, **_quant_fields(act_bits),
-        h_keep=g["h_keep"], w_keep=g["w_keep"], r=g["r"], r_o=g["r_o"],
-        in_rows_blk=g["in_rows_blk"], n_rb=g["n_rb"],
-        deq=1.0 if int8_scales is None else int8_scales.deq_scale,
-    )
+    desc = _fused_desc(x, w, bias, out, g, stride=stride, act=act, pw=pw, ps=ps,
+                       act_bits=act_bits, int8_scales=int8_scales)
     name = "stream_conv_fused" if int8_scales is None else "stream_conv_fused_int8"
     lib = _library()
     launch = lib.sc_fused_launch if int8_scales is None else lib.sc_fused_i8_launch
@@ -282,11 +425,12 @@ def stream_conv_fused_cuda(
 
 
 def pyramid_buffers(geom, elem_bytes: int = 4) -> tuple:
-    """Elements of the two ping-pong slab buffers: buffer i % 2 holds layer
-    i's column-padded input slab (layer 0's read from the frame, later
-    ones written by the previous layer's epilogue). With 1-byte elements
-    the first buffer is rounded up to ``INT8_BUF_ALIGN`` so the second
-    starts aligned."""
+    """Elements of the int8 kernel's two ping-pong slab buffers: buffer
+    i % 2 holds layer i's whole halo'd, column-padded input slab (layer
+    0's read from the frame, later ones written by the previous layer's
+    epilogue), C elements per column. With 1-byte elements the first
+    buffer is rounded up to ``INT8_BUF_ALIGN`` so the second starts
+    aligned. (The fp32 kernel's layout is ``pyramid_layout``.)"""
     bufs = [0, 0]
     for i, g in enumerate(geom.layers):
         cols = g.in_cols + g.pads[1][0] + g.pads[1][1]
@@ -296,10 +440,130 @@ def pyramid_buffers(geom, elem_bytes: int = 4) -> tuple:
     return tuple(bufs)
 
 
+def pyramid_rows(geom, rb: int) -> tuple:
+    """Per layer, the rows the fp32 pyramid kernel handles in row block
+    ``rb``: (olo, ohi) the output rows it computes, in out-slab
+    coordinates, and (ilo, ihi) the input rows they read, in in-slab
+    coordinates. Walked from the last layer back: a layer computes the
+    rows of the next layer's frame that the next layer reads. The
+    kernel's opening loop is the same walk."""
+    n = len(geom.layers)
+    rows = [None] * n
+    for li in reversed(range(n)):
+        g = geom.layers[li]
+        if li + 1 < n:
+            nx = geom.layers[li + 1]
+            start = nx.in_mult * rb + nx.in_off
+            lo = max(0, -start, rows[li + 1][2])
+            hi = min(g.out_slab_rows, nx.in_rows - start, rows[li + 1][3])
+        else:
+            lo = 0
+            hi = min(geom.block_rows, geom.out_rows - rb * geom.block_rows)
+        if hi > lo:
+            pw, ps = g.pw or 1, g.ps or 1
+            ilo, ihi = lo * ps * g.stride, ((hi - 1) * ps + pw - 1) * g.stride + g.k
+        else:
+            ilo = ihi = 0
+        rows[li] = (lo, hi, ilo, ihi)
+    return tuple(rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class PyramidLayout:
+    """The fp32 pyramid kernel's shared memory, in 4-byte words: two
+    ping-pong slab buffers (``buf0`` then ``buf1`` words), the tap table
+    at ``tap_off`` and two weight stages of ``wst_elems`` at ``wst_off``.
+    Per layer: the slab's column and row strides ``cs`` and ``rs``, the
+    slab rows stored, the channels per thread ``tn`` and the staged weight
+    row stride ``np``."""
+
+    cs: tuple
+    rs: tuple
+    slab_rows: tuple
+    tn: tuple
+    np: tuple
+    buf0: int
+    buf1: int
+    tap_off: int
+    wst_off: int
+    wst_elems: int
+
+    @property
+    def smem(self) -> int:
+        return 4 * (self.wst_off + 2 * self.wst_elems)
+
+
+@functools.lru_cache(maxsize=256)
+def pyramid_layout(geom) -> PyramidLayout:
+    """The fp32 pyramid kernel's shared-memory layout for a group
+    geometry: each slab holds the rows ``pyramid_rows`` says the widest
+    row block reads, at ``column_stride`` and ``row_stride``."""
+    per_block = [pyramid_rows(geom, rb) for rb in range(geom.n_row_blocks)]
+    cs, rs, slab_rows, tn, np_ = [], [], [], [], []
+    bufs, taps, stage = [0, 0], 0, 0
+    for i, g in enumerate(geom.layers):
+        cols = g.in_cols + g.pads[1][0] + g.pads[1][1]
+        windows = max(r[i][1] - r[i][0] for r in per_block) * g.out_cols
+        cs.append(column_stride(g.in_ch))
+        rs.append(row_stride(cols, cs[-1], (g.ps or 1) * g.stride, g.out_cols, windows))
+        slab_rows.append(max(r[i][3] - r[i][2] for r in per_block))
+        tn.append(tile_n(g.pw, g.n_out, windows))
+        w_row, words = _stage_words(g.n_out, tn[-1])
+        np_.append(w_row)
+        bufs[i % 2] = max(bufs[i % 2], round_up(slab_rows[-1] * rs[-1], 4))
+        taps = max(taps, _taps_words(g.k, g.in_ch))
+        stage = max(stage, words)
+    tap_off = bufs[0] + bufs[1]
+    return PyramidLayout(
+        cs=tuple(cs), rs=tuple(rs), slab_rows=tuple(slab_rows), tn=tuple(tn),
+        np=tuple(np_), buf0=bufs[0], buf1=bufs[1], tap_off=tap_off,
+        wst_off=tap_off + taps, wst_elems=stage,
+    )
+
+
 def pyramid_smem_bytes(geom, elem_bytes: int = 4) -> int:
-    """Shared memory one pyramid block needs for this group geometry, at
-    ``elem_bytes`` per slab element (4 fp32, 1 int8)."""
-    return elem_bytes * sum(pyramid_buffers(geom, elem_bytes))
+    """Shared memory one pyramid block needs for this group geometry: the
+    fp32 kernel's ``pyramid_layout`` at ``elem_bytes=4``, the int8
+    kernel's ``pyramid_buffers`` at 1."""
+    if elem_bytes == 1:
+        return sum(pyramid_buffers(geom, 1))
+    return pyramid_layout(geom).smem
+
+
+def _pyramid_desc(x, weights, biases, out, geom, act_bits, int8_scales) -> _ScPyramid:
+    lay = None if int8_scales is not None else pyramid_layout(geom)
+    layer_descs = []
+    for i, (g, w, b) in enumerate(zip(geom.layers, weights, biases)):
+        fp32 = {} if lay is None else dict(
+            cs=lay.cs[i], rs=lay.rs[i], tn=lay.tn[i], np=lay.np[i], wvec=_weights_16b(w),
+        )
+        layer_descs.append(
+            _ScLayer(
+                w=w.data_ptr(), b=b.data_ptr(), k=g.k, stride=g.stride,
+                act=ACT_CODES[g.act], pw=g.pw or 1, ps=g.ps or 1,
+                **_quant_fields(act_bits[i]),
+                in_rows=g.in_rows, in_cols=g.in_cols, in_ch=g.in_ch,
+                pad_l=g.pads[1][0], pad_r=g.pads[1][1],
+                out_cols=g.out_cols, n_out=g.n_out,
+                in_mult=g.in_mult, in_off=g.in_off,
+                in_slab_rows=g.in_slab_rows, out_slab_rows=g.out_slab_rows,
+                deq=1.0 if int8_scales is None else int8_scales[i].deq_scale,
+                **fp32,
+            )
+        )
+    fp32 = {} if lay is None else dict(
+        buf0_elems=lay.buf0, tap_off=lay.tap_off, wst_off=lay.wst_off,
+        wst_elems=lay.wst_elems,
+    )
+    desc = _ScPyramid(
+        x=x.data_ptr(), out=out.data_ptr(), batch=x.shape[0],
+        n_layers=len(geom.layers), n_rb=geom.n_row_blocks,
+        block_rows=geom.block_rows, out_rows=geom.out_rows,
+        **(fp32 or dict(buf0_elems=pyramid_buffers(geom, 1)[0])),
+    )
+    for i, d in enumerate(layer_descs):
+        desc.L[i] = d
+    return desc
 
 
 def stream_conv_pyramid_cuda(
@@ -337,35 +601,14 @@ def stream_conv_pyramid_cuda(
             f"{SMEM_LIMIT} B a Hopper block may use (block_rows="
             f"{geom.block_rows})"
         )
-    layer_descs = []
     for i, (g, w, b) in enumerate(zip(geom.layers, weights, biases)):
         _check_cuda(f"weights[{i}]", w, (g.k, g.k, g.in_ch, g.n_out), dtype=dtype)
         _check_cuda(f"biases[{i}]", b, (g.n_out,))
         _check_pool(g.pw)
-        layer_descs.append(
-            _ScLayer(
-                w=w.data_ptr(), b=b.data_ptr(), k=g.k, stride=g.stride,
-                act=ACT_CODES[g.act], pw=g.pw or 1, ps=g.ps or 1,
-                **_quant_fields(act_bits[i]),
-                in_rows=g.in_rows, in_cols=g.in_cols, in_ch=g.in_ch,
-                pad_l=g.pads[1][0], pad_r=g.pads[1][1],
-                out_cols=g.out_cols, n_out=g.n_out,
-                in_mult=g.in_mult, in_off=g.in_off,
-                in_slab_rows=g.in_slab_rows, out_slab_rows=g.out_slab_rows,
-                deq=1.0 if int8_scales is None else int8_scales[i].deq_scale,
-            )
-        )
     last = geom.layers[-1]
     out = torch.empty((b_, geom.out_rows, geom.out_cols, last.n_out),
                       device=x.device, dtype=torch.float32)
-    desc = _ScPyramid(
-        x=x.data_ptr(), out=out.data_ptr(), batch=b_, n_layers=n_layers,
-        n_rb=geom.n_row_blocks, block_rows=geom.block_rows,
-        out_rows=geom.out_rows,
-        buf0_elems=pyramid_buffers(geom, elem_bytes)[0],
-    )
-    for i, d in enumerate(layer_descs):
-        desc.L[i] = d
+    desc = _pyramid_desc(x, weights, biases, out, geom, act_bits, int8_scales)
     name = "stream_conv_pyramid" if int8_scales is None else "stream_conv_pyramid_int8"
     lib = _library()
     launch = lib.sc_pyramid_launch if int8_scales is None else lib.sc_pyramid_i8_launch

@@ -466,6 +466,14 @@ def test_int8_kernels_count_one_byte_per_slab_element(name):
     spec = tt.conv_layers[0]
     kw = dict(k=spec.kernel, stride=spec.stride, pool=spec.pool, pool_stride=spec.pool_stride,
               block_r=8)
-    g4 = kconv.fused_geometry(h + 4, w + 4, tt.input_channels, **kw)
-    g1 = kconv.fused_geometry(h + 4, w + 4, tt.input_channels, elem_bytes=1, **kw)
-    assert g1["smem"] * 4 == g4["smem"] and g1["r"] == g4["r"]
+    c = tt.input_channels
+    g4 = kconv.fused_geometry(h + 4, w + 4, c, n_out=spec.n_out, **kw)
+    g1 = kconv.fused_geometry(h + 4, w + 4, c, elem_bytes=1, **kw)
+    assert g1["r"] == g4["r"] and g1["in_rows_blk"] == g4["in_rows_blk"]
+    assert g1["smem"] == g1["in_rows_blk"] * (w + 4) * c
+    # The fp32 kernel: the slab at 4 bytes (an odd C keeps its column
+    # stride, a row takes at most 31 words of pad), then the tap table and
+    # the weight stages.
+    assert g4["cs"] == c and g4["rs"] - (w + 4) * c in range(32)
+    assert g4["tap_off"] == -(-g4["in_rows_blk"] * g4["rs"] // 4) * 4
+    assert g4["smem"] == 4 * (g4["wst_off"] + 2 * g4["wst_elems"]) > 4 * g1["smem"]

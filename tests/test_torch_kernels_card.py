@@ -158,6 +158,55 @@ def test_single_layer_kernel_over_odd_frames_and_blocks(card, frame, stride, poo
         _assert_matches(out, ref, None, f"stream_conv2d {frame} {padding}")
 
 
+# The fp32 kernels at the edges of their register tile (16 windows x 2
+# groups of TN = 4 or 8 channels per warp, K in stages of 64): (batch, H,
+# W, C, N, K, stride, pool, pool_stride, padding, act, block_r of the
+# single-layer kernel, block_rows of the pyramid). N 10, 20 and 50 are
+# no multiple of the tile (50 is no multiple of 4 either: 4-byte weight
+# copies); C 1 and 3 give K = 25, 9, 75; the frames give window counts
+# that are no multiple of 16; every case has more than one row block; the
+# last one is wide enough for TN = 8 with N = 50 (a clamped channel group).
+EDGE_CASES = [
+    (1, 13, 17, 1, 10, 5, 1, 2, None, "SAME", "relu", 2, 1),
+    (257, 21, 19, 3, 20, 3, 1, 3, 2, "SAME", "tanh", 4, 2),
+    (2, 23, 25, 20, 50, 3, 2, 0, None, "VALID", "relu", 3, 3),
+    (3, 18, 22, 32, 10, 5, 1, 2, None, "SAME", "none", 2, 2),
+    (257, 28, 14, 3, 50, 5, 2, 2, None, "SAME", "relu", 1, 1),
+    (2, 40, 44, 3, 50, 5, 1, 2, None, "SAME", "relu", 16, 10),
+]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: "b{}_{}x{}_c{}_n{}_k{}_s{}_p{}".format(*c))
+@pytest.mark.parametrize("act_bits", [None, 6])
+def test_fp32_kernels_at_the_tile_edges(card, case, act_bits):
+    b_, h, w, c, n, k, stride, pool, pool_stride, padding, act, block_r, block_rows = case
+    rng = np.random.default_rng(sum(case[:6]))
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(card)
+
+    x = t(b_, h, w, c)
+    wt, b = t(k, k, c, n, scale=(2.0 / (k * k * c)) ** 0.5), t(n, scale=0.1)
+    kw = dict(padding=padding, stride=stride, act=act, pool=pool, pool_stride=pool_stride,
+              act_bits=act_bits)
+    before = dict(kconv.LAUNCHES)
+    out = stream_conv_block(x, wt, b, block_r=block_r, **kw)
+    assert kconv.LAUNCHES["stream_conv_fused"] == before["stream_conv_fused"] + 1
+    _assert_matches(out, stream_conv_block_ref(x, wt, b, **kw), act_bits, f"single layer {case}")
+    # The same layer, then a SAME 3x3 layer of 20 channels, as one pyramid.
+    layers = [ConvLayerSpec(n_out=n, kernel=k, padding=padding, stride=stride, act=act,
+                            pool=pool, pool_stride=pool_stride),
+              ConvLayerSpec(n_out=20, kernel=3, padding="SAME", act="relu", pool=0)]
+    ws, bs = [wt, t(3, 3, n, 20, scale=(2.0 / (9 * n)) ** 0.5)], [b, t(20, scale=0.1)]
+    geom = group_geometry(h, w, c, as_pyramid_layers(layers), (k, 3), (n, 20),
+                          block_rows=block_rows)
+    assert geom.n_row_blocks > 1
+    out = stream_conv_pyramid(x, ws, bs, layers=layers, act_bits=act_bits, block_rows=block_rows)
+    assert kconv.LAUNCHES["stream_conv_pyramid"] == before["stream_conv_pyramid"] + 1
+    ref = stream_conv_pyramid_ref(x, ws, bs, layers=as_pyramid_layers(layers), act_bits=act_bits)
+    _assert_matches(out, ref, act_bits, f"pyramid {case}")
+
+
 @pytest.mark.parametrize("vmem_budget", [None, 0])
 def test_compiled_plan_and_engine_on_the_card(card, vmem_budget):
     topo = ALL_TOPOLOGIES["cifar10"]

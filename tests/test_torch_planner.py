@@ -111,16 +111,24 @@ def test_dpn_and_stage_partition_match(name):
 
 
 def test_pyramid_shared_memory_of_the_reference_blocks():
-    """The pyramid kernel's ping-pong slabs at each topology's planned
-    whole-frame block, from group_geometry: all within the 232,448 B a
-    Hopper block may use."""
+    """The fp32 pyramid kernel's shared memory at each topology's planned
+    whole-frame block, from group_geometry: two ping-pong slabs of the
+    rows the block reads (column stride C, or C + 1 for even C; rows
+    padded against bank conflicts), the tap
+    table and two weight stages of 64 rows, all within the 232,448 B a
+    Hopper block may use (and, for cifar10, two blocks per SM)."""
     want = {
-        # cifar10: max(L0 in 25,920, L2 in 18,432) + L1 padded in 71,680.
-        "cifar10": 25_920 + 71_680,
-        "svhn": 25_920 + 71_680,
-        "cifar10_full": 25_488 + 65_664,
-        # max(L0 in 18,900, L2 in 25,600) + L1 padded in 45,696.
-        "cifar10_strided": 25_600 + 45_696,
+        # cifar10, in 4-byte words: max(L0 36 rows x 108, L2 12 rows x 396)
+        # + L1 20 rows x 664 (20 columns of 33 words and a 4-word pad),
+        # 800 taps, 2 x 64 x 64 weights.
+        "cifar10": 4 * (4_752 + 13_280 + 800 + 2 * 4_096),
+        "svhn": 4 * (4_752 + 13_280 + 800 + 2 * 4_096),
+        "cifar10_full": 4 * (3_996 + 11_992 + 800 + 2 * 4_096),
+        # max(L0 35 x 105, L2 10 x 652) + L1 17 x 568.
+        "cifar10_strided": 4 * (6_520 + 9_656 + 576 + 2 * 4_096),
+        # L0 28 x 28 + L1 12 x 252 (12 columns of 21 words), 500 taps,
+        # 2 x 64 x 52 weights.
+        "lenet5": 4 * (784 + 3_024 + 500 + 2 * 3_328),
     }
     for name in NAMES:
         tt = TORCH_TOPOLOGIES[name]
@@ -128,11 +136,11 @@ def test_pyramid_shared_memory_of_the_reference_blocks():
         geom = tfusion._group_geom(tt, grp.layers, grp.block_rows)
         smem = tconv.pyramid_smem_bytes(geom)
         assert smem <= tconv.SMEM_LIMIT, name
-        if name in want:
-            assert smem == want[name], name
+        assert smem == want[name], name
+    assert 2 * want["cifar10"] <= 228 * 1024 - 2 * 1024
     assert tconv.pyramid_smem_bytes(
         tfusion._group_geom(TORCH_TOPOLOGIES["lenet5"], (0, 1), 4)
-    ) < 15_000
+    ) == want["lenet5"]
 
 
 @pytest.mark.parametrize(
@@ -154,7 +162,7 @@ def test_single_layer_blocking_follows_the_halo_rule(h, w, c, k, stride, pool, p
     assert tconv._block_multiple(k, stride, pw, ps) == jax_block_multiple(k, stride, pw, ps)
     mult = tconv._block_multiple(k, stride, pw, ps)[0]
     g = tconv.fused_geometry(h, w, c, k=k, stride=stride, pool=pool,
-                             pool_stride=pool_stride, block_r=block_r)
+                             pool_stride=pool_stride, block_r=block_r, n_out=32)
     assert g["r"] % mult == 0 and g["smem"] <= tconv.SMEM_LIMIT
     h_out = (h - k) // stride + 1
     assert g["n_rb"] * g["r_o"] >= g["h_keep"] > (g["n_rb"] - 1) * g["r_o"]
@@ -163,7 +171,7 @@ def test_single_layer_blocking_follows_the_halo_rule(h, w, c, k, stride, pool, p
 
 def test_single_layer_block_above_shared_memory_raises():
     # Even the smallest legal block (4 conv rows + a 4-row halo) of a
-    # 600-wide, 64-channel frame needs 1,228,800 B.
+    # 600-wide, 64-channel frame needs 1,228,800 B of slab alone.
     with pytest.raises(ValueError, match="shared memory"):
         tconv.fused_geometry(600, 600, 64, k=5, stride=1, pool=2,
-                             pool_stride=None, block_r=8)
+                             pool_stride=None, block_r=8, n_out=64)
