@@ -45,8 +45,10 @@ Phases (each asserts or exits non-zero):
      seed kernel beside the single-layer kernel on cifar10 conv1;
   6. time each kernel, its plain version and the library call with CUDA
      events at main-path shapes, beside the card's bound; the fp32 conv
-     kernels and the cuDNN chain also by their device time on the
-     profiler's clock, with the kernels' CTAs per SM; then the plans,
+     kernels, pow2_matmul, the seed conv and their library calls also by
+     their device time on the profiler's clock, with the conv kernels'
+     CTAs per SM and the pow2 and seed wrappers' host time per launch
+     (enqueue, no synchronise); then the plans,
      and one serving micro-batch piece by piece; then the LM's prefill
      and decode step, with their device time by kernel;
   7. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
@@ -709,23 +711,47 @@ def main() -> None:
     # are also timed by the kernels' own time.
     from torch.profiler import ProfilerActivity, profile
 
-    def device_ms(fn, reps=20, kernel=None):
+    def device_ms(fn, reps=20, kernel=None, tries=3):
         """Device time per call: the CUDA kernels ``reps`` calls launch (those
         whose name holds ``kernel``, or all), summed on the profiler's clock,
-        over ``reps``."""
+        over ``reps``. A reading counts only if the profiler recorded every
+        launch (``reps`` of ``kernel``'s, or the same number of kernels each
+        call): on the H100 the profiler has once read a cluster kernel far
+        below what a CUDA graph of the same launches took, as if records
+        were lost, and once recorded no kernel at all. Such a reading is
+        taken again, and said so, up to ``tries`` times; then the run
+        fails."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us = 0.0
-        for evt in prof.key_averages():
-            if str(evt.device_type).endswith("CUDA") and (kernel is None or kernel in evt.key):
-                us = getattr(evt, "self_device_time_total", None)
-                total_us += evt.self_cuda_time_total if us is None else us
-        check(total_us > 0, f"the profiler saw no device time of {kernel or 'any kernel'}")
-        return total_us / 1e3 / reps
+        for attempt in range(1, tries + 1):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            total_us, count = 0.0, 0
+            for evt in prof.key_averages():
+                if str(evt.device_type).endswith("CUDA") and (kernel is None or kernel in evt.key):
+                    us = getattr(evt, "self_device_time_total", None)
+                    total_us += evt.self_cuda_time_total if us is None else us
+                    count += evt.count
+            if total_us > 0 and ((count == reps) if kernel else (count % reps == 0)):
+                return total_us / 1e3 / reps
+            print(f"[6] the profiler recorded {count} kernels of {kernel or 'the call'} over "
+                  f"{reps} calls (try {attempt} of {tries}); reading again")
+        raise RuntimeError(f"the profiler dropped launches of {kernel or 'the call'} "
+                           f"{tries} times")
+
+    def host_us(fn, n=200):
+        """The host's time per call over ``n`` calls with no synchronise
+        between them: the wrapper's enqueue time, not the kernel's."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        elapsed = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return elapsed / n * 1e6
 
     kernels = []
     pyr_layers = as_pyramid_layers(specs)
@@ -858,40 +884,60 @@ def main() -> None:
         ms=tot["ms"], plain_ms=tot["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=tot["lib"],
     ))
 
-    # pow2_matmul at the cifar10 head's two shapes, summed (one head).
+    # pow2_matmul at all four head shapes; the record sums the cifar10
+    # head's two (one head). Device time on the profiler's clock beside
+    # the CUDA-event time, which at these sizes the wrapper's host work can
+    # set; and the wrapper's host time per launch (enqueue only).
     for mode in ("pow2_matmul", "pow2_matmul_int"):
-        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "dev": 0.0, "dev_lib": 0.0}
         bound_by = set()
-        for shape in POW2_SHAPES[:2]:
+        for si, shape in enumerate(POW2_SHAPES):
             m, k, n = shape
             xg, packed, scale = pow2_cases[shape]
             w_dec = decode_pow2(unpack_codes_u4(packed), torch.ones((), device=dev))[:, :n].contiguous()
             if mode == "pow2_matmul":
-                t_k = time_ms(lambda: kpow2.pow2_matmul_cuda(xg, packed, scale))
+                def run_k():
+                    return kpow2.pow2_matmul_cuda(xg, packed, scale)
                 t_p = time_ms(lambda: pow2_matmul_ref(xg, packed, scale))
                 ops, peak, x_bytes = 2 * m * k * n, PEAK_FP32_FLOPS, 4 * m * k
             else:
                 xc = quantize_fixed(xg, qspec8).to(torch.int8)
-                t_k = time_ms(lambda: kpow2.pow2_matmul_cuda(xc, packed, scale,
-                                                             x_scale=qspec8.scale))
+
+                def run_k():
+                    return kpow2.pow2_matmul_cuda(xc, packed, scale, x_scale=qspec8.scale)
                 t_p = time_ms(lambda: pow2_matmul_int_ref(xg, packed, scale, x_spec=qspec8))
                 ops, peak, x_bytes = 2 * m * k * n, PEAK_INT8_OPS, m * k
-            t_l = time_ms(lambda: torch.matmul(xg, w_dec) * scale)
+
+            def run_lib():
+                return torch.matmul(xg, w_dec) * scale
+            t_k = time_ms(run_k)
+            t_l = time_ms(run_lib)
+            d_k = device_ms(run_k, kernel="p2_matmul")
+            d_l = device_ms(run_lib)
+            h_us = host_us(run_k)
             nbytes = x_bytes + packed.numel() + 4 * n + 4 * m * n
             t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES_S
-            bound_by.add("operations" if t_ops >= t_bytes else "bytes")
-            print(f"[6] {mode} {shape}: {t_k:.4f} ms, plain {t_p:.4f} ms, library "
-                  f"(torch.matmul on decoded weights) {t_l:.4f} ms, bound "
-                  f"{max(t_ops, t_bytes) * 1e3:.6f} ms")
-            for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l),
-                             ("bound", max(t_ops, t_bytes) * 1e3)):
-                tot[key] += val
+            print(f"[6] {mode} {shape}: {t_k:.4f} ms (CUDA events), {d_k:.5f} ms device, "
+                  f"plain {t_p:.4f} ms, library (torch.matmul on decoded weights, x scale) "
+                  f"{t_l:.4f} ms ({d_l:.5f} ms device), bound "
+                  f"{max(t_ops, t_bytes) * 1e3:.6f} ms; {d_k / d_l:.3f}x the library's device "
+                  f"time; wrapper enqueue {h_us:.2f} us per launch (host clock, 200 launches)")
+            if si < 2:
+                bound_by.add("operations" if t_ops >= t_bytes else "bytes")
+                for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l),
+                                 ("bound", max(t_ops, t_bytes) * 1e3), ("dev", d_k),
+                                 ("dev_lib", d_l)):
+                    tot[key] += val
+        print(f"[6] {mode} cifar10 head (2 launches): {tot['dev']:.5f} ms device, library "
+              f"{tot['dev_lib']:.5f} ms device, {tot['dev'] / tot['dev_lib']:.3f}x "
+              f"({'beats' if tot['dev'] < tot['dev_lib'] else 'behind'} it)")
         kernels.append(dict(
             name=mode, route="cuda", source="src/repro_torch/csrc/pow2_matmul.cu",
             replaces="src/repro/kernels/pow2_matmul/pow2.py:77",
             launches=int8_launches[mode], max_abs_err=errs[mode],
             ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
             bound_by="bytes" if "bytes" in bound_by else "operations", library_ms=tot["lib"],
+            device_ms=tot["dev"], library_device_ms=tot["dev_lib"],
         ))
     fwd_ms = time_ms(lambda: plan(x), iters=20)
     fwd0_ms = time_ms(lambda: plan0(x), iters=20)
@@ -1001,29 +1047,48 @@ def main() -> None:
     device_breakdown("decode step", lambda: T.decode_step(*dec_args), 2)
 
     # The seed conv beside the single-layer kernel (the same bare conv on the
-    # same padded frame) and cuDNN, at the kernel bench's shape and at B=256.
+    # same padded frame) and cuDNN, at the kernel bench's shape and at B=256:
+    # CUDA events, device time on the profiler's clock (the seed kernel
+    # alone; every kernel of the bare F.conv2d call), and the wrapper's host
+    # time per launch.
     seed_times = {}
     for b_, h_, w_, c_, n_, k_ in SEED_SHAPES[:2]:
         xp, wt = randn(b_, h_, w_, c_), randn(k_, k_, c_, n_) * 0.2
         taps = wt.reshape(k_ * k_, c_, n_)
         xp_nchw, w_oihw = xp.permute(0, 3, 1, 2).contiguous(), wt.permute(3, 2, 0, 1).contiguous()
-        t_k = time_ms(lambda: stream_conv2d_seed(xp, taps, k=k_))
+
+        def run_seed():
+            return stream_conv2d_seed(xp, taps, k=k_)
+
+        def run_cudnn():
+            return F.conv2d(xp_nchw, w_oihw)
+        t_k = time_ms(run_seed)
         t_f = time_ms(lambda: stream_conv2d(xp, wt, padding="VALID"))
-        t_l = time_ms(lambda: F.conv2d(xp_nchw, w_oihw))
+        t_l = time_ms(run_cudnn)
         t_p = time_ms(lambda: stream_conv2d_ref(xp, wt))
+        d_k = device_ms(run_seed, kernel="sc_seed_kernel")
+        d_l = device_ms(run_cudnn)
+        h_us = host_us(run_seed)
         ho, wo = h_ - k_ + 1, w_ - k_ + 1
         b_ms, b_by = bound(2 * b_ * ho * wo * k_ * k_ * c_ * n_,
                            4 * (b_ * h_ * w_ * c_ + k_ * k_ * c_ * n_ + b_ * ho * wo * n_))
-        seed_times[b_] = (t_k, t_p, b_ms, b_by, t_l)
-        print(f"[6] seed conv {b_}x{h_}x{w_}x{c_}, K {k_}, N {n_}: {t_k:.4f} ms, single-layer "
-              f"kernel {t_f:.4f} ms, cuDNN {t_l:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ms "
-              f"({b_by})")
-    t_k, t_p, b_ms, b_by, t_l = seed_times[SEED_SHAPES[0][0]]
+        seed_times[b_] = dict(ms=t_k, plain=t_p, bound=b_ms, by=b_by, lib=t_l, dev=d_k,
+                              dev_lib=d_l)
+        print(f"[6] seed conv {b_}x{h_}x{w_}x{c_}, K {k_}, N {n_}: {t_k:.4f} ms (CUDA events), "
+              f"{d_k:.5f} ms device, single-layer kernel {t_f:.4f} ms, cuDNN {t_l:.4f} ms "
+              f"({d_l:.5f} ms device), plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+              f"{d_k / d_l:.3f}x cuDNN's device time "
+              f"({'beats' if d_k < d_l else 'behind'} it); wrapper enqueue {h_us:.2f} us per "
+              "launch (host clock, 200 launches)")
+    s8, s256 = seed_times[SEED_SHAPES[0][0]], seed_times[SEED_SHAPES[1][0]]
     kernels.append(dict(
         name="stream_conv2d_seed", route="cuda", source="src/repro_torch/csrc/stream_conv_seed.cu",
         replaces="src/repro/kernels/stream_conv/legacy.py:44",
         launches=seed_launches["stream_conv2d_seed"], max_abs_err=errs["stream_conv2d_seed"],
-        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
+        ms=s8["ms"], plain_ms=s8["plain"], bound_ms=s8["bound"], bound_by=s8["by"],
+        library_ms=s8["lib"], device_ms=s8["dev"], library_device_ms=s8["dev_lib"],
+        ms_b256=s256["ms"], device_ms_b256=s256["dev"], library_device_ms_b256=s256["dev_lib"],
+        bound_ms_b256=s256["bound"],
     ))
 
     # -- 7. the record ------------------------------------------------------------

@@ -18,6 +18,8 @@ kernel wrappers follow the device of the tensor they are given
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 VALID_DEVICES = ("cuda", "cpu")
@@ -52,3 +54,15 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch versions on the CPU"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of the card ``device`` names, for the wrappers that size a
+    grid to one wave."""
+    dev = torch.device(device)
+    return _sm_count(torch.cuda.current_device() if dev.index is None else dev.index)

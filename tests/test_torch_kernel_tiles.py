@@ -1,0 +1,171 @@
+"""The host-side sizing of the seed conv and pow2_matmul kernels, on the
+CPU: ``legacy.seed_tile`` (strips, register tile, ring) and
+``pow2.p2_plan`` (the K split over a thread-block cluster), at every shape
+that ``chip_smoke.py`` and the card tests launch. The kernels themselves
+are tested on the card (``test_torch_kernels_card.py``); what is checked
+here is plain Python arithmetic, so it holds exactly."""
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.pow2_matmul import pow2 as kpow2  # noqa: E402
+from repro_torch.kernels.stream_conv import legacy as klegacy  # noqa: E402
+from repro_torch.kernels.stream_conv.conv import SMEM_LIMIT  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+# The card's facts that the wrappers read at run time, given here: an H100
+# SXM's SMs, and CTAs an SM holds (the wrapper asks the occupancy API; the
+# strips must cover every row whatever it answers).
+H100_SMS = 132
+RESIDENT = (1, 16, 32)
+
+
+def _resident(per_sm):
+    return lambda tw, tn, c, threads, smem: per_sm
+
+
+def _tile(case, per_sm=16):
+    return klegacy.seed_tile(*case, n_sms=H100_SMS, resident=_resident(per_sm))
+
+
+def _module(path: Path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SMOKE = _module(ROOT / "chip_smoke.py")
+_CARD = _module(ROOT / "tests" / "test_torch_kernels_card.py")
+SEED_CASES = sorted(set(_SMOKE.SEED_SHAPES) | set(_CARD.SEED_CARD_CASES))
+POW2_CASES = sorted(set(_SMOKE.POW2_SHAPES) | {(5, 33, 7)} | set(_CARD.POW2_CARD_CASES))
+
+
+@pytest.mark.parametrize("per_sm", RESIDENT)
+@pytest.mark.parametrize("b,h,w,c,n,k", SEED_CASES)
+def test_seed_strips_cover_every_output_row_once(b, h, w, c, n, k, per_sm):
+    t = _tile((b, h, w, c, n, k), per_sm)
+    h_out = h - k + 1
+    covered = [r for s in range(t["n_strips"]) for r in range(s * t["rows"],
+                                                              min((s + 1) * t["rows"], h_out))]
+    assert covered == list(range(h_out))
+    assert (t["n_strips"] - 1) * t["rows"] < h_out  # no empty strip
+    assert 1 <= t["rows"] <= klegacy.MAX_STRIP
+    assert t["ctas"] == b * t["n_strips"] * t["n_split"]
+    assert t["resident"] == per_sm
+
+
+@pytest.mark.parametrize("b,h,w,c,n,k", SEED_CASES)
+def test_seed_ring_and_weights_fit_a_hopper_block(b, h, w, c, n, k):
+    t = _tile((b, h, w, c, n, k))
+    assert t["ring_rows"] == k + 1
+    # A ring row holds every column a thread reads (pad columns past W for
+    # the masked ones), at the ring's column stride, in whole 16-byte words.
+    assert t["rs"] % 4 == 0 and t["rs"] >= (t["cg"] * t["tw"] + k - 1) * t["cs"]
+    assert t["cs"] >= c and t["rs"] >= w * t["cs"]
+    assert t["smem"] == 4 * (k * k * c * t["np"] + (k + 1) * t["rs"])
+    assert t["smem"] <= SMEM_LIMIT == 232_448
+    # 16-byte row copies only where a ring row is the input row verbatim.
+    assert not t["xvec"] or (t["cs"] == c and (w * c) % 4 == 0)
+
+
+@pytest.mark.parametrize("b,h,w,c,n,k", SEED_CASES)
+def test_seed_threads_cover_every_column_and_channel(b, h, w, c, n, k):
+    t = _tile((b, h, w, c, n, k))
+    assert (t["tw"], t["tn"]) in klegacy.SEED_TILES
+    assert t["cg"] * t["tw"] >= w - k + 1 > (t["cg"] - 1) * t["tw"]
+    assert t["np"] == t["ngc"] * t["tn"] and t["np"] % 4 == 0
+    assert t["n_split"] * t["np"] >= n > (t["n_split"] - 1) * t["np"]
+    assert t["threads"] % 32 == 0 and 32 <= t["threads"] <= klegacy.MAX_THREADS
+
+
+def test_seed_card_cases_reach_every_register_tile_and_n_split():
+    tiles = [_tile(case) for case in _CARD.SEED_CARD_CASES]
+    assert {(t["tw"], t["tn"]) for t in tiles} == set(klegacy.SEED_TILES)
+    # Each tile at C = 3 and at another C.
+    assert {(t["tw"], t["tn"], case[3] == 3) for t, case in zip(tiles, _CARD.SEED_CARD_CASES)} \
+        == {(tw, tn, c3) for tw, tn in klegacy.SEED_TILES for c3 in (False, True)}
+    assert any(t["n_split"] > 1 for t in tiles)
+    # A strip edge: strips of several rows, the last of them short.
+    assert any(t["rows"] > 1 and t["n_strips"] * t["rows"] > case[1] - case[5] + 1
+               for t, case in zip(tiles, _CARD.SEED_CARD_CASES))
+    assert any(t["cs"] != case[3] for t, case in zip(tiles, _CARD.SEED_CARD_CASES))
+    assert any(not t["xvec"] for t in tiles) and any(t["xvec"] for t in tiles)
+
+
+def test_seed_tile_at_the_kernel_bench_shapes():
+    """On 132 SMs, B=8 takes the 2 x 4 tile and one row per CTA (256 CTAs
+    of 128 threads); B=256 the 4 x 8 tile and, at 16 one-warp CTAs an SM,
+    strips of 4 rows: 2,048 CTAs, one wave."""
+    small = _tile((8, 36, 36, 3, 32, 5))
+    assert (small["tw"], small["tn"], small["rows"], small["ctas"]) == (2, 4, 1, 256)
+    assert small["threads"] == 128
+    big = _tile((256, 36, 36, 3, 32, 5), per_sm=16)
+    assert (big["tw"], big["tn"], big["rows"], big["ctas"]) == (4, 8, 4, 2048)
+    assert big["cs"] == 3 and big["smem"] == 12_192
+
+
+@pytest.mark.parametrize("b,h,w,c,n,k", [(1, 11, 11, 121, 4, 11), (1, 4, 4000, 4, 4, 3)])
+def test_seed_tile_refuses_what_no_block_holds(b, h, w, c, n, k):
+    with pytest.raises(ValueError, match="shared memory"):
+        _tile((b, h, w, c, n, k))
+
+
+@pytest.mark.parametrize("c,cg,tasks,threads", [(3, 8, 32, 32), (32, 18, 36, 64), (4, 32, 256, 256),
+                                                (70, 9, 45, 64), (1, 64, 256, 256)])
+def test_ring_column_stride_never_adds_wavefronts(c, cg, tasks, threads):
+    """The chosen stride puts a warp's columns in no more wavefronts than C
+    itself; odd C is conflict-free already and kept."""
+    def worst(cs):
+        out = 0
+        for w0 in range(0, min(tasks, threads), 32):
+            banks = [0] * 32
+            for g in {i % cg for i in range(w0, min(w0 + 32, tasks))}:
+                banks[g * cs % 32] += 1
+            out = max(out, max(banks))
+        return out
+
+    cs = klegacy.ring_column_stride(c, cg, tasks, threads)
+    assert c <= cs < c + 4 and worst(cs) <= worst(c)
+    if c % 2:
+        assert cs == c
+
+
+@pytest.mark.parametrize("m,k,n", POW2_CASES)
+def test_p2_plan_tiles_k_exactly_once(m, k, n):
+    p = kpow2.p2_plan(m, k, n, H100_SMS)
+    bk = p["bk"]
+    assert p["split"] in (1, 2, 4, 8)
+    assert p["slices"] == -(-k // bk)
+    ranges = p["k_ranges"]
+    assert len(ranges) == p["split"]
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(hi - lo >= 1 for lo, hi in ranges)  # every CTA gets at least one slice
+    assert all(lo % bk == 0 for lo, _ in ranges)  # ranges start on slice boundaries
+    if k <= bk:
+        assert p["split"] == 1
+    if p["split"] > 1:
+        assert p["ctas"] <= kpow2.CTAS_PER_SM * H100_SMS and p["slices"] >= 2 * p["split"]
+    assert p["ctas"] == p["tiles"] * p["split"]
+    assert p["tiles"] == -(-m // p["bm"]) * -(-n // p["bn"])
+
+
+def test_p2_plan_at_the_heads():
+    """The cifar10 head's first FC splits K = 1024 over clusters of 8 (128
+    CTAs of 4 slices); its second (K = 64) runs one CTA per tile; lenet5's
+    first (128 tiles already) splits in two, its second (16 tiles) in 8."""
+    assert kpow2.p2_plan(256, 1024, 64, H100_SMS)["split"] == 8
+    assert kpow2.p2_plan(256, 1024, 64, H100_SMS)["ctas"] == 128
+    assert kpow2.p2_plan(256, 64, 10, H100_SMS)["split"] == 1
+    assert kpow2.p2_plan(256, 800, 500, H100_SMS)["split"] == 2
+    assert kpow2.p2_plan(256, 500, 10, H100_SMS)["split"] == 8
+
+
+def test_pow2_card_cases_reach_every_split():
+    splits = {kpow2.p2_plan(*case, H100_SMS)["split"] for case in _CARD.POW2_CARD_CASES}
+    assert splits == {1, 2, 4, 8}
+    assert all(n % 2 for _, _, n in _CARD.POW2_CARD_CASES)

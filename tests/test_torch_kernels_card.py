@@ -45,6 +45,7 @@ from repro_torch.kernels.stream_conv import (  # noqa: E402
     stream_conv_pyramid,
     stream_conv_pyramid_ref,
 )
+from repro_torch.kernels.backends import sm_count  # noqa: E402
 from repro_torch.kernels.pow2_matmul import pow2 as kpow2  # noqa: E402
 from repro_torch.kernels.pow2_matmul import (  # noqa: E402
     pow2_matmul,
@@ -62,6 +63,23 @@ NAMES = sorted(ALL_TOPOLOGIES)
 FP32 = dict(rtol=1e-4, atol=1e-5)
 MAX_STEP_SHARE = 1e-3
 BATCH = 16
+
+# (B, H, W, C, N, K) of the seed conv on the card: the kernel bench's
+# shape at B=8 and B=256 (the 2 x 4 and the 4 x 8 register tiles), an odd
+# frame, a 1x1 conv over 70 channels; a strip edge (h_out = 33, one more
+# than 8 strips of 4 rows), h_out = 1 with N = 7, C = 1 with K = 7 (and
+# N = 7), B=16, N split across two CTAs (64 column groups), C = 32, whose
+# ring takes a padded column stride; and both tiles at C of 1, 4 and 5.
+SEED_CARD_CASES = (
+    (8, 36, 36, 3, 32, 5), (256, 36, 36, 3, 32, 5), (3, 13, 17, 5, 7, 3), (2, 9, 9, 70, 40, 1),
+    (256, 37, 36, 3, 32, 5), (2, 5, 9, 3, 7, 5), (1, 12, 12, 1, 4, 7), (3, 14, 13, 1, 7, 7),
+    (16, 36, 36, 3, 32, 5), (1, 8, 132, 3, 32, 5), (2, 10, 20, 32, 8, 3),
+    (256, 36, 36, 1, 32, 5), (16, 36, 36, 4, 32, 5), (8, 36, 36, 5, 32, 5),
+)
+# (M, K, N) of pow2_matmul at the edges of its K split: K = 1, K = BK - 1,
+# K = 8 BK + 3, and the K that pick each cluster size (1, 2, 4, 8), all at
+# an odd N; then several tiles in both directions.
+POW2_CARD_CASES = ((5, 1, 7), (5, 31, 7), (5, 259, 7), (5, 128, 7), (5, 1024, 7), (37, 259, 131))
 
 
 @pytest.fixture
@@ -247,6 +265,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         kconv.stream_conv_pyramid_cuda(torch.zeros((1, 96, 96, 3), device=card), ws,
                                        [torch.zeros(64, device=card)] * 3, geom=geom,
                                        act_bits=(None,) * 3)
+    # The seed kernel: one channel group of 11 x 11 x 121 weights, and a
+    # ring of four 4,000-column rows, each above a Hopper block.
+    from repro_torch.kernels.stream_conv import legacy as klegacy
+
+    for (b_, h_, w_, c_, n_, k_) in ((1, 11, 11, 121, 4, 11), (1, 4, 4000, 4, 4, 3)):
+        with pytest.raises(ValueError, match="shared memory"):
+            klegacy.stream_conv2d_seed_cuda(torch.zeros((b_, h_, w_, c_), device=card),
+                                            torch.zeros((k_ * k_, c_, n_), device=card), k=k_)
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +358,71 @@ def test_pow2_matmul_matches_its_plain_version(card, m, k, n):
         torch.cuda.synchronize()
         assert torch.equal(out, pow2_matmul_int_ref(x, packed, scale, x_spec=spec)), bits
     assert kpow2.LAUNCHES["pow2_matmul_int"] == before["pow2_matmul_int"] + 2
+
+
+def _pow2_operands(dev, m, k, n, seed, on_grid=True):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy((rng.normal(size=(k, n)) * np.sqrt(2.0 / k)).astype(np.float32)).to(dev)
+    x = rng.normal(size=(m, k))
+    if on_grid:
+        x = np.clip(np.round(x * 16) / 16, -2.0, 1.9375)
+    packed, scale = quantize_weights(w)
+    return torch.from_numpy(x.astype(np.float32)).to(dev), packed, scale
+
+
+@pytest.mark.parametrize("m,k,n", POW2_CARD_CASES)
+def test_pow2_matmul_at_the_edges_of_its_k_split(card, m, k, n):
+    """Every cluster size the plan picks, in both modes: fp32 on the 2^-4
+    grid at the tolerance above, the integer mode bit for bit."""
+    x, packed, scale = _pow2_operands(card, m, k, n, seed=m * k + n)
+    split = kpow2.p2_plan(m, k, n, sm_count(card))["split"]
+    torch.testing.assert_close(pow2_matmul(x, packed, scale), pow2_matmul_ref(x, packed, scale),
+                               rtol=1e-5, atol=1e-6, msg=f"fp32 {(m, k, n)} split {split}")
+    for bits in (8, 6):
+        spec = stream_quant_spec(bits)
+        out = pow2_matmul(x, packed, scale, x_spec=spec)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pow2_matmul_int_ref(x, packed, scale, x_spec=spec)), (bits, split)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 1024, 64), (5, 259, 7)])
+def test_pow2_matmul_split_is_deterministic(card, m, k, n):
+    """Off the grid the split's fp32 sum is an ordinary sum in a fixed
+    order: two calls give the same bits. Against the plain version (cuBLAS,
+    another order) it is held at the fp32 tolerance of sums in different
+    orders; the 2^-4 grid's tighter one holds only where the sums are exact."""
+    x, packed, scale = _pow2_operands(card, m, k, n, seed=3, on_grid=False)
+    assert kpow2.p2_plan(m, k, n, sm_count(card))["split"] > 1
+    first = pow2_matmul(x, packed, scale)
+    second = pow2_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, pow2_matmul_ref(x, packed, scale), **FP32)
+
+
+@pytest.mark.parametrize("x_off,code_off", [(1, 0), (2, 3), (3, 1), (0, 2)])
+def test_pow2_matmul_reads_byte_views_at_any_offset(card, x_off, code_off):
+    """The int8 codes and the packed weights as contiguous views 1-3 bytes
+    into their storage: the kernel stages the aligned words around them and
+    shifts, so both modes give what they give on aligned copies."""
+    m, k, n = 37, 259, 131
+    x, packed, scale = _pow2_operands(card, m, k, n, seed=x_off + 4 * code_off)
+    spec = stream_quant_spec(8)
+    qx = torch.clamp(torch.round(x / spec.scale), spec.qmin, spec.qmax).to(torch.int8)
+
+    def shifted(t, off):
+        buf = torch.zeros(t.numel() + off, device=card, dtype=t.dtype)
+        view = buf[off:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 4 == off % 4
+        return view
+
+    codes = shifted(packed, code_off)
+    out = kpow2.pow2_matmul_cuda(shifted(qx, x_off), codes, scale, x_scale=spec.scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pow2_matmul_int_ref(qx, packed, scale, x_spec=spec))
+    torch.testing.assert_close(kpow2.pow2_matmul_cuda(x, codes, scale),
+                               pow2_matmul_ref(x, packed, scale), rtol=1e-5, atol=1e-6)
 
 
 def test_int8_launches_refuse_float_operands(card):
@@ -460,8 +551,7 @@ def test_ssm_scan_reads_strided_views_of_one_projection(card):
         kscan.ssm_scan_cuda(x, dt, b.float(), c, a, d_skip)
 
 
-@pytest.mark.parametrize("b,h,w,c,n,k", [(8, 36, 36, 3, 32, 5), (256, 36, 36, 3, 32, 5),
-                                         (3, 13, 17, 5, 7, 3), (2, 9, 9, 70, 40, 1)])
+@pytest.mark.parametrize("b,h,w,c,n,k", SEED_CARD_CASES)
 def test_seed_conv_matches_its_plain_version(card, b, h, w, c, n, k):
     from repro_torch.kernels.stream_conv import legacy as klegacy
     from repro_torch.kernels.stream_conv import stream_conv2d_ref, stream_conv2d_seed
