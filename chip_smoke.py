@@ -16,9 +16,14 @@ Phases (each asserts or exits non-zero):
      shapes;
   3c. hold the selective scan against its plain version at the
      falcon-mamba layer (Bz 4, S 512, D 8192, N 16) in bf16 and f32 with
-     zero and carried state, at decode (S = 1) and at a D that block_d
-     does not divide; and the seed conv at the kernel bench's shape, at
-     B=256 and on an odd frame;
+     zero and carried state, at decode (S = 1), at N = 64 and at D of 200
+     and 8200, which no CTA's channels divide; and the seed conv at the
+     kernel bench's shape, at B=256, on an odd frame and on a frame whose
+     ring runs in column strips;
+  3d. the plans the reference serves and the card refused before: compile
+     a 5-layer topology, one with a pool-4 layer and one too wide for a
+     block (regroup_topologies) on the card in fp32 and int8, and hold
+     them against their plain versions;
   4. the fp32 path: compile cifar10 at full width from seeded params, run
      B=256 through the fused plan and the vmem_budget=0 plan, and compare
      both with the plain-version forward;
@@ -49,8 +54,10 @@ Phases (each asserts or exits non-zero):
      their device time on the profiler's clock, with the conv kernels'
      CTAs per SM and the pow2 and seed wrappers' host time per launch
      (enqueue, no synchronise); then the plans,
-     and one serving micro-batch piece by piece; then the LM's prefill
-     and decode step, with their device time by kernel;
+     and one serving micro-batch piece by piece; the selective scan by
+     its device time at the prefill, decode and one-sequence shapes, with
+     the lanes its plan takes; then the LM's prefill and
+     decode step, with their device time by kernel;
   7. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The launch counts are zeroed just before phase 4 and read just after
@@ -99,24 +106,54 @@ POW2_RTOL, POW2_ATOL = 1e-5, 1e-6
 POW2_SHAPES = ((BATCH, 1024, 64), (BATCH, 64, 10), (BATCH, 800, 500), (BATCH, 500, 10))
 # The selective scan against its plain version: (Bz, S, D, N, x/B/C dtype,
 # with h0). The falcon-mamba layer at prefill in bf16 and f32, zero and
-# carried state; decode (S = 1, carried state); a D that block_d=256 does
-# not divide. Both sides compute in f32: the reference's own tolerance.
+# carried state; decode (S = 1, carried state); D of 200 and 8200, which
+# no CTA's channels divide; N = 64. Both sides compute in f32: the
+# reference's own tolerance.
 SSM_CASES = (("prefill bf16", 4, 512, 8192, 16, "bfloat16", False),
              ("prefill f32", 4, 512, 8192, 16, "float32", False),
              ("prefill f32 carried state", 4, 512, 8192, 16, "float32", True),
              ("decode bf16", 4, 1, 8192, 16, "bfloat16", True),
              ("decode f32", 4, 1, 8192, 16, "float32", True),
-             ("ragged D", 2, 37, 200, 16, "float32", True))
+             ("ragged D", 2, 37, 200, 16, "float32", True),
+             ("ragged D 8200", 2, 33, 8200, 16, "bfloat16", True),
+             ("N 64", 2, 64, 1024, 64, "bfloat16", True))
+# The scan's shapes on the LM path and one sequence: (Bz, S) at D 8192,
+# N 16, bf16.
+SSM_SHAPES = (("prefill", 4, 512), ("decode", 4, 1), ("one sequence", 1, 512))
 # The seed conv: the kernel bench's cifar10-conv1 shape (8 frames of
 # 32x32x3 SAME-padded to 36x36, K 5, N 32), the same at B=256, and an odd
-# frame: (B, H, W, C, N, K).
+# frame: (B, H, W, C, N, K); and a frame whose ring of K + 1 rows exceeds a
+# block (column strips).
 SEED_SHAPES = ((8, 36, 36, 3, 32, 5), (BATCH, 36, 36, 3, 32, 5), (3, 13, 17, 5, 7, 3))
+SEED_STRIP_SHAPE = (2, 9, 3000, 16, 8, 5)
+REGROUP_BATCH = 8
 # SFU throughput for expf (16 per clock per SM) and the boost clock at
 # which the published peaks above are taken.
 SFU_PER_CLOCK_PER_SM, N_SMS, BOOST_CLOCK_HZ = 16, 132, 1.98e9
 LM_ARCH = "falcon-mamba-7b"
 LM_GATE_BATCH, LM_GATE_LEN = 2, 256  # the fp32 gate's prompt
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 32  # bf16 serving
+
+
+def regroup_topologies(cnn) -> dict:
+    """Topologies the card refused before, in the classes of ``cnn`` (the
+    port's or the reference's ``models.cnn``): five fused layers (the
+    pyramid kernel takes four), a pool-4 layer (a window the kernels were
+    not compiled for) and a frame too wide for one block of the
+    single-layer kernel (column strips)."""
+    spec = cnn.ConvLayerSpec
+    return {
+        "five": cnn.CNNTopology(
+            "five", 32, 3, tuple(spec(n_out=16, kernel=3, padding="SAME", pool=0, act="relu")
+                                 for _ in range(5)), (16,), 10),
+        "pool4": cnn.CNNTopology(
+            "pool4", 32, 3, (spec(n_out=16, kernel=3, padding="SAME", pool=4, act="relu"),
+                             spec(n_out=32, kernel=3, padding="SAME", pool=2, act="tanh")),
+            (16,), 10),
+        "wide": cnn.CNNTopology(
+            "wide", (12, 4100), 3, (spec(n_out=8, kernel=5, padding="SAME", pool=2, act="relu"),),
+            (), 10),
+    }
 
 
 def check(cond: bool, msg: str) -> None:
@@ -187,6 +224,7 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(smi)
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}, device 0: {kind}, "
           f"count {torch.cuda.device_count()}")
@@ -391,6 +429,65 @@ def main() -> None:
               f"seed conv {(b_, h_, w_, c_, n_, k_)}: max |delta| {err}")
         errs["stream_conv2d_seed"] = max(errs["stream_conv2d_seed"], err)
         print(f"[3c] seed conv {b_}x{h_}x{w_}x{c_}, K {k_}, N {n_}: max |delta| {err:.3e}")
+    b_, h_, w_, c_, n_, k_ = SEED_STRIP_SHAPE
+    strips = klegacy.seed_tile(b_, h_, w_, c_, n_, k_, n_sms=n_sms,
+                               resident=klegacy._resident)["strips"]
+    xs, wt = randn(b_, h_, w_, c_), randn(k_, k_, c_, n_) * 0.2
+    before = klegacy.LAUNCHES["stream_conv2d_seed"]
+    out = stream_conv2d_seed(xs, wt.reshape(k_ * k_, c_, n_), k=k_)
+    ref = stream_conv2d_ref(xs, wt)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(len(strips) > 1 and klegacy.LAUNCHES["stream_conv2d_seed"] == before + len(strips),
+          f"seed conv over column strips: {len(strips)} strips")
+    check(torch.allclose(out, ref, rtol=FP32_RTOL, atol=FP32_ATOL),
+          f"seed conv {SEED_STRIP_SHAPE} over {len(strips)} column strips: max |delta| {err}")
+    errs["stream_conv2d_seed"] = max(errs["stream_conv2d_seed"], err)
+    print(f"[3c] seed conv {b_}x{h_}x{w_}x{c_}, K {k_}, N {n_} in {len(strips)} column strips: "
+          f"max |delta| {err:.3e}")
+
+    # -- 3d. plans the reference serves that the card refused before ------------
+    # Compiled on the card: the fusion groups split for the pyramid kernel
+    # (at most MAX_PYRAMID_LAYERS layers within SMEM_LIMIT), the pool-4
+    # windows on the run-time window path, the wide frame in column
+    # strips. fp32 logits against the plain forward on the card; the int8
+    # plan's features against the same plan on the CPU (the plain
+    # versions): equal, but where tanh follows (counted, as in phase 3).
+    from repro_torch.models import cnn as tcnn
+
+    for name, topo in regroup_topologies(tcnn).items():
+        h, w = topo.input_shape
+        x = randn(REGROUP_BATCH, h, w, topo.input_channels)
+        rparams = init_cnn(torch.Generator().manual_seed(SEED), topo, device=dev)
+        kconv.reset_launch_counts()
+        rplan = compile_dhm(topo, rparams, quant=QuantSpec())
+        groups = [g.layers for g in rplan.fusion_groups]
+        check(all(len(g) <= kconv.MAX_PYRAMID_LAYERS for g in groups), f"{name}: groups {groups}")
+        logits_r = rplan(x)
+        want = cnn_apply_reference(rparams, topo, x)
+        torch.cuda.synchronize()
+        err = float((logits_r - want).abs().max())
+        check(logits_r.shape == want.shape and bool(torch.isfinite(logits_r).all())
+              and torch.allclose(logits_r, want, rtol=LOGITS_RTOL, atol=LOGITS_ATOL),
+              f"{name} fp32 plan: max |delta| {err} against the plain forward")
+        fp32_launches = {k: v for k, v in kconv.LAUNCHES.items() if v}
+        q8 = QuantSpec(weight_bits=8, act_bits=8, int8_compute=True)
+        cpu_params = {k: [{kk: vv.cpu() for kk, vv in p.items()} for p in v]
+                      for k, v in rparams.items()}
+        want8 = compile_dhm(topo, cpu_params, quant=q8, device="cpu").features(x.cpu())
+        kconv.reset_launch_counts()
+        plan8 = compile_dhm(topo, rparams, quant=q8)
+        feats8 = plan8.features(x)
+        torch.cuda.synchronize()
+        tanh = any(spec.act == "tanh" for spec in topo.conv_layers)
+        err8, off8 = compare_int8(feats8.cpu(), want8, "tanh" if tanh else "relu",
+                                  f"{name} int8 plan")
+        print(f"[3d] {name} ({topo.input_shape} x {topo.input_channels}, {len(topo.conv_layers)} "
+              f"layers, B={REGROUP_BATCH}): card groups {groups} (int8 "
+              f"{[g.layers for g in plan8.fusion_groups]}); fp32 logits max |delta| {err:.3e} "
+              f"against the plain forward, launches {fp32_launches}; int8 features max |delta| "
+              f"{err8:.3e} ({off8} one step apart) against the CPU plan, launches "
+              f"{ {k: v for k, v in kconv.LAUNCHES.items() if v} }")
 
     # -- 4. + 5. the main path, with the launch counts ---------------------------
     topo = ALL_TOPOLOGIES["cifar10"]
@@ -591,8 +688,8 @@ def main() -> None:
     lm_logits, lm_cache = T.prefill(params16, lm_cfg, prompts, max_len=LM_PROMPT + LM_NEW)
     torch.cuda.synchronize()
     prefill_wall = time.perf_counter() - t0
-    check(kscan.LAUNCHES["ssm_scan"] - before == n_lm_layers,
-          f"prefill launched ssm_scan {kscan.LAUNCHES['ssm_scan'] - before} times")
+    prefill_launches = kscan.LAUNCHES["ssm_scan"] - before
+    check(prefill_launches == n_lm_layers, f"prefill launched ssm_scan {prefill_launches} times")
     check(lm_logits.shape == (LM_BATCH, lm_cfg.vocab_size) and lm_logits.dtype == torch.bfloat16
           and bool(torch.isfinite(lm_logits).all()), "bf16 prefill logits not finite/shaped")
     tok = lm_logits.argmax(-1, keepdim=True)
@@ -979,27 +1076,41 @@ def main() -> None:
         by = "bytes" if t_bytes >= max(t_exp, t_ops) else "operations"
         return max(t_bytes, t_exp, t_ops) * 1e3, by, (t_bytes * 1e3, t_exp * 1e3, t_ops * 1e3)
 
+    # Device time on the profiler's clock at each shape (CUDA events at
+    # decode measure the wrapper's enqueue), and the plan's lanes.
     di_lm, n_lm = lm_cfg.ssm_expand * lm_cfg.d_model, lm_cfg.ssm_state
     ssm_times = {}
-    for what, s in (("prefill", LM_PROMPT), ("decode", 1)):
-        x_, dt_, b_, c_, a_, dsk_, h0_ = ssm_inputs(LM_BATCH, s, di_lm, n_lm, "bfloat16", True)
+    for what, bz_, s in SSM_SHAPES:
+        x_, dt_, b_, c_, a_, dsk_, h0_ = ssm_inputs(bz_, s, di_lm, n_lm, "bfloat16", True)
         if what == "prefill":
             h0_ = torch.zeros_like(h0_)
-        t_k = time_ms(lambda: ssm_scan(x_, dt_, b_, c_, a_, dsk_, h0_),
-                      iters=50 if s > 1 else 500)
-        t_p = time_ms(lambda: ssm_scan_ref(x_, dt_, b_, c_, a_, dsk_, h0_),
-                      iters=3 if s > 1 else 50, warmup=1)
-        b_ms, b_by, terms = ssm_bound(LM_BATCH, s, di_lm, n_lm, 2)
-        ssm_times[what] = (t_k, t_p, b_ms, b_by)
-        print(f"[6] ssm_scan {what} (Bz {LM_BATCH}, S {s}, D {di_lm}, N {n_lm}, bf16): {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes {terms[0]:.4f}, expf "
-              f"{terms[1]:.4f}, FLOPs {terms[2]:.4f} ms), no library call")
+        args_ = (x_, dt_, b_, c_, a_, dsk_, h0_)
+        t_k = time_ms(lambda: ssm_scan(*args_), iters=50 if s > 1 else 500)
+        d_k = device_ms(lambda: ssm_scan(*args_), kernel="ssm_scan")
+        t_p = time_ms(lambda: ssm_scan_ref(*args_), iters=3 if s > 1 else 50, warmup=1)
+        b_ms, b_by, terms = ssm_bound(bz_, s, di_lm, n_lm, 2)
+        plan_s = kscan.scan_plan(bz_, s, di_lm, n_lm, n_sms=n_sms)
+        ssm_times[what] = dict(ms=t_k, dev=d_k, plain=t_p, bound=b_ms, by=b_by,
+                               lanes=plan_s["lanes"])
+        print(f"[6] ssm_scan {what} (Bz {bz_}, S {s}, D {di_lm}, N {n_lm}, bf16): {d_k:.5f} ms "
+              f"device, {t_k:.4f} ms (CUDA events), plain {t_p:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}; bytes {terms[0]:.5f}, expf {terms[1]:.5f}, FLOPs {terms[2]:.5f} ms), "
+              f"{d_k / b_ms:.2f}x the bound, no library call; plan "
+              f"{ {k: plan_s[k] for k in ('lanes', 'npl', 'chunk', 'dc', 'ctas', 'warps')} }")
     kernels.append(dict(
         name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan/scan.py:61",
         launches=lm_launches["ssm_scan"], max_abs_err=errs["ssm_scan"],
-        ms=ssm_times["prefill"][0], plain_ms=ssm_times["prefill"][1],
-        bound_ms=ssm_times["prefill"][2], bound_by=ssm_times["prefill"][3], library_ms=None,
+        ms=ssm_times["prefill"]["ms"], plain_ms=ssm_times["prefill"]["plain"],
+        bound_ms=ssm_times["prefill"]["bound"], bound_by=ssm_times["prefill"]["by"],
+        library_ms=None, device_ms=ssm_times["prefill"]["dev"],
+        launches_by_shape=dict(gate=gate_launches, prefill=prefill_launches,
+                               decode=lm_launches["ssm_scan"] - gate_launches - prefill_launches),
+        device_ms_decode=ssm_times["decode"]["dev"], bound_ms_decode=ssm_times["decode"]["bound"],
+        plain_ms_decode=ssm_times["decode"]["plain"],
+        device_ms_one_sequence=ssm_times["one sequence"]["dev"],
+        bound_ms_one_sequence=ssm_times["one sequence"]["bound"],
+        lanes={k: v["lanes"] for k, v in ssm_times.items()},
     ))
 
     # The LM end to end at bf16, full depth: prefill and one decode step.
@@ -1010,14 +1121,14 @@ def main() -> None:
     print(f"[6] prefill {LM_BATCH}x{LM_PROMPT} bf16: {pf_ms:.3f} ms, "
           f"{LM_BATCH * LM_PROMPT / pf_ms * 1e3:.0f} tokens/s, {pf_flops / pf_ms / 1e9:.1f} "
           f"TFLOP/s of model FLOPs ({pf_flops / 1e12:.2f} TFLOP), {n_lm_layers} scans "
-          f"{n_lm_layers * ssm_times['prefill'][0]:.3f} ms of it")
+          f"{n_lm_layers * ssm_times['prefill']['dev']:.3f} ms of it (device)")
     dec_args = (params16, lm_cfg, tok, lm_cache, LM_PROMPT + LM_NEW)
     dec_ms = time_ms(lambda: T.decode_step(*dec_args), iters=10, warmup=2)
     dec_bound = param_bytes(lm_cfg) / PEAK_BYTES_S * 1e3
     print(f"[6] decode step B={LM_BATCH} bf16: {dec_ms:.3f} ms per step (CUDA events), "
           f"{decode_wall / LM_NEW * 1e3:.3f} ms host clock in phase 5c, "
           f"{LM_BATCH / dec_ms * 1e3:.0f} tokens/s; weight-read bound {dec_bound:.3f} ms; "
-          f"{n_lm_layers} scans {n_lm_layers * ssm_times['decode'][0]:.4f} ms of it")
+          f"{n_lm_layers} scans {n_lm_layers * ssm_times['decode']['dev']:.4f} ms of it (device)")
     # Where a prefill's and a decode step's time goes: device time by
     # kernel under the profiler, against the host clock.
     def device_breakdown(what, fn, reps):

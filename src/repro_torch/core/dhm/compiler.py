@@ -11,8 +11,11 @@ lowering path:
    the exact min-max DP mapper, costed from the actor FLOP payloads.
 4. **Fuse** each stage's layers into maximal fusion groups under the
    reference's budget (``fusion.py``): a multi-layer group runs as ONE
-   launch of the pyramid kernel, a singleton as one launch of the
-   single-layer kernel.
+   launch of the pyramid kernel, a singleton through the single-layer
+   kernel. A plan for the card then splits the groups the pyramid kernel
+   cannot take (``card_fusion_groups``) and checks that the single-layer
+   kernel serves every singleton, so that no launch of an accepted plan is
+   refused; a CPU plan keeps the reference's groups exactly.
 5. **Emit** per-stage closures with the quantization baked in: weights
    fake-quantized, pow2-projected or baked to int8 codes once at compile
    time, the feature stream quantized in the kernels' epilogue
@@ -35,6 +38,8 @@ import torch
 
 from repro_torch.core.dhm.fusion import (
     DEFAULT_VMEM_BUDGET,
+    FusionGroup,
+    group_working_set,
     plan_elem_bytes,
     plan_fusion_groups,
 )
@@ -50,12 +55,14 @@ from repro_torch.core.quant.fixed_point import (
 from repro_torch.core.quant.pow2 import project_pow2, project_pow2_ste
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.kernels.pow2_matmul import pow2_matmul, quantize_weights
+from repro_torch.kernels.stream_conv.conv import card_groups, fused_plan
 from repro_torch.kernels.stream_conv.epilogue import (
     ACTS,
     Int8Scales,
     normalize_pool,
     stream_quant_spec,
 )
+from repro_torch.kernels.stream_conv.halo import as_pyramid_layers, padded_frame
 
 PADDINGS = ("SAME", "VALID")
 
@@ -233,6 +240,48 @@ def _cached_layout(topo, bits: int, n_stages: int) -> StageAssignment:
     graph = _cached_dpn(topo, bits)
     costs = _conv_layer_costs(graph, len(topo.conv_layers))
     return partition_stages(costs, n_stages)
+
+
+@functools.lru_cache(maxsize=256)
+def card_fusion_groups(topo, layer_indices: Sequence[int], groups: Sequence, *,
+                       elem_bytes: int = 4, block_r: int = 8) -> tuple:
+    """The fusion groups a plan for the card runs: the reference's
+    ``groups`` of a contiguous run of conv layers, split where the pyramid
+    kernel cannot take them (``conv.card_groups``: at most
+    ``MAX_PYRAMID_LAYERS`` layers within ``SMEM_LIMIT``). Every singleton
+    is sized by the single-layer launcher's own ``fused_plan`` (row
+    blocks, column strips, channel slices) here, at compile time, over
+    the frame ``halo.padded_frame`` gives the launcher: a layer it cannot
+    serve raises now, not at the plan's first call."""
+    idxs = tuple(layer_indices)
+    dims = [(*topo.input_shape, topo.input_channels)]
+    for spec in topo.conv_layers[: idxs[-1]]:
+        dims.append((*spec.out_hw(*dims[-1][:2]), spec.n_out))
+    dims = dims[idxs[0]:]
+    specs = [topo.conv_layers[i] for i in idxs]
+    local = card_groups(
+        *dims[0], as_pyramid_layers(specs), tuple(sp.kernel for sp in specs),
+        tuple(sp.n_out for sp in specs),
+        tuple((tuple(li - idxs[0] for li in g.layers), g.block_rows) for g in groups),
+        elem_bytes=elem_bytes,
+    )
+    out = []
+    for g, block_rows in local:
+        layers = tuple(idxs[0] + li for li in g)
+        if len(g) > 1:
+            out.append(FusionGroup(layers=layers, block_rows=block_rows, working_set=group_working_set(
+                topo, layers, block_rows=block_rows, elem_bytes=elem_bytes)))
+            continue
+        sp = specs[g[0]]
+        h, w, c = dims[g[0]]
+        try:
+            fused_plan(*padded_frame(h, w, sp.kernel, sp.stride, sp.padding), c, k=sp.kernel,
+                       stride=sp.stride, pool=sp.pool, pool_stride=sp.pool_stride,
+                       block_r=block_r, n_out=sp.n_out, elem_bytes=elem_bytes)
+        except ValueError as e:
+            raise ValueError(f"{topo.name} conv layer {layers[0]} cannot run on the card: {e}") from e
+        out.append(FusionGroup(layers=layers, block_rows=0, working_set=0))
+    return tuple(out)
 
 
 def emit_conv_stage(
@@ -651,6 +700,10 @@ def compile_dhm(
         groups = plan_fusion_groups(
             topo, idxs, vmem_budget=budget, elem_bytes=elem_bytes
         )
+        if dev.type == "cuda":
+            groups = card_fusion_groups(
+                topo, idxs, groups, elem_bytes=elem_bytes, block_r=block_r
+            )
         local_groups = tuple(
             (tuple(li - idxs[0] for li in g.layers), g.block_rows)
             for g in groups

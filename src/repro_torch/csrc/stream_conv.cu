@@ -47,6 +47,11 @@
 //             Its size is the host's (conv.py fused_tile): one warp per
 //             warp task, up to eight, so a block of few windows takes the
 //             larger tile (TN = 8) in a smaller CTA rather than TN = 4.
+//             A launch covers one column strip and channel slice of the
+//             layer (conv.py fused_plan): the host offsets the pointers and
+//             passes the frame's and the output's strides, so a frame too
+//             wide for one block, or weight stages too wide, run as several
+//             launches into one output tensor.
 //
 // sc_gemm, the core of both fp32 kernels (IEEE fp32 FMA, no TF32):
 //   - Weights: K-slices of SC_KC rows are copied into shared memory with
@@ -76,6 +81,10 @@
 //     max(a + b, c + b) == max(a, c) + b), single layer bias -> act ->
 //     pool -> quant; it writes straight into the next slab's padded layout
 //     or to global memory.
+//   - Pool windows 2 and 3 are compiled (and a window of one position is
+//     the unpooled tile with the pool stride as pitch); every other window
+//     runs sc_gemm_window, which reads it at run time and folds the
+//     window's conv positions one K loop at a time into a running max.
 //
 // sc_pyramid_i8_kernel, sc_fused_i8_kernel
 //   Replace:  the int8 paths of the same two Pallas kernels
@@ -101,7 +110,9 @@
 //             channel, then issues one __dp4a per conv position of the pool
 //             window; otherwise it multiplies byte by byte. Weights stay in
 //             global memory and L2 (79,200 B of int8 for cifar10), read
-//             coalesced across the warp's 32 output channels.
+//             coalesced across the warp's 32 output channels. Pool windows
+//             other than 1, 2 and 3 are read at run time (PW = 0), their
+//             positions summed one at a time.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -138,10 +149,17 @@ struct ScPyramid {
 };
 
 struct ScFused {
+  // One column strip and channel slice of a layer (the host offsets the
+  // pointers to the strip's first input and output column and the slice's
+  // first channel): the strip's w_in input columns of rows x_rs elements
+  // apart, weights (K, K, C, n) of rows w_ld apart, n biases, and outputs
+  // (h_keep, w_keep, n) at out[r * out_rs + c * out_cs + n].
   const float* x;  // (B, H, W, C), already SAME-padded (int8: codes)
   const float* w;  // (K, K, C, N) (int8: codes)
   const float* b;  // (N,)
-  float* out;      // (B, h_keep, w_keep, N)
+  float* out;      // (B, h_keep, W_keep, N)
+  long long x_img, out_img;  // elements per image of x and out
+  int x_rs, out_rs, out_cs, w_ld;
   int batch, h, w_in, c, n, k, stride, act, pw, ps, qbits;
   float qscale, qmin, qmax;
   int h_keep, w_keep, r, r_o, in_rows_blk, n_rb;
@@ -192,8 +210,9 @@ struct ScJob {
   int n_wr, n_wc;   // pooled output rows and columns computed
   int n, kdim;      // N, K = k * k * C
   const int* taps;  // shared: slab offset of each k, round_up(K, 4) entries
-  const float* w;   // global (K, N)
+  const float* w;   // global (K, N), rows w_ld floats apart
   const float* b;   // global (N,)
+  int w_ld;
   int np, wvec;     // staged row stride; 16-byte copies allowed
   float* wst;       // shared: two stages of SC_KC x np floats
   int wst_elems;
@@ -211,12 +230,12 @@ __device__ __forceinline__ void sc_stage_weights(const ScJob& J, float* st, int 
     const int n4 = J.n >> 2;
     for (int i = threadIdx.x; i < kc * n4; i += blockDim.x) {
       const int r = i / n4, q = i - r * n4;
-      sc_cp16(st + r * J.np + 4 * q, J.w + (size_t)(k0 + r) * J.n + 4 * q);
+      sc_cp16(st + r * J.np + 4 * q, J.w + (size_t)(k0 + r) * J.w_ld + 4 * q);
     }
   } else {
     for (int i = threadIdx.x; i < kc * J.n; i += blockDim.x) {
       const int r = i / J.n, q = i - r * J.n;
-      sc_cp4(st + r * J.np + q, J.w + (size_t)(k0 + r) * J.n + q);
+      sc_cp4(st + r * J.np + q, J.w + (size_t)(k0 + r) * J.w_ld + q);
     }
   }
   for (int i = threadIdx.x; i < (kc4 - kc) * J.np; i += blockDim.x)
@@ -240,6 +259,66 @@ __device__ __forceinline__ void sc_build_taps(int* taps, int k, int C, int rs, i
   }
 }
 
+// The K loop of one warp task: TM conv positions (slab bases pbase) x TN
+// channels from n0, one fp32 FMA chain per output in (ki, kj, c) order,
+// over weight stages double-buffered by cp.async. Every thread of the CTA
+// calls it (it synchronises).
+template <int TM, int TN>
+__device__ __forceinline__ void sc_kloop(const ScJob& J, const int (&pbase)[TM], int n0,
+                                         float (&acc)[TM][TN]) {
+  const int nchunks = (J.kdim + SC_KC - 1) / SC_KC;
+#pragma unroll
+  for (int p = 0; p < TM; ++p)
+#pragma unroll
+    for (int q = 0; q < TN; ++q) acc[p][q] = 0.0f;
+
+  {
+    const int kc = min(SC_KC, J.kdim);
+    sc_stage_weights(J, J.wst, 0, kc, (kc + 3) & ~3);
+  }
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + 1 < nchunks) {
+      const int k1 = (c + 1) * SC_KC;
+      const int kc = min(SC_KC, J.kdim - k1);
+      sc_stage_weights(J, J.wst + ((c + 1) & 1) * J.wst_elems, k1, kc, (kc + 3) & ~3);
+      sc_cp_wait<1>();
+    } else {
+      sc_cp_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = c * SC_KC;
+    const int kc4 = (min(SC_KC, J.kdim - k0) + 3) & ~3;
+    const float* ws = J.wst + (c & 1) * J.wst_elems + n0;
+    const int* tp = J.taps + k0;
+#pragma unroll 2
+    for (int kk = 0; kk < kc4; kk += 4) {
+      const int4 o4 = *reinterpret_cast<const int4*>(tp + kk);
+      const int offs[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float a[TM];
+#pragma unroll
+        for (int p = 0; p < TM; ++p) a[p] = J.in[pbase[p] + offs[u]];
+        float bv[TN];
+        const float4* wp = reinterpret_cast<const float4*>(ws + (kk + u) * J.np);
+#pragma unroll
+        for (int q = 0; q < TN / 4; ++q) {
+          const float4 v = wp[q];
+          bv[4 * q] = v.x;
+          bv[4 * q + 1] = v.y;
+          bv[4 * q + 2] = v.z;
+          bv[4 * q + 3] = v.w;
+        }
+#pragma unroll
+        for (int p = 0; p < TM; ++p)
+#pragma unroll
+          for (int q = 0; q < TN; ++q) acc[p][q] = fmaf(a[p], bv[q], acc[p][q]);
+      }
+    }
+    __syncthreads();  // the stage is refilled two chunks on
+  }
+}
+
 // PW: pool window (1 = none); WPT: windows per thread; TN: channels per
 // thread. Every thread of the CTA calls it (it synchronises).
 template <int PW, int WPT, int TN, bool POOL_FIRST>
@@ -254,7 +333,6 @@ __device__ __forceinline__ void sc_gemm(const ScJob& J) {
   const int gpairs = (groups + 1) >> 1;
   const int tasks = ((n_win + 16 * WPT - 1) / (16 * WPT)) * gpairs;
   const int rounds = (tasks + n_warps - 1) / n_warps;
-  const int nchunks = (J.kdim + SC_KC - 1) / SC_KC;
   const int win_step = J.ps * J.s;
 
   for (int rd = 0; rd < rounds; ++rd) {
@@ -280,56 +358,7 @@ __device__ __forceinline__ void sc_gemm(const ScJob& J) {
           pbase[w * PP + i * PW + j] = base + i * J.s * J.rs + j * J.s * J.cs;
     }
     float acc[TM][TN];
-#pragma unroll
-    for (int p = 0; p < TM; ++p)
-#pragma unroll
-      for (int q = 0; q < TN; ++q) acc[p][q] = 0.0f;
-
-    {
-      const int kc = min(SC_KC, J.kdim);
-      sc_stage_weights(J, J.wst, 0, kc, (kc + 3) & ~3);
-    }
-    for (int c = 0; c < nchunks; ++c) {
-      if (c + 1 < nchunks) {
-        const int k1 = (c + 1) * SC_KC;
-        const int kc = min(SC_KC, J.kdim - k1);
-        sc_stage_weights(J, J.wst + ((c + 1) & 1) * J.wst_elems, k1, kc, (kc + 3) & ~3);
-        sc_cp_wait<1>();
-      } else {
-        sc_cp_wait<0>();
-      }
-      __syncthreads();
-      const int k0 = c * SC_KC;
-      const int kc4 = (min(SC_KC, J.kdim - k0) + 3) & ~3;
-      const float* ws = J.wst + (c & 1) * J.wst_elems + n0;
-      const int* tp = J.taps + k0;
-#pragma unroll 2
-      for (int kk = 0; kk < kc4; kk += 4) {
-        const int4 o4 = *reinterpret_cast<const int4*>(tp + kk);
-        const int offs[4] = {o4.x, o4.y, o4.z, o4.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          float a[TM];
-#pragma unroll
-          for (int p = 0; p < TM; ++p) a[p] = J.in[pbase[p] + offs[u]];
-          float bv[TN];
-          const float4* wp = reinterpret_cast<const float4*>(ws + (kk + u) * J.np);
-#pragma unroll
-          for (int q = 0; q < TN / 4; ++q) {
-            const float4 v = wp[q];
-            bv[4 * q] = v.x;
-            bv[4 * q + 1] = v.y;
-            bv[4 * q + 2] = v.z;
-            bv[4 * q + 3] = v.w;
-          }
-#pragma unroll
-          for (int p = 0; p < TM; ++p)
-#pragma unroll
-            for (int q = 0; q < TN; ++q) acc[p][q] = fmaf(a[p], bv[q], acc[p][q]);
-        }
-      }
-      __syncthreads();  // the stage is refilled two chunks on
-    }
+    sc_kloop<TM, TN>(J, pbase, n0, acc);
 
     if (!live || g >= groups) continue;
 #pragma unroll
@@ -360,9 +389,67 @@ __device__ __forceinline__ void sc_gemm(const ScJob& J) {
   }
 }
 
-// The instantiations the host may pick (conv.py _tile_n): no pool takes
-// four windows per thread, pool windows 2 and 3 one; pool window 3 only
-// with TN = 4.
+// Any other pool window, read at run time: one window per thread and
+// TN = 4 channels, the PW x PW conv positions of the window one after the
+// other, each a whole K loop, folded into a running max in the kernel's
+// order (pool first: the max of the sums, then bias and act; else bias and
+// act per position, then the max). Slower than a compiled window (the
+// weights are staged once per position); it serves the windows the
+// reference takes and no topology of the paper uses.
+template <bool POOL_FIRST>
+__device__ __forceinline__ void sc_gemm_window(const ScJob& J, int pw) {
+  constexpr int TN = 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int n_win = J.n_wr * J.n_wc;
+  const int groups = (J.n + TN - 1) / TN;
+  const int gpairs = (groups + 1) >> 1;
+  const int tasks = ((n_win + 15) / 16) * gpairs;
+  const int rounds = (tasks + n_warps - 1) / n_warps;
+  const int win_step = J.ps * J.s;
+
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int task = rd * n_warps + warp;
+    const bool live = task < tasks;
+    const int t = live ? task : 0;
+    const int wb = t / gpairs;
+    const int g = (t - wb * gpairs) * 2 + (lane >> 4);
+    const int n0 = min(g, groups - 1) * TN;
+    const int win = wb * 16 + (lane & 15);
+    const int wv = win < n_win ? win : 0;
+    const int wr = wv / J.n_wc;
+    const int wc = wv - wr * J.n_wc;
+    const int base = wr * win_step * J.rs + wc * win_step * J.cs;
+    float m[TN];
+    for (int pos = 0; pos < pw * pw; ++pos) {
+      const int pi = pos / pw;
+      const int pbase[1] = {base + pi * J.s * J.rs + (pos - pi * pw) * J.s * J.cs};
+      float acc[1][TN];
+      sc_kloop<1, TN>(J, pbase, n0, acc);
+#pragma unroll
+      for (int q = 0; q < TN; ++q) {
+        float v = acc[0][q];
+        if (!POOL_FIRST) v = sc_act(v + __ldg(J.b + min(n0 + q, J.n - 1)), J.act);
+        m[q] = pos ? fmaxf(m[q], v) : v;
+      }
+    }
+    if (!live || g >= groups || win >= n_win) continue;
+    float* d = J.dst + wr * J.dst_rs + (wc + J.dst_co) * J.dst_cs;
+#pragma unroll
+    for (int q = 0; q < TN; ++q) {
+      const int n = n0 + q;
+      if (n >= J.n) break;
+      const float y = POOL_FIRST ? sc_act(m[q] + __ldg(J.b + n), J.act) : m[q];
+      d[n] = sc_quant(y, J.qbits, J.qscale, J.qmin, J.qmax);
+    }
+  }
+}
+
+// The instantiations the host may pick (conv.py tile_n, fused_tile): no
+// pool (or a window of one position, the pool stride its pitch) takes four
+// windows per thread, pool windows 2 and 3 one; pool window 3 only with
+// TN = 4; every other window the run-time path above.
 template <bool POOL_FIRST>
 __device__ __forceinline__ void sc_gemm_dispatch(const ScJob& J, int pw, int tn) {
   if (pw == 2) {
@@ -370,9 +457,11 @@ __device__ __forceinline__ void sc_gemm_dispatch(const ScJob& J, int pw, int tn)
     else sc_gemm<2, 1, 4, POOL_FIRST>(J);
   } else if (pw == 3) {
     sc_gemm<3, 1, 4, POOL_FIRST>(J);
-  } else {
+  } else if (pw == 1) {
     if (tn == 8) sc_gemm<1, 4, 8, POOL_FIRST>(J);
     else sc_gemm<1, 4, 4, POOL_FIRST>(J);
+  } else {
+    sc_gemm_window<POOL_FIRST>(J, pw);
   }
 }
 
@@ -392,6 +481,7 @@ __device__ __forceinline__ ScJob sc_job(const ScLayer& L, const float* in, int r
   J.taps = taps;
   J.w = L.w;
   J.b = L.b;
+  J.w_ld = L.n_out;
   J.np = L.np;
   J.wvec = L.wvec;
   J.wst = wst;
@@ -516,14 +606,16 @@ __global__ void __launch_bounds__(SC_THREADS, 2) sc_fused_kernel(const ScFused F
   const int rb = blockIdx.x;
   const int bi = blockIdx.y;
   const int row0 = rb * F.r * F.stride;
-  const int total = F.in_rows_blk * F.w_in * F.c;
-  const float* xb = F.x + ((size_t)bi * F.h + row0) * F.w_in * F.c;
-  const int valid = (F.h - row0) * F.w_in * F.c;  // rows past the frame read 0
+  const int strip = F.w_in * F.c;  // elements of one slab row
+  const int total = F.in_rows_blk * strip;
+  const float* xb = F.x + (size_t)bi * F.x_img + (size_t)row0 * F.x_rs;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int pix = idx / F.c;
-    const int row = pix / F.w_in;
-    slab[row * F.rs + (pix - row * F.w_in) * F.cs + (idx - pix * F.c)] =
-        idx < valid ? __ldg(xb + idx) : 0.0f;
+    const int row = idx / strip;
+    const int e = idx - row * strip;
+    const int pix = e / F.c;
+    // rows past the frame read 0
+    slab[row * F.rs + pix * F.cs + (e - pix * F.c)] =
+        row0 + row < F.h ? __ldg(xb + (size_t)row * F.x_rs + e) : 0.0f;
   }
   const int rs = F.rs;
   sc_build_taps(taps, F.k, F.c, rs, F.cs);
@@ -542,6 +634,7 @@ __global__ void __launch_bounds__(SC_THREADS, 2) sc_fused_kernel(const ScFused F
   J.taps = taps;
   J.w = F.w;
   J.b = F.b;
+  J.w_ld = F.w_ld;
   J.np = F.np;
   J.wvec = F.wvec;
   J.wst = wst;
@@ -551,9 +644,9 @@ __global__ void __launch_bounds__(SC_THREADS, 2) sc_fused_kernel(const ScFused F
   J.qscale = F.qscale;
   J.qmin = F.qmin;
   J.qmax = F.qmax;
-  J.dst = F.out + ((size_t)bi * F.h_keep + po_lo) * F.w_keep * F.n;
-  J.dst_rs = F.w_keep * F.n;
-  J.dst_cs = F.n;
+  J.dst = F.out + (size_t)bi * F.out_img + (size_t)po_lo * F.out_rs;
+  J.dst_rs = F.out_rs;
+  J.dst_cs = F.out_cs;
   J.dst_co = 0;
   sc_gemm_dispatch<false>(J, F.pw, F.tn);  // its first barrier covers the slab and taps
 }
@@ -617,28 +710,49 @@ __device__ __forceinline__ void sc_window_i8(
 // sums dequantized by deq (a power of two: exact), then POOL_FIRST
 // bias -> pool -> act (pyramid) or bias -> act -> pool (single layer).
 // Dequantization and bias are monotone, so the pool-first path takes the
-// max of the integer sums.
+// max of the integer sums. PW = 0 reads the window (pw) at run time and
+// folds its conv positions one at a time into the same max; N is the
+// weights' row stride.
 template <int PW, bool POOL_FIRST>
 __device__ __forceinline__ float sc_point_i8(
     const i8* __restrict__ in, int cols, int C, const i8* __restrict__ w,
     const float* __restrict__ bias, int N, int n, int k, int s, int cr0,
-    int cc0, int act, float deq) {
-  int acc[PW][PW];
-  sc_window_i8<PW>(in, cols, C, w, N, n, k, s, cr0, cc0, acc);
+    int cc0, int act, float deq, int pw = PW) {
+  if constexpr (PW == 0) {
+    const float bv = __ldg(bias + n);
+    float y = 0.0f;
+    int m = 0;
+    for (int i = 0; i < pw; ++i)
+      for (int j = 0; j < pw; ++j) {
+        int one[1][1];
+        sc_window_i8<1>(in, cols, C, w, N, n, k, s, cr0 + i, cc0 + j, one);
+        const int v = one[0][0];
+        if (POOL_FIRST) {
+          m = (i | j) ? max(m, v) : v;
+        } else {
+          const float f = sc_act(__fmul_rn(__int2float_rn(v), deq) + bv, act);
+          y = (i | j) ? fmaxf(y, f) : f;
+        }
+      }
+    return POOL_FIRST ? sc_act(__fmul_rn(__int2float_rn(m), deq) + bv, act) : y;
+  }
+  constexpr int P = PW > 0 ? PW : 1;
+  int acc[P][P];
+  sc_window_i8<P>(in, cols, C, w, N, n, k, s, cr0, cc0, acc);
   const float bv = __ldg(bias + n);
   if (POOL_FIRST) {
     int m = acc[0][0];
 #pragma unroll
-    for (int i = 0; i < PW; ++i)
+    for (int i = 0; i < P; ++i)
 #pragma unroll
-      for (int j = 0; j < PW; ++j) m = max(m, acc[i][j]);
+      for (int j = 0; j < P; ++j) m = max(m, acc[i][j]);
     return sc_act(__fmul_rn(__int2float_rn(m), deq) + bv, act);
   }
   float y = sc_act(__fmul_rn(__int2float_rn(acc[0][0]), deq) + bv, act);
 #pragma unroll
-  for (int i = 0; i < PW; ++i)
+  for (int i = 0; i < P; ++i)
 #pragma unroll
-    for (int j = 0; j < PW; ++j)
+    for (int j = 0; j < P; ++j)
       y = fmaxf(y, sc_act(__fmul_rn(__int2float_rn(acc[i][j]), deq) + bv, act));
   return y;
 }
@@ -661,7 +775,7 @@ __device__ void sc_pyramid_layer_i8(const ScLayer& L, const i8* __restrict__ in,
     const int r = r_lo + pos / L.out_cols;
     const float y = sc_point_i8<PW, true>(in, cols, L.in_ch, w, L.b, N, n, L.k,
                                           L.stride, r * L.ps, oc * L.ps, L.act,
-                                          L.deq);
+                                          L.deq, L.pw);
     const float q = sc_code(y, L.qscale, L.qmin, L.qmax);
     const int o = r * dst_rs + (oc + dst_co) * N + n;
     if (CODES)
@@ -676,9 +790,10 @@ __device__ __forceinline__ void sc_pyramid_layer_i8_pw(
     const ScLayer& L, const i8* in, void* dst, int dst_rs, int dst_co,
     int r_lo, int r_hi) {
   switch (L.pw) {
+    case 1: sc_pyramid_layer_i8<1, CODES>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
     case 2: sc_pyramid_layer_i8<2, CODES>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
     case 3: sc_pyramid_layer_i8<3, CODES>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
-    default: sc_pyramid_layer_i8<1, CODES>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
+    default: sc_pyramid_layer_i8<0, CODES>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
   }
 }
 
@@ -755,16 +870,16 @@ __device__ void sc_fused_body_i8(const ScFused& F, const i8* __restrict__ in,
   const int po_hi = min(F.h_keep, po_lo + F.r_o);
   const int items = (po_hi - po_lo) * F.w_keep * F.n;
   const i8* w = reinterpret_cast<const i8*>(F.w);
-  float* out = F.out + (size_t)bi * F.h_keep * F.w_keep * F.n;
+  float* out = F.out + (size_t)bi * F.out_img;
   for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
     const int n = idx % F.n;
     const int pos = idx / F.n;
     const int oc = pos % F.w_keep;
     const int po = po_lo + pos / F.w_keep;
-    const float y = sc_point_i8<PW, false>(in, F.w_in, F.c, w, F.b, F.n, n, F.k,
+    const float y = sc_point_i8<PW, false>(in, F.w_in, F.c, w, F.b, F.w_ld, n, F.k,
                                            F.stride, po * F.ps - rb * F.r,
-                                           oc * F.ps, F.act, F.deq);
-    out[((size_t)po * F.w_keep + oc) * F.n + n] =
+                                           oc * F.ps, F.act, F.deq, F.pw);
+    out[(size_t)po * F.out_rs + (size_t)oc * F.out_cs + n] =
         sc_code(y, F.qscale, F.qmin, F.qmax) * F.qscale;
   }
 }
@@ -774,17 +889,22 @@ __global__ void __launch_bounds__(SC_THREADS) sc_fused_i8_kernel(const ScFused F
   const int rb = blockIdx.x;
   const int bi = blockIdx.y;
   const int row0 = rb * F.r * F.stride;
-  const int total = F.in_rows_blk * F.w_in * F.c;
-  const i8* xb = reinterpret_cast<const i8*>(F.x) +
-                 ((size_t)bi * F.h + row0) * F.w_in * F.c;
-  const int valid = (F.h - row0) * F.w_in * F.c;  // rows past the frame read 0
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x)
-    slab8[idx] = idx < valid ? __ldg(xb + idx) : (i8)0;
+  const int strip = F.w_in * F.c;  // bytes of one slab row
+  const int total = F.in_rows_blk * strip;
+  const i8* xb = reinterpret_cast<const i8*>(F.x) + (size_t)bi * F.x_img +
+                 (size_t)row0 * F.x_rs;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int row = idx / strip;
+    // rows past the frame read 0
+    slab8[idx] = row0 + row < F.h ? __ldg(xb + (size_t)row * F.x_rs + (idx - row * strip))
+                                  : (i8)0;
+  }
   __syncthreads();
   switch (F.pw) {
+    case 1: sc_fused_body_i8<1>(F, slab8, rb, bi); break;
     case 2: sc_fused_body_i8<2>(F, slab8, rb, bi); break;
     case 3: sc_fused_body_i8<3>(F, slab8, rb, bi); break;
-    default: sc_fused_body_i8<1>(F, slab8, rb, bi); break;
+    default: sc_fused_body_i8<0>(F, slab8, rb, bi); break;
   }
 }
 

@@ -49,6 +49,11 @@
 //             the seed's own shape, is also compiled as a constant (CC):
 //             the channel loop unrolls and the offsets fold, which an H100
 //             ran 1.3-1.5x faster than the runtime loop (PERF.md).
+//             A frame whose ring does not fit beside one channel group of
+//             weights runs as column strips, one launch each (legacy.py
+//             seed_tile): a strip's ring holds its columns and the K - 1 of
+//             halo to their right, and it writes its columns of the one
+//             output tensor.
 //             Ragged edges are masked: columns
 //             past w_out read zeroed pad columns of the ring and are not
 //             stored, channels past N multiply zeroed weights.
@@ -64,9 +69,14 @@
 #define SEED_MAX_THREADS 256
 
 struct ScSeed {
+  // One column strip of the frame (the host offsets x and out to the
+  // strip's first input and output column): w_in input columns of rows
+  // x_rs floats apart, w_out output columns of rows out_rs floats apart.
   const float* x;  // (B, H, W, C) contiguous
   const float* w;  // (K*K, C, N) contiguous
   float* out;      // (B, H-K+1, W-K+1, N) contiguous
+  long long x_img, out_img;  // floats per image of x and out
+  int x_rs, out_rs;
   int batch, h, w_in, c, n, k;
   int h_out, w_out;
   int rows;        // output rows per strip (grid.x strips)
@@ -94,7 +104,7 @@ __device__ __forceinline__ void seed_cp4(float* dst, const float* src) {
 __device__ __forceinline__ void seed_stage_row(const ScSeed& p, const float* xb, float* ring,
                                                int row, int slot) {
   const int words = p.w_in * p.c;
-  const float* src = xb + (size_t)row * words;
+  const float* src = xb + (size_t)row * p.x_rs;
   float* dst = ring + slot * p.rs;
   if (p.xvec) {
     for (int i = threadIdx.x; i < (words >> 2); i += blockDim.x)
@@ -121,7 +131,7 @@ __global__ void __launch_bounds__(SEED_MAX_THREADS) sc_seed_kernel(const ScSeed 
   const int r1 = min(r0 + p.rows, p.h_out);
   const int n0 = blockIdx.y * p.np;
   const int bi = blockIdx.z;
-  const float* xb = p.x + (size_t)bi * p.h * p.w_in * C;
+  const float* xb = p.x + (size_t)bi * p.x_img;
 
   // Prologue: this CTA's weights, the ring's pad columns, input rows r0 ..
   // r0 + K - 1 into slots 0 .. K - 1; one cp.async group.
@@ -163,7 +173,7 @@ __global__ void __launch_bounds__(SEED_MAX_THREADS) sc_seed_kernel(const ScSeed 
     }
     asm volatile("cp.async.commit_group;\n" ::);
 
-    const size_t orow = ((size_t)bi * p.h_out + r) * p.w_out;
+    float* const orow = p.out + (size_t)bi * p.out_img + (size_t)r * p.out_rs;
     for (int task = threadIdx.x; task < tasks; task += blockDim.x) {
       const int g = task % p.cg, ng = task / p.cg;
       float acc[TW][TN];
@@ -213,7 +223,7 @@ __global__ void __launch_bounds__(SEED_MAX_THREADS) sc_seed_kernel(const ScSeed 
       for (int t = 0; t < TW; ++t) {
         const int c = g + t * p.cg;
         if (c >= p.w_out || nv <= 0) continue;
-        float* o = p.out + (orow + c) * p.n + nc;
+        float* o = orow + (size_t)c * p.n + nc;
         if (nv >= TN && (p.n & 3) == 0) {
 #pragma unroll
           for (int q = 0; q < TN / 4; ++q)

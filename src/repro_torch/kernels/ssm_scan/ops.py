@@ -18,7 +18,9 @@ def ssm_scan(x, dt, b, c, a, d_skip, h0=None, *, block_d: int = 256):
     h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t, the state starting at
     ``h0`` (zeros when None). Returns (y (Bz, S, D) f32, h_last
     (Bz, D, N) f32); the reference's ``ssm_scan`` returns y alone and has
-    no initial state."""
+    no initial state. ``block_d`` is the reference's channel block; the
+    plain version has none, and on the card ``scan.scan_plan`` lays the
+    channels out (the kernel masks a ragged D), so it is not read."""
     bz, s, di = x.shape
     n = b.shape[-1]
     if dt.shape != x.shape:
@@ -36,8 +38,4 @@ def ssm_scan(x, dt, b, c, a, d_skip, h0=None, *, block_d: int = 256):
         raise ValueError(f"h0 {tuple(h0.shape)} must be {(bz, di, n)}")
     if not on_cuda(x):
         return ssm_scan_ref(x, dt, b, c, a, d_skip, h0)
-    # The reference's rule: halve the block until it divides D.
-    bd = block_d
-    while di % bd:
-        bd //= 2
-    return ssm_scan_cuda(x, dt, b, c, a, d_skip, h0, block_d=max(1, bd))
+    return ssm_scan_cuda(x, dt, b, c, a, d_skip, h0)

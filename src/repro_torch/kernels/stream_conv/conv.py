@@ -4,7 +4,10 @@
 ``stream_conv_fused_cuda`` replaces the reference's single-layer Pallas
 kernel (``repro/kernels/stream_conv/conv.py:stream_conv_fused_pallas``):
 one CTA per (row block, image) over a host-SAME-padded frame, fused
-bias -> act -> pool -> quant epilogue. ``stream_conv_pyramid_cuda``
+bias -> act -> pool -> quant epilogue; a frame too wide for one block
+runs as column strips (the reference's ``block_w``), one launch each into
+one output tensor, and a layer whose weight stages do not fit as slices
+of its channels (``fused_plan``). ``stream_conv_pyramid_cuda``
 replaces the cross-layer pyramid (``stream_conv_pyramid_pallas``): one CTA
 per (row block, image) streams a whole fusion group with every
 inter-layer slab in shared memory. The fp32 kernels run each layer as a
@@ -13,7 +16,11 @@ memory); this module sizes their shared-memory layout
 (``pyramid_layout``, ``fused_geometry``). Each has an int8 variant
 (``int8_scales``): int8 frame and weight codes, int32 accumulation, the
 exact pow2 dequantization, and int8 codes between pyramid layers. The
-design notes and bounds of all four kernels are in the source.
+design notes and bounds of all four kernels are in the source. The
+kernels take any pool window: 2 and 3 compiled, every other one read at
+run time. ``card_groups`` splits the reference's fusion groups into
+groups the pyramid kernel can take (at most ``MAX_PYRAMID_LAYERS``
+layers within ``SMEM_LIMIT``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on PyTorch's current stream and
@@ -38,13 +45,13 @@ from repro_torch.kernels.stream_conv.epilogue import (
     pool_out_dim,
     stream_quant_spec,
 )
+from repro_torch.kernels.stream_conv.halo import column_strips, group_geometry
 
 # Shared memory one block may use on Hopper (227 KB of the SM's 256 KB).
 SMEM_LIMIT = 232_448
 MAX_PYRAMID_LAYERS = 4  # SC_MAX_LAYERS in the source
 THREADS = 256  # SC_THREADS in the source
 K_STAGE = 64  # SC_KC in the source: weight rows per shared-memory stage
-POOL_WINDOWS = (0, 2, 3)  # pool windows the kernels are instantiated for
 ACT_CODES = {"none": 0, "relu": 1, "tanh": 2}
 
 LAUNCHES = {
@@ -99,6 +106,9 @@ class _ScFused(ctypes.Structure):
     _fields_ = [
         ("x", ctypes.c_void_p), ("w", ctypes.c_void_p),
         ("b", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("x_img", ctypes.c_longlong), ("out_img", ctypes.c_longlong),
+        ("x_rs", ctypes.c_int), ("out_rs", ctypes.c_int), ("out_cs", ctypes.c_int),
+        ("w_ld", ctypes.c_int),
         ("batch", ctypes.c_int), ("h", ctypes.c_int), ("w_in", ctypes.c_int),
         ("c", ctypes.c_int), ("n", ctypes.c_int), ("k", ctypes.c_int),
         ("stride", ctypes.c_int), ("act", ctypes.c_int), ("pw", ctypes.c_int),
@@ -147,14 +157,6 @@ def _quant_fields(act_bits) -> dict:
         qbits=act_bits, qscale=spec.scale, qmin=float(spec.qmin),
         qmax=float(spec.qmax),
     )
-
-
-def _check_pool(pw: int) -> None:
-    if pw not in POOL_WINDOWS:
-        raise NotImplementedError(
-            f"the CUDA kernels are built for pool windows {POOL_WINDOWS}, "
-            f"got {pw}"
-        )
 
 
 def _check_cuda(name: str, t: torch.Tensor, shape=None,
@@ -236,9 +238,10 @@ def _warp_tasks(pw: int, n_out: int, n_windows: int, tn: int) -> int:
 
 def tile_n(pw: int, n_out: int, n_windows: int) -> int:
     """Output channels per thread of a pyramid layer (TN in the source):
-    8, unless the pool window is 3 (register pressure) or the layer has
-    too few warp tasks at 8 to occupy the CTA's eight warps, then 4."""
-    if pw == 3 or _warp_tasks(pw, n_out, n_windows, 8) < THREADS // 32:
+    8, unless the pool window is 3 (register pressure) or above (the
+    run-time window path, compiled at 4), or the layer has too few warp
+    tasks at 8 to occupy the CTA's eight warps, then 4."""
+    if pw >= 3 or _warp_tasks(pw, n_out, n_windows, 8) < THREADS // 32:
         return 4
     return 8
 
@@ -246,10 +249,10 @@ def tile_n(pw: int, n_out: int, n_windows: int) -> int:
 def fused_tile(pw: int, n_out: int, n_windows: int) -> tuple:
     """(TN, threads per CTA) of the single-layer kernel, whose CTA size is
     free: TN = 8 with one warp per task (four to eight warps) where the
-    layer has four tasks at 8, else TN = 4 (always at pool window 3) and
-    up to eight warps. A larger tile per thread reads fewer shared-memory
-    words per FMA; smaller CTAs keep 16 warps per SM."""
-    if pw != 3:
+    layer has four tasks at 8, else TN = 4 (always at pool window 3 and
+    above) and up to eight warps. A larger tile per thread reads fewer
+    shared-memory words per FMA; smaller CTAs keep 16 warps per SM."""
+    if pw < 3:
         tasks = _warp_tasks(pw, n_out, n_windows, 8)
         if tasks >= 4:
             return 8, 32 * min(THREADS // 32, tasks)
@@ -284,17 +287,23 @@ def _block_multiple(k: int, s: int, pw: int, ps: int) -> tuple:
 
 
 def fused_geometry(h: int, wd: int, c: int, *, k: int, stride: int,
-                   pool: int, pool_stride, block_r: int,
-                   n_out: int | None = None, elem_bytes: int = 4) -> dict:
-    """Row blocking of the single-layer kernel over an already padded
-    (h, wd, c) frame: conv rows per block ``r`` (a multiple of
+                   pool: int, pool_stride, block_r: int, block_w: int = 0,
+                   n_out: int | None = None, n_slice: int | None = None,
+                   elem_bytes: int = 4) -> dict:
+    """Row and column blocking of the single-layer kernel over an already
+    padded (h, wd, c) frame: conv rows per block ``r`` (a multiple of
     ``_block_multiple``), pooled rows per block ``r_o``, input rows per
-    block (with the halo) and the block's shared-memory bytes. At
-    ``elem_bytes=1`` (the int8 kernel) that is the slab at one byte per
-    element; at 4 (the fp32 kernel, which needs ``n_out``) the slab with
-    ``column_stride`` words per column, the tap table and two weight
-    stages, laid out as the returned word offsets say. Halves the block
-    toward the multiple until it fits; raises if even that does not."""
+    block (with the halo), the column ``strips`` (``halo.column_strips``:
+    (first input column, end, first output column, end) per launch; one
+    strip of the whole frame unless ``block_w``, conv columns per strip as
+    the reference rounds them, is narrower than the conv output) and the
+    block's shared-memory bytes for the widest strip. At ``elem_bytes=1``
+    (the int8 kernel) that is the slab at one byte per element; at 4 (the
+    fp32 kernel, which needs ``n_out``) the slab with ``column_stride``
+    words per column, the tap table and two weight stages of ``n_slice``
+    channels (default ``n_out``), laid out as the returned word offsets
+    say. Halves the row block toward the multiple until it fits; raises if
+    even that does not."""
     pw, ps = normalize_pool(pool, pool_stride)
     s = stride
     h_out, w_out = (h - k) // s + 1, (wd - k) // s + 1
@@ -303,16 +312,25 @@ def fused_geometry(h: int, wd: int, c: int, *, k: int, stride: int,
     mult, _, overlap = _block_multiple(k, s, pw, ps)
     if elem_bytes == 4 and n_out is None:
         raise ValueError("fused_geometry needs n_out to size the fp32 kernel's weight stages")
+    ns = n_out if n_slice is None else n_slice
+    wc = round_up(max(block_w if block_w > 0 else w_out, mult), mult)
+    if wc >= w_out:
+        strips = ((0, wd, 0, w_keep),)  # the whole frame
+        cols_in, cols_keep = wd, w_keep
+    else:
+        cols_keep = wc // ps if pw else wc
+        strips = column_strips(wd, k, s, pw, ps, cols_keep)
+        cols_in = (wc + overlap - 1) * s + k
 
     def layout(r):
         in_rows = (r + overlap - 1) * s + k
         if elem_bytes == 1:
-            return in_rows, {}, in_rows * wd * c
+            return in_rows, {}, in_rows * cols_in * c
         r_o = r // ps if pw else r
-        tn, threads = fused_tile(pw, n_out, r_o * w_keep)
-        np_, stage = _stage_words(n_out, tn)
+        tn, threads = fused_tile(pw, ns, r_o * cols_keep)
+        np_, stage = _stage_words(ns, tn)
         cs = column_stride(c)
-        rs = row_stride(wd, cs, (ps or 1) * s, w_keep, r_o * w_keep)
+        rs = row_stride(cols_in, cs, (ps or 1) * s, cols_keep, r_o * cols_keep)
         tap_off = round_up(in_rows * rs, 4)
         wst_off = tap_off + _taps_words(k, c)
         fp32 = dict(threads=threads, cs=cs, rs=rs, tn=tn, np=np_, tap_off=tap_off, wst_off=wst_off,
@@ -332,10 +350,43 @@ def fused_geometry(h: int, wd: int, c: int, *, k: int, stride: int,
             f"memory, above the {SMEM_LIMIT} B a Hopper block may use"
         )
     r_o = r // ps if pw else r
+    slices = tuple((n0, min(n_out, n0 + ns)) for n0 in range(0, n_out, ns)) if n_out else ()
     return dict(
         r=r, r_o=r_o, in_rows_blk=in_rows, h_keep=h_keep, w_keep=w_keep,
-        n_rb=-(-h_keep // r_o), smem=smem, **fp32,
+        n_rb=-(-h_keep // r_o), smem=smem, strips=strips, slices=slices, **fp32,
     )
+
+
+def fused_plan(h: int, wd: int, c: int, *, k: int, stride: int, pool: int,
+               pool_stride, block_r: int, block_w: int = 0, n_out: int,
+               elem_bytes: int = 4) -> dict:
+    """The single-layer launcher's ``fused_geometry``: the caller's
+    ``block_w`` where the smallest row block fits in shared memory, else
+    column strips halved until one fits, then (fp32) slices of the output
+    channels halved until one fits. Raises where even one strip of the
+    narrowest legal width and one slice of four channels do not fit (a
+    tap table of K * K * C words above the block, about 58,000)."""
+    pw, ps = normalize_pool(pool, pool_stride)
+    mult = _block_multiple(k, stride, pw, ps)[0]
+    w_out = (wd - k) // stride + 1
+    kw = dict(k=k, stride=stride, pool=pool, pool_stride=pool_stride, block_r=block_r,
+              n_out=n_out, elem_bytes=elem_bytes)
+    widths = [block_w]
+    wc = round_up(max(block_w if block_w > 0 else w_out, mult), mult)
+    while wc > mult:
+        wc = max(mult, round_up(wc // 2, mult))
+        widths.append(wc)
+    slices = [n_out]
+    while elem_bytes == 4 and slices[-1] > 4:
+        slices.append(round_up(-(-slices[-1] // 2), 4))
+    err = None
+    for ns in slices:
+        for bw in widths:
+            try:
+                return fused_geometry(h, wd, c, block_w=bw, n_slice=ns, **kw)
+            except ValueError as e:
+                err = e
+    raise err
 
 
 def _int8_operands(name: str, int8_scales, act_bits) -> tuple:
@@ -354,24 +405,6 @@ def _weights_16b(w: torch.Tensor) -> int:
     return int(w.shape[-1] % 4 == 0 and w.data_ptr() % 16 == 0)
 
 
-def _fused_desc(x, w, bias, out, g, *, stride, act, pw, ps, act_bits,
-                int8_scales) -> _ScFused:
-    b_, h, wd, c = x.shape
-    k, n = w.shape[0], w.shape[3]
-    fp32 = {} if int8_scales is not None else dict(
-        threads=g["threads"], cs=g["cs"], rs=g["rs"], tn=g["tn"], np=g["np"], wvec=_weights_16b(w),
-        tap_off=g["tap_off"], wst_off=g["wst_off"], wst_elems=g["wst_elems"],
-    )
-    return _ScFused(
-        x=x.data_ptr(), w=w.data_ptr(), b=bias.data_ptr(), out=out.data_ptr(),
-        batch=b_, h=h, w_in=wd, c=c, n=n, k=k, stride=stride,
-        act=ACT_CODES[act], pw=pw or 1, ps=ps or 1, **_quant_fields(act_bits),
-        h_keep=g["h_keep"], w_keep=g["w_keep"], r=g["r"], r_o=g["r_o"],
-        in_rows_blk=g["in_rows_blk"], n_rb=g["n_rb"],
-        deq=1.0 if int8_scales is None else int8_scales.deq_scale, **fp32,
-    )
-
-
 def stream_conv_fused_cuda(
     x: torch.Tensor,  # (B, H, W, C), already SAME-padded
     w: torch.Tensor,  # (K, K, C, N) HWIO
@@ -384,10 +417,13 @@ def stream_conv_fused_cuda(
     act_bits: int | None = None,
     int8_scales=None,
     block_r: int = 8,
+    block_w: int = 0,
 ) -> torch.Tensor:
     """Fused streaming conv on the card: VALID conv of stride ``stride``
     over the padded frame, then bias -> act -> pool -> quant. Returns
-    (B, H', W', N) with H', W' the pooled output dims.
+    (B, H', W', N) with H', W' the pooled output dims. One launch per
+    column strip and channel slice of ``fused_plan``, all into one output
+    tensor (one launch where the frame fits).
 
     With ``int8_scales`` (an ``epilogue.Int8Scales``) ``x`` and ``w`` must
     be int8 codes (the frame padded with code 0) and the int8 kernel runs:
@@ -399,24 +435,41 @@ def stream_conv_fused_cuda(
     _check_cuda("w", w, (k, k, c, n), dtype=dtype)
     _check_cuda("bias", bias, (n,))
     pw, ps = normalize_pool(pool, pool_stride)
-    _check_pool(pw)
     if b_ > 65535:
         raise ValueError(f"batch {b_} above the grid's 65535 images")
-    g = fused_geometry(h, wd, c, k=k, stride=stride, pool=pool,
-                       pool_stride=pool_stride, block_r=block_r, n_out=n,
-                       elem_bytes=elem_bytes)
+    g = fused_plan(h, wd, c, k=k, stride=stride, pool=pool, pool_stride=pool_stride,
+                   block_r=block_r, block_w=block_w, n_out=n, elem_bytes=elem_bytes)
     out = torch.empty((b_, g["h_keep"], g["w_keep"], n), device=x.device,
                       dtype=torch.float32)
-    desc = _fused_desc(x, w, bias, out, g, stride=stride, act=act, pw=pw, ps=ps,
-                       act_bits=act_bits, int8_scales=int8_scales)
-    name = "stream_conv_fused" if int8_scales is None else "stream_conv_fused_int8"
+    int8 = int8_scales is not None
+    name = "stream_conv_fused_int8" if int8 else "stream_conv_fused"
     lib = _library()
-    launch = lib.sc_fused_launch if int8_scales is None else lib.sc_fused_i8_launch
+    launch = lib.sc_fused_i8_launch if int8 else lib.sc_fused_launch
+    e_x, e_w = x.element_size(), w.element_size()
+    common = dict(
+        batch=b_, h=h, c=c, k=k, stride=stride, act=ACT_CODES[act], pw=pw or 1, ps=ps or 1,
+        **_quant_fields(act_bits), h_keep=g["h_keep"], r=g["r"], r_o=g["r_o"],
+        in_rows_blk=g["in_rows_blk"], n_rb=g["n_rb"],
+        deq=int8_scales.deq_scale if int8 else 1.0,
+        x_img=h * wd * c, out_img=g["h_keep"] * g["w_keep"] * n, x_rs=wd * c,
+        out_rs=g["w_keep"] * n, out_cs=n, w_ld=n,
+    )
+    if not int8:
+        common.update(threads=g["threads"], cs=g["cs"], rs=g["rs"], tn=g["tn"], np=g["np"],
+                      tap_off=g["tap_off"], wst_off=g["wst_off"], wst_elems=g["wst_elems"])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(ctypes.addressof(desc), g["smem"], stream)
-    _raise_on(err, name)
-    LAUNCHES[name] += 1
+        for in_lo, in_hi, o_lo, o_hi in g["strips"]:
+            for n0, n1 in g["slices"]:
+                wvec = int(not int8 and n % 4 == 0 and n0 % 4 == 0 and (n1 - n0) % 4 == 0
+                           and w.data_ptr() % 16 == 0)
+                desc = _ScFused(
+                    x=x.data_ptr() + in_lo * c * e_x, w=w.data_ptr() + n0 * e_w,
+                    b=bias.data_ptr() + n0 * 4, out=out.data_ptr() + (o_lo * n + n0) * 4,
+                    w_in=in_hi - in_lo, w_keep=o_hi - o_lo, n=n1 - n0, wvec=wvec, **common,
+                )
+                _raise_on(launch(ctypes.addressof(desc), g["smem"], stream), name)
+                LAUNCHES[name] += 1
     return out
 
 
@@ -530,6 +583,66 @@ def pyramid_smem_bytes(geom, elem_bytes: int = 4) -> int:
     return pyramid_layout(geom).smem
 
 
+def card_groups(h: int, w: int, c: int, layers, kernels, n_outs, groups, *,
+                elem_bytes: int = 4) -> tuple:
+    """The reference's fusion groups of one stage, split into groups the
+    card can take. ``layers`` (``halo.PyramidLayer``), ``kernels`` and
+    ``n_outs`` describe the stage's conv layers from an (h, w, c) frame;
+    ``groups`` are the reference's ``(local layer indices, block_rows)``
+    pairs. A multi-layer group is kept where it has at most
+    ``MAX_PYRAMID_LAYERS`` layers and its pyramid fits ``SMEM_LIMIT`` at
+    the reference's ``block_rows``; otherwise it is cut, left to right,
+    into the longest runs that fit at some ``block_rows`` (the whole frame,
+    then halved down to one row, the reference's ladder), the largest that
+    fits. A layer that fits no run with its successor is a singleton, which
+    the single-layer kernel serves (it blocks rows, columns and channels).
+    Returns the same kind of pairs; singletons have ``block_rows`` 0."""
+    layers, kernels, n_outs = tuple(layers), tuple(kernels), tuple(n_outs)
+    frames = [(h, w, c)]
+    for i in range(len(layers) - 1):
+        g = group_geometry(*frames[-1], layers[i:i + 1], kernels[i:i + 1], n_outs[i:i + 1])
+        frames.append((g.out_rows, g.out_cols, n_outs[i]))
+
+    def fit(i, j, first):
+        if j - i > MAX_PYRAMID_LAYERS:
+            return None
+        out_rows = group_geometry(*frames[i], layers[i:j], kernels[i:j], n_outs[i:j]).out_rows
+        ladder, r = [], out_rows
+        while True:
+            ladder.append(r)
+            if r == 1:
+                break
+            r = -(-r // 2)
+        for r in ([first] if first else []) + ladder:
+            geom = group_geometry(*frames[i], layers[i:j], kernels[i:j], n_outs[i:j],
+                                  block_rows=r)
+            if pyramid_smem_bytes(geom, elem_bytes) <= SMEM_LIMIT:
+                return r
+        return None
+
+    out = []
+    for idxs, block_rows in groups:
+        idxs = tuple(idxs)
+        if len(idxs) == 1:
+            out.append((idxs, 0))
+            continue
+        if fit(idxs[0], idxs[-1] + 1, block_rows) == block_rows and block_rows:
+            out.append((idxs, block_rows))
+            continue
+        i, end = idxs[0], idxs[-1] + 1
+        while i < end:
+            for j in range(end, i + 1, -1):
+                r = fit(i, j, None)
+                if r is not None:
+                    out.append((tuple(range(i, j)), r))
+                    break
+            else:
+                j = i + 1
+                out.append(((i,), 0))
+            i = j
+    return tuple(out)
+
+
 def _pyramid_desc(x, weights, biases, out, geom, act_bits, int8_scales) -> _ScPyramid:
     lay = None if int8_scales is not None else pyramid_layout(geom)
     layer_descs = []
@@ -604,7 +717,6 @@ def stream_conv_pyramid_cuda(
     for i, (g, w, b) in enumerate(zip(geom.layers, weights, biases)):
         _check_cuda(f"weights[{i}]", w, (g.k, g.k, g.in_ch, g.n_out), dtype=dtype)
         _check_cuda(f"biases[{i}]", b, (g.n_out,))
-        _check_pool(g.pw)
     last = geom.layers[-1]
     out = torch.empty((b_, geom.out_rows, geom.out_cols, last.n_out),
                       device=x.device, dtype=torch.float32)

@@ -1,7 +1,8 @@
 """Composed halo algebra for cross-layer fused conv pyramids.
 
-A verbatim copy of ``repro.kernels.stream_conv.halo`` (pure Python): the port keeps its own
-copy so that it imports nothing of the JAX package.
+A copy of ``repro.kernels.stream_conv.halo`` (pure Python): the port keeps its own copy so
+that it imports nothing of the JAX package. It adds :func:`column_strips`, the column
+halo of the single-layer kernel's strips on the card.
 
 A fusion group runs several consecutive conv -> bias -> act -> pool layers
 over one block of the *final* output rows, keeping every inter-layer
@@ -52,6 +53,16 @@ def same_pads(d: int, stride: int, k: int) -> tuple:
     tot = max((out - 1) * stride + k - d, 0)
     lo = tot // 2
     return lo, tot - lo
+
+
+def padded_frame(h: int, w: int, k: int, stride: int, padding: str) -> tuple:
+    """(H, W) of the frame a layer's VALID conv runs over once its SAME
+    pads (``same_pads``) are added: what the single-layer launcher sizes
+    its blocks from, and the compiler's check of a plan for the card."""
+    if padding == "SAME":
+        h += sum(same_pads(h, stride, k))
+        w += sum(same_pads(w, stride, k))
+    return h, w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,3 +312,26 @@ def working_set_breakdown(
             g.k * g.k * g.in_ch * g.n_out * elem_bytes + g.n_out * 4
         )
     return parts
+
+
+def column_strips(in_cols: int, k: int, stride: int, pw: int, ps: int,
+                  strip_cols: int) -> tuple:
+    """Column strips of one VALID conv (kernel ``k``, ``stride``) and max
+    pool (window ``pw``, stride ``ps``; ``pw=0`` for none) over a frame of
+    ``in_cols`` (already padded) columns, ``strip_cols`` pooled output
+    columns each (the last may be narrower). Per strip ``(in_lo, in_hi,
+    out_lo, out_hi)``: its output columns ``[out_lo, out_hi)`` read exactly
+    the input columns ``[in_lo, in_hi)`` -- the pool windows' conv columns
+    ``[out_lo*ps, (out_hi-1)*ps + pw)`` widened by the conv's halo. The
+    row rule of the single-layer kernel, applied to columns: strips
+    overlap by the halo, and each output column is computed once."""
+    if strip_cols < 1:
+        raise ValueError(f"strip_cols must be >= 1, got {strip_cols}")
+    conv_cols = (in_cols - k) // stride + 1
+    out_cols = (conv_cols - pw) // ps + 1 if pw else conv_cols
+    strips = []
+    for lo in range(0, out_cols, strip_cols):
+        hi = min(out_cols, lo + strip_cols)
+        c_lo, c_hi = (lo * ps, (hi - 1) * ps + pw) if pw else (lo, hi)
+        strips.append((c_lo * stride, (c_hi - 1) * stride + k, lo, hi))
+    return tuple(strips)

@@ -7,7 +7,8 @@ through a line buffer, as the TPU kernel did: a CTA walks a strip of
 output rows in order with a ring of K + 1 input rows in shared memory
 (``csrc/stream_conv_seed.cu``; design notes and bound there).
 ``seed_tile`` (plain Python, tested on the CPU) sizes the strip, the
-register tile and the ring. It is superseded by the single-layer kernel
+register tile and the ring, and cuts a frame whose ring does not fit into
+column strips, one launch each into one output tensor. It is superseded by the single-layer kernel
 in ``conv.py`` and exists so that the seed-versus-fused comparison can be
 made on the card; no plan calls it.
 
@@ -26,6 +27,7 @@ from repro_torch.kernels import _nvcc
 from repro_torch.kernels.backends import on_cuda, sm_count
 from repro_torch.kernels.padding import round_up
 from repro_torch.kernels.stream_conv.conv import SMEM_LIMIT, _check_cuda, _raise_on
+from repro_torch.kernels.stream_conv.halo import column_strips
 from repro_torch.kernels.stream_conv.ref import stream_conv2d_ref
 
 MAX_GRID_Z = 65535  # images
@@ -49,6 +51,8 @@ def reset_launch_counts() -> None:
 class _ScSeed(ctypes.Structure):
     _fields_ = [
         ("x", ctypes.c_void_p), ("w", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("x_img", ctypes.c_longlong), ("out_img", ctypes.c_longlong),
+        ("x_rs", ctypes.c_int), ("out_rs", ctypes.c_int),
         ("batch", ctypes.c_int), ("h", ctypes.c_int), ("w_in", ctypes.c_int),
         ("c", ctypes.c_int), ("n", ctypes.c_int), ("k", ctypes.c_int),
         ("h_out", ctypes.c_int), ("w_out", ctypes.c_int),
@@ -87,7 +91,9 @@ def seed_tile(b: int, h: int, w: int, c: int, n: int, k: int, *, n_sms: int,
     x ``tn`` channels a thread), the threads of a CTA, ``rows`` output rows
     per strip over ``n_strips`` strips, N split over ``n_split`` CTAs of
     ``np`` staged channels, the ring's column and row strides (``cs``,
-    ``rs``; K + 1 rows) and the CTA's shared-memory bytes.
+    ``rs``; K + 1 rows), the column ``strips`` (``halo.column_strips``:
+    (first input column, end, first output column, end) per launch) and
+    the CTA's shared-memory bytes.
     ``resident(tw, tn, c, threads, smem)`` gives the CTAs of that kind one
     SM holds (the wrapper asks the card's occupancy API).
 
@@ -95,41 +101,55 @@ def seed_tile(b: int, h: int, w: int, c: int, n: int, k: int, *, n_sms: int,
     at one row per CTA, else 2 x 4; the strip is as long as one wave of
     CTAs allows, up to 32 rows. N is split across CTAs only where a row's
     tasks exceed 256 threads or the weights do not fit; raises where even
-    one channel group and the ring exceed 232,448 B."""
+    one channel group and the ring exceed 232,448 B. Where the whole
+    frame's ring does not fit beside one channel group, the frame is cut
+    into column strips, their width halved until one fits; raises where
+    even a ring of one tile's columns does not (the weights of one
+    channel group alone above the block)."""
     h_out, w_out = h - k + 1, w - k + 1
     for tw, tn in SEED_TILES:
         if tn == 8 and n <= 4:
             continue
         if b * h_out * -(-w_out // tw) * -(-n // tn) >= n_sms * WARPS_PER_SM * 32:
             break
-    cg, ng = -(-w_out // tw), -(-n // tn)
+    ng = -(-n // tn)
 
-    def layout(ngc):
+    def layout(ngc, cols):
+        cg = -(-cols // tw)
         threads = min(MAX_THREADS, round_up(cg * ngc, 32))
         cs = ring_column_stride(c, cg, cg * ngc, threads)
         rs = round_up((cg * tw + k - 1) * cs, 4)
         np_ = ngc * tn
-        return dict(ngc=ngc, np=np_, threads=threads, cs=cs, rs=rs,
+        return dict(cg=cg, ngc=ngc, np=np_, threads=threads, cs=cs, rs=rs,
                     smem=4 * (k * k * c * np_ + (k + 1) * rs))
 
-    lay = layout(ng if cg * ng <= MAX_THREADS else max(1, MAX_THREADS // cg))
+    cols = w_out  # output columns per strip
+    lay = layout(ng if -(-cols // tw) * ng <= MAX_THREADS else max(1, MAX_THREADS // -(-cols // tw)),
+                 cols)
     while lay["smem"] > SMEM_LIMIT and lay["ngc"] > 1:
-        lay = layout(-(-lay["ngc"] // 2))
+        lay = layout(-(-lay["ngc"] // 2), cols)
+    while lay["smem"] > SMEM_LIMIT and cols > tw:
+        cols = round_up(-(-cols // 2), tw)
+        lay = layout(1, cols)
     if lay["smem"] > SMEM_LIMIT:
         raise ValueError(
             f"the seed kernel's ring of {k + 1} rows and weights of {lay['np']} channels "
             f"need {lay['smem']} B of shared memory, above the {SMEM_LIMIT} B a Hopper "
             "block may use"
         )
+    strips = ((0, w, 0, w_out),) if cols >= w_out else column_strips(w, k, 1, 0, 0, cols)
     n_split = -(-ng // lay["ngc"])
-    lay = layout(-(-ng // n_split))  # the same split, channel groups evened out
+    lay = layout(-(-ng // n_split), cols)  # the same split, channel groups evened out
     per_sm = max(1, resident(tw, tn, c, lay["threads"], lay["smem"]))
-    rows = min(MAX_STRIP, max(1, -(-b * h_out * n_split // (n_sms * per_sm))))
+    units = b * h_out * n_split * len(strips)
+    rows = min(MAX_STRIP, max(1, -(-units // (n_sms * per_sm))))
     n_strips = -(-h_out // rows)
     rows = -(-h_out // n_strips)
-    return dict(tw=tw, tn=tn, cg=cg, rows=rows, n_strips=n_strips, n_split=n_split,
-                ring_rows=k + 1, xvec=lay["cs"] == c and (w * c) % 4 == 0, wvec=n % 4 == 0,
-                resident=per_sm, ctas=b * n_strips * n_split, **lay)
+    return dict(tw=tw, tn=tn, rows=rows, n_strips=n_strips, n_split=n_split,
+                ring_rows=k + 1, xvec=lay["cs"] == c and all(
+                    (lo * c) % 4 == 0 and ((hi - lo) * c) % 4 == 0 for lo, hi, _, _ in strips)
+                and (w * c) % 4 == 0, wvec=n % 4 == 0, strips=strips,
+                resident=per_sm, ctas=b * n_strips * n_split * len(strips), **lay)
 
 
 def _library() -> ctypes.CDLL:
@@ -172,17 +192,22 @@ def stream_conv2d_seed_cuda(x: torch.Tensor, w_taps: torch.Tensor, *, k: int) ->
     # Raises where the ring and weights do not fit.
     t = seed_tile(b, h, wd, c, n, k, n_sms=sm_count(x.device), resident=_resident)
     out = torch.empty((b, h_out, w_out, n), device=x.device, dtype=torch.float32)
-    desc = _ScSeed(x=x.data_ptr(), w=w_taps.data_ptr(), out=out.data_ptr(), batch=b, h=h,
-                   w_in=wd, c=c, n=n, k=k, h_out=h_out, w_out=w_out, rows=t["rows"],
-                   n_split=t["n_split"], cg=t["cg"], ngc=t["ngc"], np=t["np"], cs=t["cs"],
-                   rs=t["rs"], xvec=int(t["xvec"] and x.data_ptr() % 16 == 0),
-                   wvec=int(t["wvec"] and w_taps.data_ptr() % 16 == 0), tw=t["tw"], tn=t["tn"])
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.sc_seed_launch(ctypes.addressof(desc), t["smem"], t["threads"], stream)
-    _raise_on(err, "stream_conv2d_seed")
-    LAUNCHES["stream_conv2d_seed"] += 1
+        for in_lo, in_hi, o_lo, o_hi in t["strips"]:
+            desc = _ScSeed(
+                x=x.data_ptr() + 4 * in_lo * c, w=w_taps.data_ptr(),
+                out=out.data_ptr() + 4 * o_lo * n, x_img=h * wd * c,
+                out_img=h_out * w_out * n, x_rs=wd * c, out_rs=w_out * n, batch=b, h=h,
+                w_in=in_hi - in_lo, c=c, n=n, k=k, h_out=h_out, w_out=o_hi - o_lo,
+                rows=t["rows"], n_split=t["n_split"], cg=-(-(o_hi - o_lo) // t["tw"]),
+                ngc=t["ngc"], np=t["np"], cs=t["cs"], rs=t["rs"],
+                xvec=int(t["xvec"] and x.data_ptr() % 16 == 0),
+                wvec=int(t["wvec"] and w_taps.data_ptr() % 16 == 0), tw=t["tw"], tn=t["tn"])
+            err = lib.sc_seed_launch(ctypes.addressof(desc), t["smem"], t["threads"], stream)
+            _raise_on(err, "stream_conv2d_seed")
+            LAUNCHES["stream_conv2d_seed"] += 1
     return out
 
 

@@ -29,6 +29,7 @@ from repro_torch.kernels.stream_conv.epilogue import (
 from repro_torch.kernels.stream_conv.halo import (
     as_pyramid_layers,
     group_geometry,
+    padded_frame,
     same_pads,
 )
 from repro_torch.kernels.stream_conv.ref import (
@@ -67,10 +68,7 @@ def _validate_fused(x, w, b, *, padding, stride, act, pool, pool_stride,
         raise ValueError(f"conv stride must be >= 1, got {stride}")
     validate_epilogue(act, pool, pool_stride, act_bits)
     pw, _ = normalize_pool(pool, pool_stride)
-    h, wd = x.shape[1], x.shape[2]
-    if padding == "SAME":
-        h += sum(same_pads(h, stride, k))
-        wd += sum(same_pads(wd, stride, k))
+    h, wd = padded_frame(x.shape[1], x.shape[2], k, stride, padding)
     h_out, w_out = (h - k) // stride + 1, (wd - k) // stride + 1
     if h_out <= 0 or w_out <= 0:
         raise ValueError(f"image {h}x{wd} too small for k={k}, stride={stride}")
@@ -105,13 +103,14 @@ def stream_conv2d(
     padding: str = "VALID",
     stride: int = 1,
     block_r: int = 8,
+    block_w: int = 0,
 ) -> torch.Tensor:
     """Streaming conv2d, stride ``stride``, no epilogue. SAME pads on the
     host side."""
     zero_b = torch.zeros((w.shape[3],), dtype=torch.float32, device=x.device)
     return stream_conv_block(
         x, w, zero_b, padding=padding, stride=stride, act="none", pool=0,
-        block_r=block_r,
+        block_r=block_r, block_w=block_w,
     )
 
 
@@ -128,12 +127,17 @@ def stream_conv_block(
     act_bits: int | None = None,
     int8_scales=None,
     block_r: int = 8,
+    block_w: int = 0,
 ) -> torch.Tensor:
     """Fused conv -> bias -> act -> NxN/stride-s-max-pool block (one DHM
     pipeline stage). ``pool=0`` disables pooling, ``pool_stride=None``
     means window == stride; ``act_bits`` quantizes the output feature
     stream inside the same fused epilogue. ``block_r`` is the conv rows a
-    CUDA block streams (rounded to the halo rule's multiple).
+    CUDA block streams and ``block_w`` the conv columns of one column
+    strip (0 = the full width), both rounded to the halo rule's multiple
+    as the reference rounds them; the launcher narrows the strips further
+    where a block would not fit in shared memory. The plain version
+    computes the whole frame at once and reads neither.
 
     ``int8_scales`` (an ``epilogue.Int8Scales``) switches to true integer
     arithmetic: ``w`` must be int8 weight codes, the input is quantized
@@ -158,7 +162,7 @@ def stream_conv_block(
     return stream_conv_fused_cuda(
         x.contiguous(), w.contiguous(), b.contiguous(), stride=stride,
         act=act, pool=pool, pool_stride=pool_stride, act_bits=act_bits,
-        int8_scales=int8_scales, block_r=block_r,
+        int8_scales=int8_scales, block_r=block_r, block_w=block_w,
     )
 
 

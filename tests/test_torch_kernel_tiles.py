@@ -1,9 +1,10 @@
-"""The host-side sizing of the seed conv and pow2_matmul kernels, on the
-CPU: ``legacy.seed_tile`` (strips, register tile, ring) and
-``pow2.p2_plan`` (the K split over a thread-block cluster), at every shape
-that ``chip_smoke.py`` and the card tests launch. The kernels themselves
-are tested on the card (``test_torch_kernels_card.py``); what is checked
-here is plain Python arithmetic, so it holds exactly."""
+"""The host-side sizing of the seed conv, pow2_matmul and selective-scan
+kernels, on the CPU: ``legacy.seed_tile`` (strips, register tile, ring,
+column strips), ``pow2.p2_plan`` (the K split over a thread-block
+cluster) and ``scan.scan_plan`` (lanes per channel, chunk, channels per
+CTA), at every shape that ``chip_smoke.py`` and the card tests launch. The
+kernels themselves are tested on the card (``test_torch_kernels_card.py``);
+what is checked here is plain Python arithmetic, so it holds exactly."""
 import importlib.util
 from pathlib import Path
 
@@ -12,6 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.pow2_matmul import pow2 as kpow2  # noqa: E402
+from repro_torch.kernels.ssm_scan import scan as kscan  # noqa: E402
+from repro_torch.kernels.stream_conv import halo as khalo  # noqa: E402
 from repro_torch.kernels.stream_conv import legacy as klegacy  # noqa: E402
 from repro_torch.kernels.stream_conv.conv import SMEM_LIMIT  # noqa: E402
 
@@ -108,10 +111,28 @@ def test_seed_tile_at_the_kernel_bench_shapes():
     assert big["cs"] == 3 and big["smem"] == 12_192
 
 
-@pytest.mark.parametrize("b,h,w,c,n,k", [(1, 11, 11, 121, 4, 11), (1, 4, 4000, 4, 4, 3)])
+@pytest.mark.parametrize("b,h,w,c,n,k", [(1, 11, 11, 121, 4, 11), (1, 12, 40, 700, 4, 9)])
 def test_seed_tile_refuses_what_no_block_holds(b, h, w, c, n, k):
+    """One channel group of weights alone above a block: no column strip
+    helps."""
     with pytest.raises(ValueError, match="shared memory"):
         _tile((b, h, w, c, n, k))
+
+
+@pytest.mark.parametrize("b,h,w,c,n,k", _CARD.SEED_STRIP_CASES)
+def test_seed_tile_cuts_a_wide_ring_into_column_strips(b, h, w, c, n, k):
+    """A ring of K + 1 rows of the whole frame above a block: the frame
+    runs as column strips, each strip's ring (its columns and the K - 1 of
+    halo) within the block, the strips covering every output column once."""
+    t = _tile((b, h, w, c, n, k))
+    strips = t["strips"]
+    assert len(strips) > 1 and t["smem"] <= SMEM_LIMIT
+    assert strips == khalo.column_strips(w, k, 1, 0, 0, strips[0][3])
+    assert [o for _, _, lo, hi in strips for o in range(lo, hi)] == list(range(w - k + 1))
+    for in_lo, in_hi, lo, hi in strips:
+        assert in_hi - in_lo == hi - lo + k - 1
+        assert t["cg"] * t["tw"] >= hi - lo and t["rs"] >= (in_hi - in_lo) * t["cs"]
+    assert t["ctas"] == b * t["n_strips"] * t["n_split"] * len(strips)
 
 
 @pytest.mark.parametrize("c,cg,tasks,threads", [(3, 8, 32, 32), (32, 18, 36, 64), (4, 32, 256, 256),
@@ -169,3 +190,81 @@ def test_pow2_card_cases_reach_every_split():
     splits = {kpow2.p2_plan(*case, H100_SMS)["split"] for case in _CARD.POW2_CARD_CASES}
     assert splits == {1, 2, 4, 8}
     assert all(n % 2 for _, _, n in _CARD.POW2_CARD_CASES)
+
+
+SSM_CASES = sorted({case[1:5] for case in _SMOKE.SSM_CASES}
+                   | {case[:4] for case in _CARD.SSM_CASES}
+                   | {(1, 512, 8192, 16), (4, 1, 8192, 16)})
+
+
+def _scan(bz, s, d, n, **kw):
+    return kscan.scan_plan(bz, s, d, n, n_sms=H100_SMS, **kw)
+
+
+def test_scan_plan_fills_the_card_at_the_falcon_mamba_shapes():
+    """Bz 4, D 8192, N 16: two lanes a channel give 2,048 warps, 15.5 an
+    SM, at least FILL_WARPS_PER_SM (one thread a channel gave 8), in 512
+    CTAs that all fit on the card at once (threads, CTAs and shared memory
+    within an SM). One sequence (Bz 1) takes eight lanes for the same
+    warps; decode (S = 1) the same lanes as prefill."""
+    p = _scan(4, 512, 8192, 16)
+    assert (p["lanes"], p["npl"], p["dc"], p["threads"]) == (2, 8, 64, 128)
+    assert p["warps"] == 2048 >= kscan.FILL_WARPS_PER_SM * H100_SMS
+    assert p["ctas"] == 512 and p["per_sm"] == -(-p["ctas"] // H100_SMS) == 4
+    assert p["per_sm"] * p["threads"] <= kscan.SM_THREADS
+    assert p["per_sm"] * (p["smem"] + kscan.CTA_RESERVED_SMEM) <= kscan.SM_SMEM
+    assert p["chunk"] == 32
+    one = _scan(1, 512, 8192, 16)
+    assert (one["lanes"], one["warps"]) == (8, 2048)
+    assert _scan(4, 1, 8192, 16)["lanes"] == 2
+    # One lane a channel would leave the SMs short of warps.
+    assert 4 * 8192 // 32 < kscan.FILL_WARPS_PER_SM * H100_SMS
+
+
+@pytest.mark.parametrize("n", [4, 16, 32, 64, 512])
+def test_scan_plan_splits_n_over_lanes_that_divide_it(n):
+    p = _scan(4, 512, 8192, n)
+    assert n % p["lanes"] == 0 and p["lanes"] * p["npl"] == n
+    assert (p["lanes"], p["npl"]) in kscan.KERNEL_TILES and p["npl"] <= kscan.MAX_NPL
+    assert p["threads"] % 32 == 0 and p["threads"] <= 256 and p["dc"] % 8 == 0
+    assert p["chunk"] % p["lanes"] == 0 and p["smem"] <= kscan.BLOCK_SMEM
+    assert p["bcp"] % 4 == 0 and p["bcp"] >= n
+
+
+@pytest.mark.parametrize("bz,s,d,n", SSM_CASES + [(2, 5, 13, 7), (3, 2, 9, 3), (1, 4, 8, 1)])
+def test_scan_plan_covers_every_channel_and_state(bz, s, d, n):
+    """A ragged D: the last CTA's channels past D are masked, none is
+    left out; N need not be a power of two (zero-padded lanes)."""
+    p = _scan(bz, s, d, n, elem_bytes=2)
+    assert p["ctas"] == bz * -(-d // p["dc"]) and (p["ctas"] // bz) * p["dc"] >= d
+    assert p["lanes"] * p["npl"] >= n > p["lanes"] * p["npl"] // 2 or p["npl"] == 1
+    assert p["lanes"] <= n
+    assert p["chunk"] % p["lanes"] == 0 and p["chunk"] <= max(p["lanes"], kscan.MAX_CHUNK)
+    assert p["smem"] == kscan.smem_bytes(p["chunk"], p["dc"], p["bcp"], 2, p["lanes"])
+    assert p["smem"] <= kscan.BLOCK_SMEM
+
+
+@pytest.mark.parametrize("bz,s,d,n,tile", _CARD.SCAN_TILE_CASES)
+def test_scan_plan_picks_each_compiled_tile_at_the_card_tests_shapes(bz, s, d, n, tile):
+    p = _scan(bz, s, d, n)
+    assert (p["lanes"], p["npl"]) == tile
+    assert p["threads"] == max(kscan.THREADS, 8 * p["lanes"])
+
+
+def test_the_card_tests_run_every_compiled_scan_tile():
+    assert {case[-1] for case in _CARD.SCAN_TILE_CASES} == kscan.KERNEL_TILES
+
+
+def test_scan_plan_takes_a_compiled_tile_for_every_n():
+    """Every N up to MAX_N, at a grid that fills the card and one that
+    does not, has a compiled kernel: the plan never asks for a missing one."""
+    for n in range(1, kscan.MAX_N + 1):
+        for bz, d in ((4, 8192), (1, 64)):
+            p = _scan(bz, 8, d, n)
+            assert (p["lanes"], p["npl"]) in kscan.KERNEL_TILES
+            assert p["lanes"] * p["npl"] >= n
+
+
+def test_scan_plan_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="at most 512 states"):
+        _scan(1, 4, 8, 513)

@@ -55,6 +55,7 @@ from repro_torch.kernels.pow2_matmul import (  # noqa: E402
 )
 from repro_torch.kernels.stream_conv.epilogue import Int8Scales, stream_quant_spec  # noqa: E402
 from repro_torch.kernels.stream_conv.halo import as_pyramid_layers, group_geometry  # noqa: E402
+from repro_torch.models import cnn as tcnn  # noqa: E402
 from repro_torch.models.cnn import ALL_TOPOLOGIES, ConvLayerSpec, cnn_apply_reference, init_cnn  # noqa: E402
 
 pytestmark = pytest.mark.card
@@ -76,6 +77,9 @@ SEED_CARD_CASES = (
     (16, 36, 36, 3, 32, 5), (1, 8, 132, 3, 32, 5), (2, 10, 20, 32, 8, 3),
     (256, 36, 36, 1, 32, 5), (16, 36, 36, 4, 32, 5), (8, 36, 36, 5, 32, 5),
 )
+# (B, H, W, C, N, K) of the seed conv on frames whose ring of K + 1 whole
+# rows exceeds a block: column strips.
+SEED_STRIP_CASES = ((1, 4, 4000, 4, 4, 3), (2, 9, 3000, 16, 8, 5))
 # (M, K, N) of pow2_matmul at the edges of its K split: K = 1, K = BK - 1,
 # K = 8 BK + 3, and the K that pick each cluster size (1, 2, 4, 8), all at
 # an odd N; then several tiles in both directions.
@@ -265,11 +269,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         kconv.stream_conv_pyramid_cuda(torch.zeros((1, 96, 96, 3), device=card), ws,
                                        [torch.zeros(64, device=card)] * 3, geom=geom,
                                        act_bits=(None,) * 3)
-    # The seed kernel: one channel group of 11 x 11 x 121 weights, and a
-    # ring of four 4,000-column rows, each above a Hopper block.
+    # The seed kernel: one channel group of 11 x 11 x 121 weights above a
+    # Hopper block, which no column strip makes smaller.
     from repro_torch.kernels.stream_conv import legacy as klegacy
 
-    for (b_, h_, w_, c_, n_, k_) in ((1, 11, 11, 121, 4, 11), (1, 4, 4000, 4, 4, 3)):
+    for (b_, h_, w_, c_, n_, k_) in ((1, 11, 11, 121, 4, 11),):
         with pytest.raises(ValueError, match="shared memory"):
             klegacy.stream_conv2d_seed_cuda(torch.zeros((b_, h_, w_, c_), device=card),
                                             torch.zeros((k_ * k_, c_, n_), device=card), k=k_)
@@ -489,14 +493,23 @@ def test_int8_and_pow2_plans_on_the_card(card):
 # The selective scan, the seed conv and the Mamba LM.
 
 # (Bz, S, D, N, x/B/C dtype, with h0): the falcon-mamba layer at prefill
-# (bf16 and f32, zero and carried state), decode (S = 1, carried state),
-# a D that block_d=256 does not divide, and a narrow N.
+# (bf16 and f32, zero and carried state), decode (S = 1, with and without
+# state), one sequence (Bz 1), a D no CTA's channels divide (8200, 200),
+# N of 3, 4, 32 and 64 (the kernel took at most 16 before), and S of 7
+# (a step group cut short).
 SSM_CASES = [
     (4, 512, 8192, 16, torch.bfloat16, False),
     (4, 512, 8192, 16, torch.float32, True),
     (4, 1, 8192, 16, torch.bfloat16, True),
+    (4, 1, 8192, 16, torch.float32, False),
+    (1, 512, 8192, 16, torch.bfloat16, True),
+    (2, 7, 8200, 16, torch.bfloat16, True),
     (2, 37, 200, 16, torch.float32, True),
     (3, 20, 64, 3, torch.bfloat16, False),
+    (2, 7, 512, 4, torch.float32, True),
+    (2, 512, 520, 32, torch.bfloat16, False),
+    (1, 7, 8200, 64, torch.float32, True),
+    (2, 1, 1024, 64, torch.bfloat16, False),
 ]
 
 
@@ -538,7 +551,7 @@ def test_ssm_scan_reads_strided_views_of_one_projection(card):
     proj = torch.cat([torch.zeros_like(b[..., :5]), b, c], dim=-1)
     b_v, c_v = proj[..., 5:21], proj[..., 21:]
     assert not b_v.is_contiguous()
-    y, h_last = kscan.ssm_scan_cuda(x, dt, b_v, c_v, a, d_skip, h0, block_d=128)
+    y, h_last = kscan.ssm_scan_cuda(x, dt, b_v, c_v, a, d_skip, h0)
     y_ref, h_ref = ssm_scan_ref(x, dt, b, c, a, d_skip, h0)
     torch.cuda.synchronize()
     torch.testing.assert_close(y, y_ref, **FP32)
@@ -562,6 +575,182 @@ def test_seed_conv_matches_its_plain_version(card, b, h, w, c, n, k):
     out = stream_conv2d_seed(x, wt.reshape(k * k, c, n), k=k)
     assert klegacy.LAUNCHES["stream_conv2d_seed"] == before + 1
     _assert_matches(out, stream_conv2d_ref(x, wt), None, f"seed {(b, h, w, c, n, k)}")
+
+
+# A shape at which scan.scan_plan picks each compiled (lanes, states a lane)
+# tile on an H100 (132 SMs): (Bz, S, D, N, tile). N picks the states a lane;
+# Bz * D the lanes at N 4 and 16 (fewer lanes where the grid fills the card).
+SCAN_TILE_CASES = [
+    (2, 5, 40, 1, (1, 1)), (2, 9, 100, 2, (2, 1)), (4, 3, 8192, 4, (2, 2)),
+    (2, 7, 328, 4, (4, 1)), (2, 9, 328, 8, (4, 2)), (4, 9, 8192, 16, (2, 8)),
+    (2, 9, 8192, 16, (4, 4)), (1, 9, 8192, 16, (8, 2)), (2, 45, 328, 16, (16, 1)),
+    (2, 9, 328, 32, (4, 8)), (2, 9, 328, 64, (4, 16)), (2, 9, 328, 128, (4, 32)),
+    (2, 9, 328, 256, (8, 32)), (1, 9, 200, 512, (16, 32)),
+]
+
+
+@pytest.mark.parametrize("bz,s,d,n,tile", SCAN_TILE_CASES)
+def test_ssm_scan_at_every_tile_the_plan_picks(card, bz, s, d, n, tile):
+    """Each compiled kernel, at a shape the plan gives it, at the fp32
+    tolerance: the lanes' order of the y sum changes nothing it can see."""
+    from repro_torch.kernels.backends import sm_count
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.kernels.ssm_scan import ssm_scan_ref
+
+    p = kscan.scan_plan(bz, s, d, n, n_sms=sm_count(card))
+    if sm_count(card) == 132:
+        assert (p["lanes"], p["npl"]) == tile
+    x, dt, b, c, a, d_skip, h0 = _ssm_inputs(card, bz, s, d, n, torch.bfloat16, seed=2)
+    y, h_last = kscan.ssm_scan_cuda(x, dt, b, c, a, d_skip, h0)
+    y_ref, h_ref = ssm_scan_ref(x, dt, b, c, a, d_skip, h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, **FP32)
+    torch.testing.assert_close(h_last, h_ref, **FP32)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_ssm_scan_reads_states_at_any_offset(card, offset):
+    """A and h0 as contiguous views ``offset`` floats into their storage
+    (not 16-byte aligned): the kernel reads them a float at a time."""
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.kernels.ssm_scan import ssm_scan_ref
+
+    x, dt, b, c, a, d_skip, h0 = _ssm_inputs(card, 2, 33, 512, 16, torch.bfloat16, seed=3)
+
+    def shifted(t):
+        v = torch.empty(t.numel() + offset, device=card)[offset:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        return v
+
+    for a_, h0_ in ((shifted(a), h0), (a, shifted(h0)), (shifted(a), shifted(h0))):
+        y, h_last = kscan.ssm_scan_cuda(x, dt, b, c, a_, d_skip, h0_)
+        y_ref, h_ref = ssm_scan_ref(x, dt, b, c, a, d_skip, h0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, y_ref, **FP32)
+        torch.testing.assert_close(h_last, h_ref, **FP32)
+
+
+@pytest.mark.parametrize("b,h,w,c,n,k", SEED_STRIP_CASES)
+def test_seed_conv_over_column_strips(card, b, h, w, c, n, k):
+    from repro_torch.kernels.backends import sm_count
+    from repro_torch.kernels.stream_conv import legacy as klegacy
+    from repro_torch.kernels.stream_conv import stream_conv2d_ref, stream_conv2d_seed
+
+    x = _frames(card, 9, b, h, w, c)
+    wt = _frames(card, 10, k, k, c, n) * 0.2
+    t = klegacy.seed_tile(b, h, w, c, n, k, n_sms=sm_count(card), resident=klegacy._resident)
+    assert len(t["strips"]) > 1
+    before = klegacy.LAUNCHES["stream_conv2d_seed"]
+    out = stream_conv2d_seed(x, wt.reshape(k * k, c, n), k=k)
+    assert klegacy.LAUNCHES["stream_conv2d_seed"] == before + len(t["strips"])
+    _assert_matches(out, stream_conv2d_ref(x, wt), None, f"seed strips {(b, h, w, c, n, k)}")
+
+
+# ---------------------------------------------------------------------------
+# Plans the card refused before: five fused layers, any pool window, frames
+# wider than one block, weight stages wider than one block.
+
+
+@pytest.mark.parametrize("what,frame,n,block_w,int8", [
+    ("column strips", (2, 8, 20004, 3), 8, 0, False), ("column strips", (2, 8, 20004, 3), 8, 0, True),
+    ("block_w", (2, 20, 90, 5), 12, 24, False), ("block_w", (2, 20, 90, 5), 12, 24, True),
+    ("channel slices", (2, 12, 12, 8), 1024, 0, False),
+])
+def test_single_layer_kernel_over_strips_and_slices(card, what, frame, n, block_w, int8):
+    b_, h, w, c = frame
+    x = _frames(card, 11, *frame)
+    wt = _frames(card, 12, 3, 3, c, n) * (2.0 / (9 * c)) ** 0.5
+    b = _frames(card, 13, 1, 1, 1, n).reshape(n) * 0.1
+    kw = dict(padding="VALID", act="relu", pool=2)
+    if int8:
+        wt, sc = _bake_int8(wt, 8)
+        kw.update(act_bits=8, int8_scales=Int8Scales(in_bits=8, w_scale=sc))
+    g = kconv.fused_plan(h, w, c, k=3, stride=1, pool=2, pool_stride=None, block_r=8,
+                         block_w=block_w, n_out=n, elem_bytes=1 if int8 else 4)
+    launches = len(g["strips"]) * len(g["slices"])
+    assert launches > 1
+    name = "stream_conv_fused_int8" if int8 else "stream_conv_fused"
+    before = kconv.LAUNCHES[name]
+    out = stream_conv_block(x, wt, b, block_w=block_w, **kw)
+    assert kconv.LAUNCHES[name] == before + launches
+    ref = stream_conv_block_ref(x, wt, b, **kw)
+    if int8:
+        _assert_int8_matches(out, ref, 8, "relu", what)
+    else:
+        _assert_matches(out, ref, None, what)
+
+
+@pytest.mark.parametrize("pool,pool_stride", [(1, 2), (4, None), (5, 3), (4, 2)])
+@pytest.mark.parametrize("act_bits,int8", [(None, False), (6, False), (8, True)])
+def test_every_pool_window_on_the_card(card, pool, pool_stride, act_bits, int8):
+    """Windows 2 and 3 are compiled; every other one runs the run-time
+    window path, in the single layer and in the pyramid."""
+    x = _frames(card, 14, 3, 23, 26, 4)
+    layers = [ConvLayerSpec(n_out=12, kernel=3, padding="SAME", act="relu", pool=pool,
+                            pool_stride=pool_stride),
+              ConvLayerSpec(n_out=8, kernel=3, padding="SAME", act="relu", pool=0)]
+    ws = [_frames(card, 15, 3, 3, 4, 12) * 0.3, _frames(card, 16, 3, 3, 12, 8) * 0.2]
+    bs = [_frames(card, 17, 1, 1, 1, 12).reshape(12) * 0.1,
+          _frames(card, 18, 1, 1, 1, 8).reshape(8) * 0.1]
+    scales = None
+    if int8:
+        baked = [_bake_int8(wt, 8) for wt in ws]
+        ws = [wq for wq, _ in baked]
+        scales = tuple(Int8Scales(in_bits=8, w_scale=sc) for _, sc in baked)
+    spec = layers[0]
+    kw = dict(padding=spec.padding, act=spec.act, pool=pool, pool_stride=pool_stride,
+              act_bits=act_bits, int8_scales=None if scales is None else scales[0])
+    out = stream_conv_block(x, ws[0], bs[0], **kw)
+    ref = stream_conv_block_ref(x, ws[0], bs[0], **kw)
+    check = (lambda o, r, w: _assert_int8_matches(o, r, act_bits, "relu", w)) if int8 else (
+        lambda o, r, w: _assert_matches(o, r, act_bits, w))
+    check(out, ref, f"single layer pool {pool}/{pool_stride}")
+    out = stream_conv_pyramid(x, ws, bs, layers=layers, act_bits=act_bits, int8_scales=scales,
+                              block_rows=2)
+    ref = stream_conv_pyramid_ref(x, ws, bs, layers=as_pyramid_layers(layers), act_bits=act_bits,
+                                  int8_scales=scales)
+    check(out, ref, f"pyramid pool {pool}/{pool_stride}")
+
+
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["five", "pool4", "wide"])
+@pytest.mark.parametrize("quant", ["fp32", "int8"])
+def test_card_serves_the_plans_the_reference_serves(card, name, quant):
+    """compile_dhm on the card against the same plan on the CPU (the plain
+    versions, the reference's groups): features at the fp32 tolerance or,
+    in int8, equal; logits at the plans' tolerance."""
+    from repro_torch.core.dhm.compiler import card_fusion_groups
+
+    topo = _smoke().regroup_topologies(tcnn)[name]
+    params = init_cnn(torch.Generator().manual_seed(6), topo, device="cpu")
+    q = QuantSpec(weight_bits=8, act_bits=8, int8_compute=True) if quant == "int8" else QuantSpec()
+    cpu_plan = compile_dhm(topo, params, quant=q, device="cpu")
+    plan = compile_dhm(topo, _to(params, card), quant=q)
+    idxs = tuple(range(len(topo.conv_layers)))
+    assert plan.fusion_groups == card_fusion_groups(
+        topo, idxs, cpu_plan.fusion_groups, elem_bytes=1 if quant == "int8" else 4)
+    assert all(len(g.layers) <= kconv.MAX_PYRAMID_LAYERS for g in plan.fusion_groups)
+    h, w = topo.input_shape
+    x = _frames(card, 19, 3, h, w, topo.input_channels)
+    feats, want = plan.features(x), cpu_plan.features(x.cpu())
+    if quant == "int8":
+        # Equal, but where tanh follows (tanhf against torch.tanh).
+        tanh = any(spec.act == "tanh" for spec in topo.conv_layers)
+        _assert_int8_matches(feats.cpu(), want, 8, "tanh" if tanh else "relu", name)
+    else:
+        _assert_matches(feats.cpu(), want, None, name)
+    torch.testing.assert_close(plan(x).cpu(), cpu_plan(x.cpu()), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
