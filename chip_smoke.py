@@ -49,11 +49,13 @@ Phases (each asserts or exits non-zero):
   5d. the seed conv's own path, what the kernel bench runs on it: the
      seed kernel beside the single-layer kernel on cifar10 conv1;
   6. time each kernel, its plain version and the library call with CUDA
-     events at main-path shapes, beside the card's bound; the fp32 conv
-     kernels, pow2_matmul, the seed conv and their library calls also by
-     their device time on the profiler's clock, with the conv kernels'
-     CTAs per SM and the pow2 and seed wrappers' host time per launch
-     (enqueue, no synchronise); then the plans,
+     events at main-path shapes, beside the card's bound; the fp32 and
+     int8 conv kernels, pow2_matmul, the seed conv and their library calls
+     also by their device time on the profiler's clock, with the conv
+     kernels' CTAs per SM and the pow2 and seed wrappers' host time per
+     launch (enqueue, no synchronise); the int8 convs also beside
+     torch._int_mm of each layer's unfolded codes (the int8 products
+     alone, device time); then the plans,
      and one serving micro-batch piece by piece; the selective scan by
      its device time at the prefill, decode and one-sequence shapes, with
      the lanes its plan takes; then the LM's prefill and
@@ -923,8 +925,12 @@ def main() -> None:
 
     # The int8 kernels, timed at their own wrappers on the codes the plan
     # hands them (frame quantized and, for the single layer, padded): the
-    # host-side quantize is not the kernel's. The library yardstick is the
-    # fp32 cuDNN chain on the same shapes: PyTorch has no int8 conv on CUDA.
+    # host-side quantize is not the kernel's. Two yardsticks, neither of
+    # which the port calls: the fp32 cuDNN chain on the same shapes (a
+    # different function: PyTorch has no int8 conv on CUDA) and the int8
+    # products alone, torch._int_mm of each layer's unfolded codes (K
+    # padded to a multiple of 8 with zero codes) by the layer's weight
+    # codes, summed over the layers by device time (the unfold untimed).
     ws8 = [p["w"] for p in plan_a.conv_params]
     bs8 = [p["b"] for p in plan_a.conv_params]
     sc8 = plan_a.int8_scales
@@ -933,52 +939,107 @@ def main() -> None:
                         tuple(s.n_out for s in specs),
                         block_rows=plan_a.fusion_groups[0].block_rows)
     x8 = quantize_stream(xq, INT8_BITS)
-    ms = time_ms(lambda: kconv.stream_conv_pyramid_cuda(x8, ws8, bs8, geom=g8, act_bits=bits8,
-                                                        int8_scales=sc8))
+    layers_in8 = [xq]
+    for spec, p, sc in zip(specs, plan_a.conv_params, sc8):
+        layers_in8.append(stream_conv_block_ref(
+            layers_in8[-1], p["w"], p["b"], padding=spec.padding, act=spec.act, pool=spec.pool,
+            act_bits=INT8_BITS, int8_scales=sc))
+    codes_in8 = [_pad_same(quantize_stream(layers_in8[i], sc8[i].in_bits), spec.kernel).contiguous()
+                 for i, spec in enumerate(specs)]
+
+    def int_mm_operands(i):
+        """Layer i's unfolded codes (B * positions, K) and weight codes
+        (K, N), K padded to a multiple of 8: the conv as one int8 GEMM."""
+        kk = specs[i].kernel
+        cols = F.unfold(codes_in8[i].permute(0, 3, 1, 2).float(), kk)  # (B, C*k*k, L)
+        a = cols.permute(0, 2, 1).reshape(-1, cols.shape[1]).round().to(torch.int8)
+        wmat = ws8[i].permute(2, 0, 1, 3).reshape(-1, ws8[i].shape[3])  # (C*k*k, N)
+        k_pad = -(-a.shape[1] // 8) * 8
+        a = F.pad(a, (0, k_pad - a.shape[1])).contiguous()
+        wmat = F.pad(wmat, (0, 0, 0, k_pad - wmat.shape[0])).contiguous()
+        return a, wmat
+
+    mm_ops = [int_mm_operands(i) for i in range(len(specs))]
+    check(all(torch.equal(torch._int_mm(a, b_).double(), a.double() @ b_.double())
+              for a, b_ in mm_ops[1:]), "torch._int_mm yardstick disagrees with the int8 products")
+    int_mm_dev = sum(device_ms(lambda a=a, b_=b_: torch._int_mm(a, b_)) for a, b_ in mm_ops)
+    print(f"[6] torch._int_mm of cifar10's unfolded codes B={BATCH}, 3 layers (K "
+          f"{', '.join(str(a.shape[1]) for a, _ in mm_ops)}): {int_mm_dev:.5f} ms device")
+
+    lay8 = kconv.int8_pyramid_layout(g8)
+    pyr8_ctas = kconv.ctas_per_sm("stream_conv_pyramid_int8", lay8.smem)
+
+    def run_pyr8():
+        return kconv.stream_conv_pyramid_cuda(x8, ws8, bs8, geom=g8, act_bits=bits8,
+                                              int8_scales=sc8)
+
+    ms = time_ms(run_pyr8)
     plain = time_ms(lambda: stream_conv_pyramid_ref(xq, ws8, bs8, layers=pyr_layers,
                                                     act_bits=bits8, int8_scales=sc8))
     lib = time_ms(lambda: library_chain((0, 1, 2), x_nchw))
+    dev_k = device_ms(run_pyr8, kernel="sc_pyramid_i8_kernel")
+    dev_lib = device_ms(lambda: library_chain((0, 1, 2), x_nchw))
     b_ms, b_by = bound(*cost((0, 1, 2), code_bytes=1), peak=PEAK_INT8_OPS)
-    print(f"[6] int8 pyramid cifar10 B={BATCH}: {ms:.4f} ms, plain {plain:.4f} ms, library "
-          f"(fp32 cuDNN chain) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"[6] int8 pyramid cifar10 B={BATCH}: {ms:.4f} ms (CUDA events), {dev_k:.5f} ms device, "
+          f"plain {plain:.4f} ms, library (fp32 cuDNN chain) {lib:.4f} ms ({dev_lib:.4f} ms "
+          f"device), torch._int_mm {int_mm_dev:.5f} ms device, bound {b_ms:.4f} ms ({b_by}); "
+          f"{dev_k / b_ms:.1f}x the bound; {lay8.smem} B of shared memory, {pyr8_ctas} CTAs per SM, "
+          f"n8 tiles a task {[li.nt for li in lay8.layers]}")
     kernels.append(dict(
         name="stream_conv_pyramid_int8", route="cuda", source="src/repro_torch/csrc/stream_conv.cu",
         replaces="src/repro/kernels/stream_conv/conv.py:440",
         launches=int8_launches["stream_conv_pyramid_int8"],
         max_abs_err=errs["stream_conv_pyramid_int8"],
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        device_ms=dev_k, library_device_ms=dev_lib, int_mm_device_ms=int_mm_dev,
+        ctas_per_sm=pyr8_ctas,
     ))
-    layers_in8 = [xq]
-    for spec, p, sc in zip(specs, plan_a.conv_params, sc8):
-        layers_in8.append(stream_conv_block_ref(
-            layers_in8[-1], p["w"], p["b"], padding=spec.padding, act=spec.act, pool=spec.pool,
-            act_bits=INT8_BITS, int8_scales=sc))
-    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "flops": 0, "bytes": 0}
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "dev": 0.0, "dev_lib": 0.0, "flops": 0,
+           "bytes": 0}
+    fused8_ctas = []
     for i, spec in enumerate(specs):
-        xi, p, sc = layers_in8[i], plan_a.conv_params[i], sc8[i]
-        codes_i = _pad_same(quantize_stream(xi, sc.in_bits), spec.kernel).contiguous()
+        xi, p, sc, codes_i = layers_in8[i], plan_a.conv_params[i], sc8[i], codes_in8[i]
         kw = dict(padding=spec.padding, act=spec.act, pool=spec.pool, act_bits=INT8_BITS,
                   int8_scales=sc)
-        t_k = time_ms(lambda: kconv.stream_conv_fused_cuda(
-            codes_i, p["w"], p["b"], act=spec.act, pool=spec.pool, act_bits=INT8_BITS,
-            int8_scales=sc))
+        g_i = kconv.fused_geometry(*codes_i.shape[1:], k=spec.kernel, stride=1, pool=spec.pool,
+                                   pool_stride=spec.pool_stride, block_r=8, n_out=spec.n_out,
+                                   elem_bytes=1)
+        fused8_ctas.append(kconv.ctas_per_sm("stream_conv_fused_int8", g_i["smem"],
+                                             g_i["threads"]))
+
+        def run_k():
+            return kconv.stream_conv_fused_cuda(codes_i, p["w"], p["b"], act=spec.act,
+                                                pool=spec.pool, act_bits=INT8_BITS,
+                                                int8_scales=sc)
+
+        t_k = time_ms(run_k)
         t_p = time_ms(lambda: stream_conv_block_ref(xi, p["w"], p["b"], **kw))
         t_l = time_ms(lambda: library_chain((i,), layers_in_nchw[i]))
+        d_k = device_ms(run_k, kernel="sc_fused_i8_kernel")
+        d_l = device_ms(lambda: library_chain((i,), layers_in_nchw[i]))
         f_i, b_i = cost((i,), code_bytes=1)
         lb_ms, lb_by = bound(f_i, b_i, peak=PEAK_INT8_OPS)
-        print(f"[6] int8 single-layer cifar10 layer {i} B={BATCH}: {t_k:.4f} ms, plain "
-              f"{t_p:.4f} ms, library (fp32 cuDNN) {t_l:.4f} ms, bound {lb_ms:.4f} ms ({lb_by})")
-        for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l), ("flops", f_i), ("bytes", b_i)):
+        print(f"[6] int8 single-layer cifar10 layer {i} B={BATCH}: {t_k:.4f} ms (CUDA events), "
+              f"{d_k:.5f} ms device, plain {t_p:.4f} ms, library (fp32 cuDNN) {t_l:.4f} ms "
+              f"({d_l:.4f} ms device), bound {lb_ms:.4f} ms ({lb_by}); {g_i['smem']} B of shared "
+              f"memory, {g_i['threads']} threads x {fused8_ctas[-1]} CTAs per SM, n8 tiles a "
+              f"task {g_i['tn']}, {g_i['n_rb']} row blocks x {BATCH} images")
+        for key, val in (("ms", t_k), ("plain", t_p), ("lib", t_l), ("dev", d_k),
+                         ("dev_lib", d_l), ("flops", f_i), ("bytes", b_i)):
             tot[key] += val
     b_ms, b_by = bound(tot["flops"], tot["bytes"], peak=PEAK_INT8_OPS)
-    print(f"[6] int8 single-layer cifar10 stack (3 launches): {tot['ms']:.4f} ms, plain "
-          f"{tot['plain']:.4f} ms, library {tot['lib']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"[6] int8 single-layer cifar10 stack (3 launches): {tot['ms']:.4f} ms (CUDA events), "
+          f"{tot['dev']:.5f} ms device, plain {tot['plain']:.4f} ms, library {tot['lib']:.4f} ms "
+          f"({tot['dev_lib']:.4f} ms device), torch._int_mm {int_mm_dev:.5f} ms device, bound "
+          f"{b_ms:.4f} ms ({b_by}); {tot['dev'] / b_ms:.1f}x the bound")
     kernels.append(dict(
         name="stream_conv_fused_int8", route="cuda", source="src/repro_torch/csrc/stream_conv.cu",
         replaces="src/repro/kernels/stream_conv/conv.py:168",
         launches=int8_launches["stream_conv_fused_int8"],
         max_abs_err=errs["stream_conv_fused_int8"],
         ms=tot["ms"], plain_ms=tot["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=tot["lib"],
+        device_ms=tot["dev"], library_device_ms=tot["dev_lib"], int_mm_device_ms=int_mm_dev,
+        ctas_per_sm=min(fused8_ctas),
     ))
 
     # pow2_matmul at all four head shapes; the record sums the cifar10
@@ -1043,6 +1104,13 @@ def main() -> None:
                for name_, p_ in (("(a) fused", plan_a), ("(a) vmem_budget=0", plan_a0),
                                  ("(b)", plan_b), ("(c)", plan_c))}
     print(f"[6] cifar10 plan(x) B={BATCH}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in plan_ms.items()))
+    # The same plans by the device time of all their kernels per call: at
+    # B=256 the wrappers' host work can set the pace of the calls above.
+    plan_dev = {name_: device_ms(fn_) for name_, fn_ in (
+        ("fp32 fused", lambda: plan(x)), ("fp32 vmem_budget=0", lambda: plan0(x)),
+        ("(a) fused", lambda: plan_a(xq)), ("(a) vmem_budget=0", lambda: plan_a0(xq)))}
+    print(f"[6] cifar10 plan(x) B={BATCH}, device time of its kernels: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in plan_dev.items()))
     # One serving micro-batch, piece by piece: the host-to-card copy of a
     # packed batch, the conv features (one pyramid launch), the FC head,
     # and the logits' copy back; beside the Engine's host-clock time per

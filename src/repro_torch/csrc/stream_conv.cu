@@ -100,19 +100,49 @@
 //             products against the dense int8 tensor-core peak of 1,979
 //             TOP/s (3.2 us), while its bytes (0.8 MB of int8 frame, 79 KB
 //             of int8 weights, 1.0 MB of fp32 output) take 0.6 us at
-//             3.35 TB/s. These kernels run on CUDA cores, whose int32 rate
-//             is far below that peak.
-//   Design:   one CTA per (row block, image) over 1-byte slabs of the whole
-//             halo'd rows, one thread per pooled output. Where the channel
-//             count is a multiple of four (every layer but a 3-channel
-//             frame) the inner loop reads four channels of the slab as one
-//             32-bit word and packs the four weight bytes of one output
-//             channel, then issues one __dp4a per conv position of the pool
-//             window; otherwise it multiplies byte by byte. Weights stay in
-//             global memory and L2 (79,200 B of int8 for cifar10), read
-//             coalesced across the warp's 32 output channels. Pool windows
-//             other than 1, 2 and 3 are read at run time (PW = 0), their
-//             positions summed one at a time.
+//             3.35 TB/s.
+//   Design:   both kernels run one core, sc_gemm_i8, an implicit GEMM on
+//             the s8 tensor cores (mma.sync m16n8k32, int32 accumulators),
+//             the same CTA per (row block, image) and slab walk as the fp32
+//             kernels (the pyramid computes only the rows the next layer
+//             reads). What it does about the bound:
+//   - A operand: the int8 slab in shared memory, never materialised as
+//     patches. Where the channels are a multiple of 16, ldmatrix.x4 reads
+//     each lane's row (its conv position's base plus the tap of a 16-byte
+//     K run); otherwise (3 and 1 channel frames, lenet5's 20) C is padded
+//     to 4 with zero-weight channels and each A register is one 32-bit word
+//     through the tap table. K is k*k*cpad, rounded up to 32 with zero
+//     weights.
+//   - Bank conflicts: a slab column is C bytes rounded up to 16, or 16
+//     more where that puts the eight rows of an ldmatrix phase on eight
+//     bank groups (48 bytes for C = 32); the columns of a stride-2 slab
+//     are stored in two phases (even, odd), so neighbouring conv
+//     positions sit one column apart; the row pad is the host's choice
+//     (conv.py int8_layer counts the wavefronts).
+//   - M order: a warp task is 16 pool windows x PW*PW tiles, tile p
+//     holding pool position p of the same 16 windows (at pool window 2
+//     rows 4-7 and 12-15 take the window's other column, which keeps the
+//     phases conflict-free), so a thread's accumulators hold every
+//     position of its windows and the max-pool is an integer max over
+//     registers; without a pool, 4 tiles of 16 consecutive positions.
+//     Pool windows other than 1, 2 and 3 run one tile per position,
+//     folded into a running max.
+//   - B operand: each layer's weights staged whole in shared memory,
+//     transposed at staging from HWIO to one row of K bytes per output
+//     channel (a thread reads four K rows of 16 channels with 16-byte loads
+//     and writes 16 words of four K, byte permutes in registers), N padded
+//     to whole n8 tiles with zero rows, 16-byte chunks swizzled within each
+//     128-byte group so that ldmatrix's rows and the staging's stores fall
+//     on distinct banks. With no barrier in the K loop, the warps take
+//     their tasks round-robin.
+//   - Epilogue in registers, in the reference orders: pyramid int max ->
+//     dequantize, bias -> act -> code; single layer dequantize, bias ->
+//     act per position -> max -> quantize (the division by the stream's
+//     power-of-two scale as an exact multiply, one output address per
+//     window). The int32 sums do not depend on order, so the outputs are
+//     bit for bit those of the plain versions.
+//   - Frames and weights are read 32 bits at a time only where the pointer
+//     and the row stride are 4-byte aligned, byte by byte otherwise.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -133,8 +163,14 @@ struct ScLayer {
   float deq;  // int8 kernels: int32 accumulator -> fp32 (a power of two)
   // fp32 kernels: slab column and row strides (words), output channels per
   // thread (4 or 8), staged weight row stride (N rounded up to tn), and
-  // whether the weights may be copied 16 bytes at a time.
+  // whether the weights may be copied 16 bytes at a time. int8 kernels
+  // (conv.py int8_layer): slab column and row strides in bytes, n8 tiles
+  // per warp task (tn) and staged weight rows (np), and below the slab's
+  // columns per stride phase, the channels gathered per column, K padded
+  // to the MMA's 32, the staged weight row in bytes and the pool-position
+  // swizzle.
   int cs, rs, tn, np, wvec;
+  int q, cpad, kpad, wrow, swz;
 };
 
 struct ScPyramid {
@@ -164,8 +200,10 @@ struct ScFused {
   float qscale, qmin, qmax;
   int h_keep, w_keep, r, r_o, in_rows_blk, n_rb;
   float deq;  // int8 kernel: int32 accumulator -> fp32 (a power of two)
-  int cs, rs, tn, np, wvec, tap_off, wst_off, wst_elems;  // fp32 kernel, as above
-  int threads;  // fp32 kernel: threads per CTA (a multiple of 32, at most 256)
+  int cs, rs, tn, np, wvec, tap_off, wst_off, wst_elems;  // as ScLayer; offsets:
+  // fp32 words, int8 bytes
+  int threads;  // threads per CTA (a multiple of 32, at most 256)
+  int q, cpad, kpad, wrow, swz;  // int8 kernel, as ScLayer
 };
 
 __device__ __forceinline__ float sc_act(float y, int act) {
@@ -494,6 +532,41 @@ __device__ __forceinline__ ScJob sc_job(const ScLayer& L, const float* in, int r
   return J;
 }
 
+// Rows of each layer's output that row block rb computes, [olo, ohi) in
+// out-slab coordinates, and the input rows they read, [ilo, ihi) in
+// in-slab coordinates, last layer first: a layer computes the rows of the
+// next layer's frame that the next layer reads (conv.py pyramid_rows is
+// the same walk on the host).
+__device__ __forceinline__ void sc_pyramid_rows(const ScPyramid& P, int rb,
+                                                int (&olo)[SC_MAX_LAYERS],
+                                                int (&ohi)[SC_MAX_LAYERS],
+                                                int (&ilo)[SC_MAX_LAYERS],
+                                                int (&ihi)[SC_MAX_LAYERS]) {
+#pragma unroll 1
+  for (int li = P.n_layers - 1; li >= 0; --li) {
+    const ScLayer& L = P.L[li];
+    int lo, hi;
+    if (li + 1 < P.n_layers) {
+      const int nx = li + 1;
+      const ScLayer& Nx = P.L[nx];
+      const int start = Nx.in_mult * rb + Nx.in_off;
+      lo = max(max(0, -start), ilo[nx]);
+      hi = min(min(L.out_slab_rows, Nx.in_rows - start), ihi[nx]);
+    } else {
+      lo = 0;
+      hi = min(P.block_rows, P.out_rows - rb * P.block_rows);
+    }
+    olo[li] = lo;
+    ohi[li] = hi;
+    if (hi > lo) {
+      ilo[li] = lo * L.ps * L.stride;
+      ihi[li] = ((hi - 1) * L.ps + L.pw - 1) * L.stride + L.k;
+    } else {
+      ilo[li] = ihi[li] = 0;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(SC_THREADS, 2)
     sc_pyramid_kernel(const ScPyramid P) {
   extern __shared__ __align__(16) float smem[];
@@ -504,37 +577,8 @@ __global__ void __launch_bounds__(SC_THREADS, 2)
   const int rb = blockIdx.x;
   const int bi = blockIdx.y;
 
-  // Rows of each layer's output that this block computes, [olo, ohi) in
-  // out-slab coordinates, and the input rows they read, [ilo, ihi) in
-  // in-slab coordinates, last layer first: a layer computes the rows of
-  // the next layer's frame that the next layer reads (conv.py
-  // pyramid_rows is the same walk on the host).
   int olo[SC_MAX_LAYERS], ohi[SC_MAX_LAYERS], ilo[SC_MAX_LAYERS], ihi[SC_MAX_LAYERS];
-#pragma unroll 1
-  for (int li = P.n_layers - 1; li >= 0; --li) {
-    {
-      const ScLayer& L = P.L[li];
-      int lo, hi;
-      if (li + 1 < P.n_layers) {
-        const int nx = li + 1;
-        const ScLayer& Nx = P.L[nx];
-        const int start = Nx.in_mult * rb + Nx.in_off;
-        lo = max(max(0, -start), ilo[nx]);
-        hi = min(min(L.out_slab_rows, Nx.in_rows - start), ihi[nx]);
-      } else {
-        lo = 0;
-        hi = min(P.block_rows, P.out_rows - rb * P.block_rows);
-      }
-      olo[li] = lo;
-      ohi[li] = hi;
-      if (hi > lo) {
-        ilo[li] = lo * L.ps * L.stride;
-        ihi[li] = ((hi - 1) * L.ps + L.pw - 1) * L.stride + L.k;
-      } else {
-        ilo[li] = ihi[li] = 0;
-      }
-    }
-  }
+  sc_pyramid_rows(P, rb, olo, ohi, ilo, ihi);
 
   {  // Layer 0's rows [ilo, ihi), column-padded, zero outside the frame.
     const ScLayer& L0 = P.L[0];
@@ -652,260 +696,662 @@ __global__ void __launch_bounds__(SC_THREADS, 2) sc_fused_kernel(const ScFused F
 }
 
 // ---------------------------------------------------------------------------
-// int8 kernels.
+// The s8 tensor-core implicit GEMM of the int8 kernels (sc_gemm_i8). Every
+// layout decision below is mirrored on the host by conv.py (int8_layer,
+// int8_taps, int8_row_base, int8_w_offset), which the CPU tests check.
 
 typedef signed char i8;
 
-// The stream quantization's code: clip(round_half_even(y / scale)).
-__device__ __forceinline__ float sc_code(float y, float scale, float qmin,
-                                         float qmax) {
-  return fminf(fmaxf(rintf(y / scale), qmin), qmax);
+__device__ __forceinline__ unsigned sc_smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// The int32 sums of the PW x PW conv positions of one pool window, for
-// output channel n, over an int8 HWC slab.
-template <int PW>
-__device__ __forceinline__ void sc_window_i8(
-    const i8* __restrict__ in, int cols, int C, const i8* __restrict__ w,
-    int N, int n, int k, int s, int cr0, int cc0, int (&acc)[PW][PW]) {
-#pragma unroll
-  for (int i = 0; i < PW; ++i)
-#pragma unroll
-    for (int j = 0; j < PW; ++j) acc[i][j] = 0;
-  const int rs = cols * C;
-  const bool words = (C & 3) == 0;  // four channels per aligned 32-bit word
-  for (int ki = 0; ki < k; ++ki) {
-    for (int kj = 0; kj < k; ++kj) {
-      const i8* wp = w + (size_t)((ki * k + kj) * C) * N + n;
-      const i8* ip = in + (cr0 * s + ki) * rs + (cc0 * s + kj) * C;
-      if (words) {
-        for (int c = 0; c < C; c += 4) {
-          const int wv = (int)(unsigned char)__ldg(wp + (size_t)c * N) |
-                         ((int)(unsigned char)__ldg(wp + (size_t)(c + 1) * N) << 8) |
-                         ((int)(unsigned char)__ldg(wp + (size_t)(c + 2) * N) << 16) |
-                         ((int)(unsigned char)__ldg(wp + (size_t)(c + 3) * N) << 24);
-#pragma unroll
-          for (int i = 0; i < PW; ++i)
-#pragma unroll
-            for (int j = 0; j < PW; ++j)
-              acc[i][j] = __dp4a(
-                  *reinterpret_cast<const int*>(ip + i * s * rs + j * s * C + c),
-                  wv, acc[i][j]);
-        }
+__device__ __forceinline__ void sc_ldm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void sc_ldm_x2(unsigned (&r)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d += a (16 x 32, row-major) * b (32 x 8, column-major): int8 products
+// summed exactly in int32.
+__device__ __forceinline__ void sc_mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                          const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Slab column of input column x: a slab's columns are stored in s phases
+// of q columns (x % s, then x / s), so the conv positions of one row, s
+// input columns apart, sit one column apart in the slab.
+__device__ __forceinline__ int sc_phase_col(int x, int s, int q) {
+  return s == 1 ? x : (x % s) * q + x / s;
+}
+
+// The 16-byte chunk of staged weight row n that holds K chunk c: swizzled
+// within each 128-byte group, so that ldmatrix's eight rows of one chunk
+// (n = 8a..8a+7) and the staging's stores (eight chunks of one n) fall in
+// distinct banks.
+__device__ __forceinline__ int sc_wchunk(int c, int n) { return c ^ ((n ^ (n >> 4)) & 7); }
+
+struct ScJob8 {
+  const i8* in;      // slab: row 0 is the first row window row 0 reads
+  int rs, cs, s;     // slab row and column strides (bytes), conv stride
+  int ps;            // pool stride (1 without a pool)
+  int n_wr, n_wc;    // outputs (pooled windows) computed: rows, columns
+  int n, ksteps;     // N, K / 32
+  int swz;           // pool window 2: rows 4-7 and 12-15 of a tile take position p ^ 1
+  const int* taps;   // shared: slab offset of each 16-byte (ldmatrix) or 4-byte K granule
+  const i8* w;       // shared: staged weights, one w_row-byte row per output channel
+  int w_row;
+  const float* b;    // global (N,)
+  int act;
+  float deq, qscale, qinv, qmin, qmax;  // qinv = 1 / qscale, exact (a power of two)
+  // codes: int8 code (r, c, n) at dst[r*dst_rs + phase(c + dst_co)*dst_cs + n]
+  // (the next slab); else fp32 value at dst[r*dst_rs + (c + dst_co)*dst_cs + n].
+  void* dst;
+  int codes, dst_rs, dst_cs, dst_co, dst_s, dst_q;
+};
+
+// rows x cols pixels of a C-channel code frame into a slab of cpad
+// channels per column, 16 bytes per thread and step where C is a multiple
+// of 16 and the frame's rows and pointer are 16-byte aligned, else one
+// 32-bit word of four channels (read whole where the rows and pointer are
+// 4-byte aligned, byte by byte otherwise): slab pixel (rr, x) is frame
+// pixel (r0 + rr, x - x0) at src[row * src_rs + col * C], code 0 outside
+// [0, src_rows) x [0, src_cols).
+__device__ void sc_fill_slab8(i8* slab, int rs, int cs, int s, int q, int cpad, int rows,
+                              int cols, const i8* __restrict__ src, long long src_rs, int C,
+                              int r0, int src_rows, int x0, int src_cols) {
+  const size_t at = reinterpret_cast<size_t>(src);
+  const bool vec16 = (C & 15) == 0 && (src_rs & 15) == 0 && (at & 15) == 0;
+  const bool vec = (C & 3) == 0 && (src_rs & 3) == 0 && (at & 3) == 0;
+  const int unit = vec16 ? 16 : 4;
+  const int cw = cpad / unit;
+  const int total = rows * cols * cw;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int px = idx / cw;
+    const int wi = idx - px * cw;
+    const int rr = px / cols;
+    const int x = px - rr * cols;
+    const int gr = r0 + rr;
+    const int gc = x - x0;
+    const bool in = gr >= 0 && gr < src_rows && gc >= 0 && gc < src_cols;
+    const i8* p = src + (size_t)gr * src_rs + (size_t)gc * C + unit * wi;
+    i8* d = slab + rr * rs + sc_phase_col(x, s, q) * cs + unit * wi;
+    if (vec16) {
+      *reinterpret_cast<uint4*>(d) =
+          in ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    unsigned v = 0;
+    if (in) {
+      if (vec) {
+        v = __ldg(reinterpret_cast<const unsigned*>(p));
       } else {
-        for (int c = 0; c < C; ++c) {
-          const int wv = (int)__ldg(wp + (size_t)c * N);
+        for (int e = 0; e < 4; ++e)
+          if (unit * wi + e < C) v |= (unsigned)(unsigned char)__ldg(p + e) << (8 * e);
+      }
+    }
+    *reinterpret_cast<unsigned*>(d) = v;
+  }
+}
+
+// The tap table of an int8 slab: the slab offset of each K granule of gran
+// bytes (16 on the ldmatrix path, 4 on the word path), K in (ki, kj, c)
+// order over cpad channels; granules past k*k*cpad read offset 0 (their
+// weights are zero).
+__device__ void sc_build_taps8(int* taps, int k, int cpad, int kpad, int gran, int rs,
+                               int cs, int s, int q) {
+  const int kdim = k * k * cpad;
+  for (int i = threadIdx.x; i < kpad / gran; i += blockDim.x) {
+    const int kk = i * gran;
+    int off = 0;
+    if (kk < kdim) {
+      const int tap = kk / cpad;
+      const int ki = tap / k;
+      const int kj = tap - ki * k;
+      off = ki * rs + sc_phase_col(kj, s, q) * cs + (kk - tap * cpad);
+    }
+    taps[i] = off;
+  }
+}
+
+// Four K rows of codes, a 32-bit word of four output channels each (r[j]
+// byte e is (k0 + j, nb + e)), transposed into four words of four K, one
+// per channel (o[e] byte j is the same weight).
+__device__ __forceinline__ void sc_transpose4(const unsigned (&r)[4], unsigned (&o)[4]) {
+  const unsigned t0 = __byte_perm(r[0], r[1], 0x5140);
+  const unsigned t1 = __byte_perm(r[2], r[3], 0x5140);
+  const unsigned t2 = __byte_perm(r[0], r[1], 0x7362);
+  const unsigned t3 = __byte_perm(r[2], r[3], 0x7362);
+  o[0] = __byte_perm(t0, t1, 0x5410);
+  o[1] = __byte_perm(t0, t1, 0x7632);
+  o[2] = __byte_perm(t2, t3, 0x5410);
+  o[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// Weight codes (K, K, C, N) HWIO, rows w_ld bytes apart, transposed into
+// one staged row of w_row bytes per output channel n < n_pad, K in (ki, kj,
+// c) order over cpad channels, zero past C, past k*k*cpad and past N. Where
+// N, n_pad, the rows and the pointer allow, a thread reads four K rows of
+// 16 channels (16-byte loads) and writes 16 words of four K, the lanes of
+// a warp along K (eight chunks of one channel group: distinct banks);
+// otherwise four rows of four channels, 32-bit loads where the rows and
+// the pointer allow, byte by byte elsewhere.
+__device__ void sc_stage_w8(i8* ws, const i8* __restrict__ w, int w_ld, int N, int n_pad,
+                            int C, int k, int cpad, int kpad, int w_row) {
+  const int kdim = k * k * cpad;
+  const int nchunks = kpad >> 4;
+  if ((N & 15) == 0 && (n_pad & 15) == 0 && (w_ld & 15) == 0 &&
+      (reinterpret_cast<size_t>(w) & 15) == 0) {
+    const int total = nchunks * (n_pad >> 4) * 4;
+#pragma unroll 2
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int kq = idx & 3;
+      const int rest = idx >> 2;
+      const int n16 = rest / nchunks;
+      const int chunk = rest - n16 * nchunks;
+      const int nb = n16 * 16;
+      const int k0 = chunk * 16 + kq * 4;
+      const int tap = k0 / cpad;
+      const int c0 = k0 - tap * cpad;
+      uint4 v[4];
 #pragma unroll
-          for (int i = 0; i < PW; ++i)
+      for (int j = 0; j < 4; ++j) {
+        v[j] = make_uint4(0u, 0u, 0u, 0u);
+        if (k0 < kdim && c0 + j < C && nb < N)
+          v[j] = __ldg(reinterpret_cast<const uint4*>(w + (size_t)(tap * C + c0 + j) * w_ld + nb));
+      }
 #pragma unroll
-            for (int j = 0; j < PW; ++j)
-              acc[i][j] += (int)ip[i * s * rs + j * s * C + c] * wv;
+      for (int qq = 0; qq < 4; ++qq) {
+        const unsigned r[4] = {(&v[0].x)[qq], (&v[1].x)[qq], (&v[2].x)[qq], (&v[3].x)[qq]};
+        unsigned o[4];
+        sc_transpose4(r, o);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = nb + 4 * qq + e;
+          *reinterpret_cast<unsigned*>(ws + n * w_row + sc_wchunk(chunk, n) * 16 + kq * 4) = o[e];
+        }
+      }
+    }
+    return;
+  }
+  const bool vec = (w_ld & 3) == 0 && (reinterpret_cast<size_t>(w) & 3) == 0;
+  const int n4s = n_pad >> 2;
+  const int total = (kpad >> 2) * n4s;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int kq = idx & 3;
+    const int rest = idx >> 2;
+    const int chunk = rest / n4s;
+    const int nb = (rest - chunk * n4s) * 4;
+    const int k0 = chunk * 16 + kq * 4;
+    const int tap = k0 / cpad;
+    const int c0 = k0 - tap * cpad;
+    unsigned r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      unsigned v = 0;
+      if (k0 < kdim && c0 + j < C) {
+        const i8* src = w + (size_t)(tap * C + c0 + j) * w_ld + nb;
+        if (vec && nb + 3 < N) {
+          v = __ldg(reinterpret_cast<const unsigned*>(src));
+        } else {
+          for (int e = 0; e < 4; ++e)
+            if (nb + e < N) v |= (unsigned)(unsigned char)__ldg(src + e) << (8 * e);
+        }
+      }
+      r[j] = v;
+    }
+    unsigned o[4];
+    sc_transpose4(r, o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = nb + e;
+      *reinterpret_cast<unsigned*>(ws + n * w_row + sc_wchunk(chunk, n) * 16 + kq * 4) = o[e];
+    }
+  }
+}
+
+// Slab offset of output o's window (its first pool position); outputs
+// past the last read output 0's window (conv.py int8_row_base).
+__device__ __forceinline__ int sc_win_base8(const ScJob8& J, int o) {
+  if (o >= J.n_wr * J.n_wc) o = 0;
+  const int wr = o / J.n_wc;
+  const int wc = o - wr * J.n_wc;
+  return wr * J.ps * J.s * J.rs + wc * J.ps * J.cs;
+}
+
+// Slab offset of pool position p of a window of pw x pw.
+__device__ __forceinline__ int sc_pos_off8(const ScJob8& J, int p, int pw) {
+  const int i = p / pw;
+  return i * J.s * J.rs + (p - i * pw) * J.cs;
+}
+
+// The K loop of one warp task: MT A tiles of 16 rows (ab: on the ldmatrix
+// path the row this lane addresses; on the word path rows gid and gid + 8
+// in ab and ab8) against NT n8 tiles from nt0, one m16n8k32 MMA per tile
+// pair and 32 K. No barrier: the slab, taps and weights are all staged.
+template <int MT, int NT, bool LDM>
+__device__ __forceinline__ void sc_kloop_i8(const ScJob8& J, const int (&ab)[MT],
+                                            const int (&ab8)[MT], int nt0,
+                                            int (&acc)[MT][NT][4]) {
+  constexpr int NB = NT > 1 ? NT / 2 : 1;
+  const int lane = threadIdx.x & 31;
+  const int tig = lane & 3;
+  const int mi = lane >> 3;
+  unsigned wrow[NB];
+  int wsw[NB];
+#pragma unroll
+  for (int jp = 0; jp < NB; ++jp) {
+    const int n = (nt0 + 2 * jp + (NT > 1 ? (mi >> 1) : 0)) * 8 + (lane & 7);
+    wrow[jp] = sc_smem_addr(J.w + n * J.w_row);
+    wsw[jp] = sc_wchunk(0, n);
+  }
+  const unsigned slab = sc_smem_addr(J.in);
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0;
+
+#pragma unroll 2
+  for (int ks = 0; ks < J.ksteps; ++ks) {
+    unsigned bf[NT][2];
+    const int chunk = 2 * ks + (mi & 1);
+#pragma unroll
+    for (int jp = 0; jp < NB; ++jp) {
+      const unsigned addr = wrow[jp] + 16 * (chunk ^ wsw[jp]);
+      if constexpr (NT == 1) {
+        sc_ldm_x2(bf[0], addr);
+      } else {
+        unsigned r[4];
+        sc_ldm_x4(r, addr);
+        bf[2 * jp][0] = r[0];
+        bf[2 * jp][1] = r[1];
+        bf[2 * jp + 1][0] = r[2];
+        bf[2 * jp + 1][1] = r[3];
+      }
+    }
+    if constexpr (LDM) {
+      const int off = J.taps[2 * ks + (lane >> 4)];
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        unsigned a[4];
+        sc_ldm_x4(a, slab + ab[t] + off);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) sc_mma_s8(acc[t][j], a, bf[j]);
+      }
+    } else {
+      const int o0 = J.taps[8 * ks + tig];
+      const int o1 = J.taps[8 * ks + 4 + tig];
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        const unsigned a[4] = {*reinterpret_cast<const unsigned*>(J.in + ab[t] + o0),
+                               *reinterpret_cast<const unsigned*>(J.in + ab8[t] + o0),
+                               *reinterpret_cast<const unsigned*>(J.in + ab[t] + o1),
+                               *reinterpret_cast<const unsigned*>(J.in + ab8[t] + o1)};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) sc_mma_s8(acc[t][j], a, bf[j]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float sc_deq_act(const ScJob8& J, int v, float bv) {
+  return sc_act(__fmul_rn(__int2float_rn(v), J.deq) + bv, J.act);
+}
+
+// Where output o (row-major over n_wr x n_wc) starts in the destination:
+// its channel 0's element.
+__device__ __forceinline__ long long sc_out_at8(const ScJob8& J, int o) {
+  const int wr = o / J.n_wc;
+  const int wc = o - wr * J.n_wc;
+  return (long long)wr * J.dst_rs +
+         (long long)(J.codes ? sc_phase_col(wc + J.dst_co, J.dst_s, J.dst_q) : wc + J.dst_co) *
+             J.dst_cs;
+}
+
+// Channel n of the output at `at`: the stream code, into the next slab or
+// as its fp32 grid value. y * qinv is y / qscale exactly (a power of two).
+__device__ __forceinline__ void sc_put8(const ScJob8& J, long long at, int n, float y) {
+  const float q = fminf(fmaxf(rintf(y * J.qinv), J.qmin), J.qmax);
+  if (J.codes)
+    static_cast<i8*>(J.dst)[at + n] = (i8)(int)q;
+  else
+    static_cast<float*>(J.dst)[at + n] = q * J.qscale;
+}
+
+// PW: compiled pool window (1: none, MT = 4 tiles of 16 outputs; 2, 3: PW*PW
+// tiles of the same 16 windows, so a thread's accumulators hold every
+// position of its windows and the pool is a max over registers). NT: n8
+// tiles per warp task. Epilogue in the reference orders: pool first, the
+// max of the int32 sums (exact), then dequantize, bias, act; else
+// dequantize, bias and act per position, then the max. Every thread of the
+// CTA calls it; warps take tasks round-robin, with no barrier.
+template <int PW, int NT, bool LDM, bool POOL_FIRST>
+__device__ void sc_gemm_i8(const ScJob8& J) {
+  constexpr int MT = PW == 1 ? 4 : PW * PW;
+  constexpr int PER = PW == 1 ? 64 : 16;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int n_win = J.n_wr * J.n_wc;
+  const int groups = ((J.n + 7) / 8 + NT - 1) / NT;
+  const int tasks = ((n_win + PER - 1) / PER) * groups;
+  const int ar = (lane & 7) + (lane & 8);  // the A row this lane addresses (ldmatrix)
+  for (int task = warp; task < tasks; task += n_warps) {
+    const int mb = task / groups;
+    const int nt0 = (task - mb * groups) * NT;
+    int ab[MT], ab8[MT];
+    if (PW == 1) {
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        ab[t] = sc_win_base8(J, mb * 64 + t * 16 + (LDM ? ar : gid));
+        ab8[t] = LDM ? 0 : sc_win_base8(J, mb * 64 + t * 16 + gid + 8);
+      }
+    } else {
+      // Rows 4-7 and 12-15 (where swz) take position t ^ 1.
+      const int r0 = LDM ? ar : gid;
+      const int w0 = sc_win_base8(J, mb * 16 + r0);
+      const int w8 = LDM ? 0 : sc_win_base8(J, mb * 16 + gid + 8);
+      const int sw = (PW == 2 && J.swz && (r0 & 4)) ? 1 : 0;
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        ab[t] = w0 + sc_pos_off8(J, t ^ sw, PW);
+        ab8[t] = LDM ? 0 : w8 + sc_pos_off8(J, t ^ sw, PW);
+      }
+    }
+    int acc[MT][NT][4];
+    sc_kloop_i8<MT, NT, LDM>(J, ab, ab8, nt0, acc);
+    float bv[NT][2];  // loaded before any store, which may alias
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = (nt0 + j) * 8 + 2 * tig + e;
+        bv[j][e] = n < J.n ? __ldg(J.b + n) : 0.0f;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int t = 0; t < (PW == 1 ? MT : 1); ++t) {
+        const int o = PW == 1 ? mb * 64 + t * 16 + gid + 8 * h : mb * 16 + gid + 8 * h;
+        if (o >= n_win) continue;
+        const long long at = sc_out_at8(J, o);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = (nt0 + j) * 8 + 2 * tig + e;
+            if (n >= J.n) continue;
+            const int i = 2 * h + e;
+            float y;
+            if (PW == 1) {
+              y = sc_deq_act(J, acc[t][j][i], bv[j][e]);
+            } else if (POOL_FIRST) {
+              int m = acc[0][j][i];
+#pragma unroll
+              for (int u = 1; u < MT; ++u) m = max(m, acc[u][j][i]);
+              y = sc_deq_act(J, m, bv[j][e]);
+            } else {
+              y = sc_deq_act(J, acc[0][j][i], bv[j][e]);
+#pragma unroll
+              for (int u = 1; u < MT; ++u) y = fmaxf(y, sc_deq_act(J, acc[u][j][i], bv[j][e]));
+            }
+            sc_put8(J, at, n, y);
+          }
         }
       }
     }
   }
 }
 
-// One pooled output of channel n before the stream quantization: the int32
-// sums dequantized by deq (a power of two: exact), then POOL_FIRST
-// bias -> pool -> act (pyramid) or bias -> act -> pool (single layer).
-// Dequantization and bias are monotone, so the pool-first path takes the
-// max of the integer sums. PW = 0 reads the window (pw) at run time and
-// folds its conv positions one at a time into the same max; N is the
-// weights' row stride.
-template <int PW, bool POOL_FIRST>
-__device__ __forceinline__ float sc_point_i8(
-    const i8* __restrict__ in, int cols, int C, const i8* __restrict__ w,
-    const float* __restrict__ bias, int N, int n, int k, int s, int cr0,
-    int cc0, int act, float deq, int pw = PW) {
-  if constexpr (PW == 0) {
-    const float bv = __ldg(bias + n);
-    float y = 0.0f;
-    int m = 0;
-    for (int i = 0; i < pw; ++i)
-      for (int j = 0; j < pw; ++j) {
-        int one[1][1];
-        sc_window_i8<1>(in, cols, C, w, N, n, k, s, cr0 + i, cc0 + j, one);
-        const int v = one[0][0];
+// Any other pool window, read at run time: the pw * pw positions of 16
+// windows one after the other, each a K loop of one tile, folded into a
+// running max in the kernel's order (the int32 sums pool first; else
+// dequantize, bias and act per position). It serves the windows the
+// reference takes and no topology of the paper uses.
+template <bool LDM, bool POOL_FIRST>
+__device__ void sc_gemm_i8_window(const ScJob8& J, int pw) {
+  constexpr int NT = 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int n_win = J.n_wr * J.n_wc;
+  const int groups = (J.n + 7) / 8;
+  const int tasks = ((n_win + 15) / 16) * groups;
+  const int ar = (lane & 7) + (lane & 8);
+  for (int task = warp; task < tasks; task += n_warps) {
+    const int mb = task / groups;
+    const int nt0 = task - mb * groups;
+    int m[4];
+    float y[4];
+    for (int pos = 0; pos < pw * pw; ++pos) {
+      const int off = sc_pos_off8(J, pos, pw);
+      const int ab[1] = {sc_win_base8(J, mb * 16 + (LDM ? ar : gid)) + off};
+      const int ab8[1] = {LDM ? 0 : sc_win_base8(J, mb * 16 + gid + 8) + off};
+      int acc[1][NT][4];
+      sc_kloop_i8<1, NT, LDM>(J, ab, ab8, nt0, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int v = acc[0][0][i];
         if (POOL_FIRST) {
-          m = (i | j) ? max(m, v) : v;
+          m[i] = pos ? max(m[i], v) : v;
         } else {
-          const float f = sc_act(__fmul_rn(__int2float_rn(v), deq) + bv, act);
-          y = (i | j) ? fmaxf(y, f) : f;
+          const int n = min(nt0 * 8 + 2 * tig + (i & 1), J.n - 1);
+          const float f = sc_deq_act(J, v, __ldg(J.b + n));
+          y[i] = pos ? fmaxf(y[i], f) : f;
         }
       }
-    return POOL_FIRST ? sc_act(__fmul_rn(__int2float_rn(m), deq) + bv, act) : y;
-  }
-  constexpr int P = PW > 0 ? PW : 1;
-  int acc[P][P];
-  sc_window_i8<P>(in, cols, C, w, N, n, k, s, cr0, cc0, acc);
-  const float bv = __ldg(bias + n);
-  if (POOL_FIRST) {
-    int m = acc[0][0];
+    }
 #pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) m = max(m, acc[i][j]);
-    return sc_act(__fmul_rn(__int2float_rn(m), deq) + bv, act);
-  }
-  float y = sc_act(__fmul_rn(__int2float_rn(acc[0][0]), deq) + bv, act);
-#pragma unroll
-  for (int i = 0; i < P; ++i)
-#pragma unroll
-    for (int j = 0; j < P; ++j)
-      y = fmaxf(y, sc_act(__fmul_rn(__int2float_rn(acc[i][j]), deq) + bv, act));
-  return y;
-}
-
-// Pooled rows [r_lo, r_hi) of one int8 pyramid layer into dst, as int8
-// codes (interior layers: the next layer's slab) or fp32 grid values (the
-// group's last layer).
-template <int PW, bool CODES>
-__device__ void sc_pyramid_layer_i8(const ScLayer& L, const i8* __restrict__ in,
-                                    void* __restrict__ dst, int dst_rs,
-                                    int dst_co, int r_lo, int r_hi) {
-  const int cols = L.in_cols + L.pad_l + L.pad_r;
-  const int N = L.n_out;
-  const i8* w = reinterpret_cast<const i8*>(L.w);
-  const int items = (r_hi - r_lo) * L.out_cols * N;
-  for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
-    const int n = idx % N;
-    const int pos = idx / N;
-    const int oc = pos % L.out_cols;
-    const int r = r_lo + pos / L.out_cols;
-    const float y = sc_point_i8<PW, true>(in, cols, L.in_ch, w, L.b, N, n, L.k,
-                                          L.stride, r * L.ps, oc * L.ps, L.act,
-                                          L.deq, L.pw);
-    const float q = sc_code(y, L.qscale, L.qmin, L.qmax);
-    const int o = r * dst_rs + (oc + dst_co) * N + n;
-    if (CODES)
-      static_cast<i8*>(dst)[o] = (i8)(int)q;
-    else
-      static_cast<float*>(dst)[o] = q * L.qscale;
+    for (int i = 0; i < 4; ++i) {
+      const int n = nt0 * 8 + 2 * tig + (i & 1);
+      const int o = mb * 16 + gid + 8 * (i >> 1);
+      if (n >= J.n || o >= n_win) continue;
+      sc_put8(J, sc_out_at8(J, o), n, POOL_FIRST ? sc_deq_act(J, m[i], __ldg(J.b + n)) : y[i]);
+    }
   }
 }
 
-template <bool CODES>
-__device__ __forceinline__ void sc_pyramid_layer_i8_pw(
-    const ScLayer& L, const i8* in, void* dst, int dst_rs, int dst_co,
-    int r_lo, int r_hi) {
-  switch (L.pw) {
-    case 1: sc_pyramid_layer_i8<1, CODES>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
-    case 2: sc_pyramid_layer_i8<2, CODES>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
-    case 3: sc_pyramid_layer_i8<3, CODES>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
-    default: sc_pyramid_layer_i8<0, CODES>(L, in, dst, dst_rs, dst_co, r_lo, r_hi); break;
+// The instantiations the host may pick (conv.py int8_layer): pool windows
+// 1 and 2 with 4, 2 or 1 n8 tiles a task, 3 with 2 or 1, every other
+// window the run-time path with 1; the ldmatrix path where the slab's
+// channels are a multiple of 16, else the word path.
+template <bool LDM, bool POOL_FIRST>
+__device__ __forceinline__ void sc_gemm_i8_pick(const ScJob8& J, int pw, int nt) {
+  if (pw == 2) {
+    if (nt == 4) sc_gemm_i8<2, 4, LDM, POOL_FIRST>(J);
+    else if (nt == 2) sc_gemm_i8<2, 2, LDM, POOL_FIRST>(J);
+    else sc_gemm_i8<2, 1, LDM, POOL_FIRST>(J);
+  } else if (pw == 3) {
+    if (nt == 2) sc_gemm_i8<3, 2, LDM, POOL_FIRST>(J);
+    else sc_gemm_i8<3, 1, LDM, POOL_FIRST>(J);
+  } else if (pw == 1) {
+    if (nt == 4) sc_gemm_i8<1, 4, LDM, POOL_FIRST>(J);
+    else if (nt == 2) sc_gemm_i8<1, 2, LDM, POOL_FIRST>(J);
+    else sc_gemm_i8<1, 1, LDM, POOL_FIRST>(J);
+  } else {
+    sc_gemm_i8_window<LDM, POOL_FIRST>(J, pw);
   }
 }
 
-__global__ void __launch_bounds__(SC_THREADS)
+template <bool POOL_FIRST>
+__device__ __forceinline__ void sc_gemm_i8_dispatch(const ScJob8& J, int pw, int nt,
+                                                    int cpad) {
+  if ((cpad & 15) == 0) sc_gemm_i8_pick<true, POOL_FIRST>(J, pw, nt);
+  else sc_gemm_i8_pick<false, POOL_FIRST>(J, pw, nt);
+}
+
+__device__ __forceinline__ ScJob8 sc_job8(const ScLayer& L, const i8* in, int n_wr,
+                                          const int* taps, const i8* wst) {
+  ScJob8 J;
+  J.in = in;
+  J.rs = L.rs;
+  J.cs = L.cs;
+  J.s = L.stride;
+  J.ps = L.ps;
+  J.n_wr = n_wr;
+  J.n_wc = L.out_cols;
+  J.n = L.n_out;
+  J.ksteps = L.kpad / 32;
+  J.swz = L.swz;
+  J.taps = taps;
+  J.w = wst;
+  J.w_row = L.wrow;
+  J.b = L.b;
+  J.act = L.act;
+  J.deq = L.deq;
+  J.qscale = L.qscale;
+  J.qinv = 1.0f / L.qscale;
+  J.qmin = L.qmin;
+  J.qmax = L.qmax;
+  return J;
+}
+
+__global__ void __launch_bounds__(SC_THREADS, 2)
     sc_pyramid_i8_kernel(const ScPyramid P) {
   extern __shared__ __align__(16) i8 smem8[];
   i8* const buf0 = smem8;
   i8* const buf1 = smem8 + P.buf0_elems;
+  int* const taps = reinterpret_cast<int*>(smem8 + P.tap_off);
+  i8* const wst = smem8 + P.wst_off;
   const int rb = blockIdx.x;
   const int bi = blockIdx.y;
+  int olo[SC_MAX_LAYERS], ohi[SC_MAX_LAYERS], ilo[SC_MAX_LAYERS], ihi[SC_MAX_LAYERS];
+  sc_pyramid_rows(P, rb, olo, ohi, ilo, ihi);
 
-  {  // Layer 0's halo'd rows of codes, column-padded, code 0 outside the frame.
+  {  // Layer 0's rows [ilo, ihi) of codes, code 0 outside the frame.
     const ScLayer& L0 = P.L[0];
-    const int cols = L0.in_cols + L0.pad_l + L0.pad_r;
-    const int C = L0.in_ch;
-    const int start = L0.in_mult * rb + L0.in_off;
-    const int total = L0.in_slab_rows * cols * C;
     const i8* xb = reinterpret_cast<const i8*>(P.x) +
-                   (size_t)bi * L0.in_rows * L0.in_cols * C;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int c = idx % C;
-      const int pc = (idx / C) % cols;
-      const int gr = start + idx / (C * cols);
-      const int gc = pc - L0.pad_l;
-      i8 v = 0;
-      if (gr >= 0 && gr < L0.in_rows && gc >= 0 && gc < L0.in_cols)
-        v = __ldg(xb + ((size_t)gr * L0.in_cols + gc) * C + c);
-      buf0[idx] = v;
-    }
+                   (size_t)bi * L0.in_rows * L0.in_cols * L0.in_ch;
+    sc_fill_slab8(buf0, L0.rs, L0.cs, L0.stride, L0.q, L0.cpad, ihi[0] - ilo[0],
+                  L0.in_cols + L0.pad_l + L0.pad_r, xb, (long long)L0.in_cols * L0.in_ch,
+                  L0.in_ch, L0.in_mult * rb + L0.in_off + ilo[0], L0.in_rows, L0.pad_l,
+                  L0.in_cols);
   }
-  __syncthreads();
 
-#pragma unroll
-  for (int li = 0; li < SC_MAX_LAYERS; ++li) {
-    if (li < P.n_layers) {
-      const ScLayer& L = P.L[li];
-      const i8* in = (li & 1) ? buf1 : buf0;
-      if (li + 1 < P.n_layers) {
-        const ScLayer& Nx = P.L[li + 1 < SC_MAX_LAYERS ? li + 1 : li];
-        const int cols_n = Nx.in_cols + Nx.pad_l + Nx.pad_r;
-        const int N = L.n_out;
-        i8* dst = (li & 1) ? buf0 : buf1;
-        const int start = Nx.in_mult * rb + Nx.in_off;
-        const int r_lo = max(0, -start);
-        const int r_hi = min(L.out_slab_rows, Nx.in_rows - start);
-        // The next layer's SAME padding: rows outside its frame and its pad
-        // columns hold code 0 (value 0).
-        const int total = L.out_slab_rows * cols_n * N;
-        for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-          const int pc = (idx / N) % cols_n;
-          const int r = idx / (N * cols_n);
-          if (r < r_lo || r >= r_hi || pc < Nx.pad_l ||
-              pc >= Nx.pad_l + Nx.in_cols)
-            dst[idx] = 0;
-        }
-        if (r_hi > r_lo)
-          sc_pyramid_layer_i8_pw<true>(L, in, dst, cols_n * N, Nx.pad_l, r_lo, r_hi);
-      } else {
-        float* dst = P.out + ((size_t)bi * P.out_rows + (size_t)rb * P.block_rows) *
-                                 L.out_cols * L.n_out;
-        const int r_hi = min(P.block_rows, P.out_rows - rb * P.block_rows);
-        if (r_hi > 0)
-          sc_pyramid_layer_i8_pw<false>(L, in, dst, L.out_cols * L.n_out, 0, 0, r_hi);
+#pragma unroll 1
+  for (int li = 0; li < P.n_layers; ++li) {
+    const ScLayer& L = P.L[li];
+    const i8* in = (li & 1) ? buf1 : buf0;
+    sc_build_taps8(taps, L.k, L.cpad, L.kpad, (L.cpad & 15) ? 4 : 16, L.rs, L.cs, L.stride,
+                   L.q);
+    sc_stage_w8(wst, reinterpret_cast<const i8*>(L.w), L.n_out, L.n_out, L.np, L.in_ch, L.k,
+                L.cpad, L.kpad, L.wrow);
+    ScJob8 J = sc_job8(L, in, ohi[li] - olo[li], taps, wst);
+    if (li + 1 < P.n_layers) {
+      const int nx = li + 1;
+      const ScLayer& Nx = P.L[nx];
+      const int cols_n = Nx.in_cols + Nx.pad_l + Nx.pad_r;
+      i8* dst = (li & 1) ? buf0 : buf1;
+      J.codes = 1;
+      J.dst = dst + (olo[li] - ilo[nx]) * Nx.rs;
+      J.dst_rs = Nx.rs;
+      J.dst_cs = Nx.cs;
+      J.dst_co = Nx.pad_l;
+      J.dst_s = Nx.stride;
+      J.dst_q = Nx.q;
+      // The next layer's SAME padding: its stored rows outside the computed
+      // ones (whole rows) and the computed rows' pad columns hold code 0.
+      const int lo = max(olo[li], ilo[nx]) - ilo[nx];  // computed rows [lo, hi) of the slab
+      const int hi = max(lo, min(ohi[li], ihi[nx]) - ilo[nx]);
+      const int below = ihi[nx] - ilo[nx] - hi;
+      const int row_words = Nx.rs >> 2;
+      for (int idx = threadIdx.x; idx < (lo + below) * row_words; idx += blockDim.x) {
+        const int zr = idx / row_words;
+        const int rr = zr < lo ? zr : hi + (zr - lo);
+        reinterpret_cast<unsigned*>(dst + rr * Nx.rs)[idx - zr * row_words] = 0u;
       }
-      __syncthreads();
+      const int cw = Nx.cpad >> 2;
+      const int pads = (cols_n - Nx.in_cols) * cw;
+      for (int idx = threadIdx.x; idx < (hi - lo) * pads; idx += blockDim.x) {
+        const int rr = lo + idx / pads;
+        const int e = idx % pads;
+        const int px = e / cw;
+        const int x = px < Nx.pad_l ? px : Nx.in_cols + px;
+        *reinterpret_cast<unsigned*>(dst + rr * Nx.rs + sc_phase_col(x, Nx.stride, Nx.q) * Nx.cs +
+                                     4 * (e - px * cw)) = 0u;
+      }
+    } else {
+      J.codes = 0;
+      J.dst = P.out + ((size_t)bi * P.out_rows + (size_t)rb * P.block_rows) * L.out_cols *
+                          L.n_out;
+      J.dst_rs = L.out_cols * L.n_out;
+      J.dst_cs = L.n_out;
+      J.dst_co = 0;
+      J.dst_s = 1;
+      J.dst_q = 0;
     }
-  }
-}
-
-template <int PW>
-__device__ void sc_fused_body_i8(const ScFused& F, const i8* __restrict__ in,
-                                 int rb, int bi) {
-  const int po_lo = rb * F.r_o;
-  const int po_hi = min(F.h_keep, po_lo + F.r_o);
-  const int items = (po_hi - po_lo) * F.w_keep * F.n;
-  const i8* w = reinterpret_cast<const i8*>(F.w);
-  float* out = F.out + (size_t)bi * F.out_img;
-  for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
-    const int n = idx % F.n;
-    const int pos = idx / F.n;
-    const int oc = pos % F.w_keep;
-    const int po = po_lo + pos / F.w_keep;
-    const float y = sc_point_i8<PW, false>(in, F.w_in, F.c, w, F.b, F.w_ld, n, F.k,
-                                           F.stride, po * F.ps - rb * F.r,
-                                           oc * F.ps, F.act, F.deq, F.pw);
-    out[(size_t)po * F.out_rs + (size_t)oc * F.out_cs + n] =
-        sc_code(y, F.qscale, F.qmin, F.qmax) * F.qscale;
+    __syncthreads();
+    if (ohi[li] > olo[li]) sc_gemm_i8_dispatch<true>(J, L.pw, L.tn, L.cpad);
+    __syncthreads();
   }
 }
 
 __global__ void __launch_bounds__(SC_THREADS) sc_fused_i8_kernel(const ScFused F) {
   extern __shared__ __align__(16) i8 slab8[];
+  int* const taps = reinterpret_cast<int*>(slab8 + F.tap_off);
+  i8* const wst = slab8 + F.wst_off;
   const int rb = blockIdx.x;
   const int bi = blockIdx.y;
   const int row0 = rb * F.r * F.stride;
-  const int strip = F.w_in * F.c;  // bytes of one slab row
-  const int total = F.in_rows_blk * strip;
   const i8* xb = reinterpret_cast<const i8*>(F.x) + (size_t)bi * F.x_img +
                  (size_t)row0 * F.x_rs;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int row = idx / strip;
-    // rows past the frame read 0
-    slab8[idx] = row0 + row < F.h ? __ldg(xb + (size_t)row * F.x_rs + (idx - row * strip))
-                                  : (i8)0;
-  }
+  // rows past the frame read code 0
+  sc_fill_slab8(slab8, F.rs, F.cs, F.stride, F.q, F.cpad, F.in_rows_blk, F.w_in, xb, F.x_rs,
+                F.c, 0, F.h - row0, 0, F.w_in);
+  sc_build_taps8(taps, F.k, F.cpad, F.kpad, (F.cpad & 15) ? 4 : 16, F.rs, F.cs, F.stride, F.q);
+  sc_stage_w8(wst, reinterpret_cast<const i8*>(F.w), F.w_ld, F.n, F.np, F.c, F.k, F.cpad,
+              F.kpad, F.wrow);
+  const int po_lo = rb * F.r_o;
+  const int po_hi = min(F.h_keep, po_lo + F.r_o);
+  ScJob8 J;
+  J.in = slab8;
+  J.rs = F.rs;
+  J.cs = F.cs;
+  J.s = F.stride;
+  J.ps = F.ps;
+  J.n_wr = po_hi - po_lo;
+  J.n_wc = F.w_keep;
+  J.n = F.n;
+  J.ksteps = F.kpad / 32;
+  J.swz = F.swz;
+  J.taps = taps;
+  J.w = wst;
+  J.w_row = F.wrow;
+  J.b = F.b;
+  J.act = F.act;
+  J.deq = F.deq;
+  J.qscale = F.qscale;
+  J.qinv = 1.0f / F.qscale;
+  J.qmin = F.qmin;
+  J.qmax = F.qmax;
+  J.dst = F.out + (size_t)bi * F.out_img + (size_t)po_lo * F.out_rs;
+  J.codes = 0;
+  J.dst_rs = F.out_rs;
+  J.dst_cs = F.out_cs;
+  J.dst_co = 0;
+  J.dst_s = 1;
+  J.dst_q = 0;
   __syncthreads();
-  switch (F.pw) {
-    case 1: sc_fused_body_i8<1>(F, slab8, rb, bi); break;
-    case 2: sc_fused_body_i8<2>(F, slab8, rb, bi); break;
-    case 3: sc_fused_body_i8<3>(F, slab8, rb, bi); break;
-    default: sc_fused_body_i8<0>(F, slab8, rb, bi); break;
-  }
+  sc_gemm_i8_dispatch<false>(J, F.pw, F.tn, F.cpad);
 }
 
 static int sc_opt_in_smem(const void* kernel, int smem_bytes) {
@@ -917,12 +1363,14 @@ static int sc_opt_in_smem(const void* kernel, int smem_bytes) {
 extern "C" int sc_pyramid_desc_bytes() { return (int)sizeof(ScPyramid); }
 extern "C" int sc_fused_desc_bytes() { return (int)sizeof(ScFused); }
 
-// CTAs of the fp32 pyramid (which = 0) or single-layer kernel (1) that fit
-// on one SM at `threads` per CTA and smem_bytes of dynamic shared memory;
-// negative: a CUDA error.
+// CTAs of the fp32 pyramid (which = 0), fp32 single-layer (1), int8
+// pyramid (2) or int8 single-layer kernel (3) that fit on one SM at
+// `threads` per CTA and smem_bytes of dynamic shared memory; negative: a
+// CUDA error.
 extern "C" int sc_ctas_per_sm(int which, int smem_bytes, int threads) {
-  const void* kernel =
-      which == 0 ? (const void*)sc_pyramid_kernel : (const void*)sc_fused_kernel;
+  const void* kernels[4] = {(const void*)sc_pyramid_kernel, (const void*)sc_fused_kernel,
+                            (const void*)sc_pyramid_i8_kernel, (const void*)sc_fused_i8_kernel};
+  const void* kernel = kernels[which & 3];
   int err = sc_opt_in_smem(kernel, smem_bytes);
   if (err) return -err;
   int n = 0;
@@ -966,7 +1414,7 @@ extern "C" int sc_fused_i8_launch(const ScFused* desc, int smem_bytes,
   int err = sc_opt_in_smem((const void*)sc_fused_i8_kernel, smem_bytes);
   if (err) return err;
   dim3 grid(desc->n_rb, desc->batch);
-  sc_fused_i8_kernel<<<grid, SC_THREADS, smem_bytes, (cudaStream_t)stream>>>(
+  sc_fused_i8_kernel<<<grid, desc->threads, smem_bytes, (cudaStream_t)stream>>>(
       *desc);
   return (int)cudaGetLastError();
 }

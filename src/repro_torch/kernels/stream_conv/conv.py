@@ -14,9 +14,12 @@ inter-layer slab in shared memory. The fp32 kernels run each layer as a
 register-tiled implicit GEMM over the slab (weights staged in shared
 memory); this module sizes their shared-memory layout
 (``pyramid_layout``, ``fused_geometry``). Each has an int8 variant
-(``int8_scales``): int8 frame and weight codes, int32 accumulation, the
-exact pow2 dequantization, and int8 codes between pyramid layers. The
-design notes and bounds of all four kernels are in the source. The
+(``int8_scales``): int8 frame and weight codes, int32 accumulation on
+the s8 tensor cores, the exact pow2 dequantization, and int8 codes
+between pyramid layers; ``int8_layout`` lays out its block, with the
+kernel's own address arithmetic beside it (``int8_taps``,
+``int8_row_base``, ``int8_w_offset``). The design notes and bounds of
+all four kernels are in the source. The
 kernels take any pool window: 2 and 3 compiled, every other one read at
 run time. ``card_groups`` splits the reference's fusion groups into
 groups the pyramid kernel can take (at most ``MAX_PYRAMID_LAYERS``
@@ -60,9 +63,14 @@ LAUNCHES = {
     "stream_conv_fused_int8": 0,
     "stream_conv_pyramid_int8": 0,
 }
-# The int8 pyramid's second slab buffer starts on this byte boundary, so
-# the kernel's 4-byte loads of four channels stay aligned.
-INT8_BUF_ALIGN = 16
+# The int8 kernels' MMA (mma.sync m16n8k32 s8): K bytes per step, and the
+# staged weight rows' alignment (whole 128-byte groups of eight 16-byte
+# chunks, which the staging swizzles).
+MMA_K = 32
+W_ROW_ALIGN = 128
+# n8 tiles per warp task compiled for each pool window of the int8 kernels
+# (sc_gemm_i8_pick in the source); every other window takes one.
+I8_TILES_N = {1: (4, 2, 1), 2: (4, 2, 1), 3: (2, 1)}
 
 
 def reset_launch_counts() -> None:
@@ -86,6 +94,8 @@ class _ScLayer(ctypes.Structure):
         ("deq", ctypes.c_float),
         ("cs", ctypes.c_int), ("rs", ctypes.c_int), ("tn", ctypes.c_int),
         ("np", ctypes.c_int), ("wvec", ctypes.c_int),
+        ("q", ctypes.c_int), ("cpad", ctypes.c_int), ("kpad", ctypes.c_int),
+        ("wrow", ctypes.c_int), ("swz", ctypes.c_int),
     ]
 
 
@@ -122,6 +132,8 @@ class _ScFused(ctypes.Structure):
         ("np", ctypes.c_int), ("wvec", ctypes.c_int), ("tap_off", ctypes.c_int),
         ("wst_off", ctypes.c_int), ("wst_elems", ctypes.c_int),
         ("threads", ctypes.c_int),
+        ("q", ctypes.c_int), ("cpad", ctypes.c_int), ("kpad", ctypes.c_int),
+        ("wrow", ctypes.c_int), ("swz", ctypes.c_int),
     ]
 
 
@@ -179,11 +191,12 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def ctas_per_sm(kernel: str, smem_bytes: int, threads: int = THREADS) -> int:
-    """CTAs of the fp32 ``stream_conv_pyramid`` or ``stream_conv_fused``
-    kernel that fit on one SM of the current card at ``threads`` per CTA
-    and ``smem_bytes`` of dynamic shared memory
+    """CTAs of one of the four kernels (named as in ``LAUNCHES``) that fit
+    on one SM of the current card at ``threads`` per CTA and
+    ``smem_bytes`` of dynamic shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    which = {"stream_conv_pyramid": 0, "stream_conv_fused": 1}[kernel]
+    which = {"stream_conv_pyramid": 0, "stream_conv_fused": 1,
+             "stream_conv_pyramid_int8": 2, "stream_conv_fused_int8": 3}[kernel]
     n = _library().sc_ctas_per_sm(which, smem_bytes, threads)
     _raise_on(-n if n < 0 else 0, f"{kernel} occupancy query")
     return n
@@ -270,6 +283,234 @@ def _stage_words(n_out: int, tn: int) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# The int8 kernels' implicit-GEMM layout (sc_gemm_i8 in the source): one
+# s8 tensor-core MMA (m16n8k32) over int8 slabs in shared memory. The
+# functions below are the kernel's own address arithmetic, so the layout
+# (and its bank conflicts) can be checked on the CPU.
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Slab:
+    """One layer of an int8 block, as the block sees it: an input slab of
+    ``rows`` x ``cols`` pixels of ``c`` channels (the rows and the padded
+    columns the block stores), a ``k`` x ``k`` conv of ``stride``, a pool
+    window ``pw`` (0: none) of stride ``ps``, ``n`` output channels and at
+    most ``n_wr`` x ``n_wc`` outputs (pooled windows) per block."""
+
+    rows: int
+    cols: int
+    c: int
+    k: int
+    stride: int
+    pw: int
+    ps: int
+    n: int
+    n_wr: int
+    n_wc: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Layer:
+    """One layer's int8 layout. The slab holds ``cpad`` channels a column
+    (C where C % 16 == 0, whose 16-byte runs ``ldmatrix`` reads; else C
+    rounded up to 4, read as 32-bit words), columns ``cs`` bytes apart in
+    ``stride`` phases of ``q`` columns (input column x at ``(x % stride) *
+    q + x // stride``), rows ``rs`` bytes apart, ``rows`` of them. K is
+    ``k * k * cpad`` rounded up to the MMA's 32 (``kpad``); a warp task
+    takes ``nt`` n8 tiles; the weights stage as ``n_pad`` rows (N rounded
+    up to ``8 * nt``) of ``w_row`` bytes; ``swz`` puts rows 4-7 and 12-15
+    of a pool-window-2 tile at pool position ``p ^ 1``."""
+
+    cpad: int
+    cs: int
+    q: int
+    rs: int
+    rows: int
+    kdim: int
+    kpad: int
+    nt: int
+    n_pad: int
+    w_row: int
+    swz: int
+
+    @property
+    def ldm(self) -> bool:
+        return self.cpad % 16 == 0
+
+    @property
+    def grain(self) -> int:
+        """Bytes of K per tap-table entry."""
+        return 16 if self.ldm else 4
+
+    @property
+    def slab_bytes(self) -> int:
+        return self.rows * self.rs
+
+    @property
+    def w_bytes(self) -> int:
+        return self.n_pad * self.w_row
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Layout:
+    """An int8 block's shared memory, in bytes: two ping-pong slab
+    buffers (``buf0``, ``buf1``; one layer uses ``buf0``), the tap table at
+    ``tap_off`` and the staged weights of one layer at ``wst_off``."""
+
+    layers: tuple
+    buf0: int
+    buf1: int
+    tap_off: int
+    wst_off: int
+    smem: int
+
+
+def int8_tiles(pw: int) -> tuple:
+    """(A tiles of a warp task, outputs of a warp task) of a pool window:
+    no pool, 4 tiles of 16 outputs; windows 2 and 3, one tile per
+    position of the same 16 windows; any other, one tile at a time."""
+    pw = pw or 1
+    if pw == 1:
+        return 4, 64
+    return (pw * pw if pw in (2, 3) else 1), 16
+
+
+def int8_slab_offset(lay: Int8Layer, row: int, x: int, c: int, stride: int) -> int:
+    """Slab byte of input row ``row``, column ``x``, channel ``c``."""
+    return row * lay.rs + ((x % stride) * lay.q + x // stride) * lay.cs + c
+
+
+def int8_taps(lay: Int8Layer, k: int, stride: int) -> tuple:
+    """The tap table: the slab offset of each K granule (``grain``
+    bytes), K in (ki, kj, c) order; granules past ``kdim`` read 0."""
+    out = []
+    for i in range(lay.kpad // lay.grain):
+        kk = i * lay.grain
+        if kk >= lay.kdim:
+            out.append(0)
+            continue
+        tap, c = divmod(kk, lay.cpad)
+        ki, kj = divmod(tap, k)
+        out.append(int8_slab_offset(lay, ki, kj, c, stride))
+    return tuple(out)
+
+
+def int8_row_base(lay: Int8Layer, sl: Int8Slab, mb: int, t: int, r: int,
+                  pos: int = 0) -> tuple:
+    """(slab offset, output) of row ``r`` of A tile ``t`` of m-task
+    ``mb``; the output is None past the last one, whose row reads output
+    0's window. ``pos`` is the run-time window's position."""
+    pw, ps = sl.pw or 1, sl.ps or 1
+    i = j = 0
+    if pw == 1:
+        o = mb * 64 + t * 16 + r
+    else:
+        o = mb * 16 + r
+        p = (t ^ (1 if lay.swz and r & 4 else 0)) if pw in (2, 3) else pos
+        i, j = divmod(p, pw)
+    valid = o < sl.n_wr * sl.n_wc
+    wr, wc = divmod(o if valid else 0, sl.n_wc)
+    return (wr * ps + i) * sl.stride * lay.rs + (wc * ps + j) * lay.cs, (o if valid else None)
+
+
+def int8_w_offset(lay: Int8Layer, kk: int, n: int) -> int:
+    """Byte of staged weight (K index ``kk``, channel ``n``): row n, its
+    16-byte chunks swizzled within each 128-byte group (``sc_wchunk``)."""
+    chunk, b = divmod(kk, 16)
+    return n * lay.w_row + (chunk ^ ((n ^ (n >> 4)) & 7)) * 16 + b
+
+
+def int8_wavefronts(lay: Int8Layer, sl: Int8Slab, tasks: int = 4) -> int:
+    """Shared-memory wavefronts of the A loads of the first ``tasks``
+    m-tasks' first K step: per ``ldmatrix`` phase (eight rows of 16
+    bytes), the most distinct rows on one of the eight 16-byte bank
+    groups; per 32-bit word load, the most distinct words on one bank."""
+    mt, per = int8_tiles(sl.pw)
+    m_tasks = min(tasks, -(-(sl.n_wr * sl.n_wc) // per))
+    taps = int8_taps(lay, sl.k, sl.stride)
+    total = 0
+    for mb in range(m_tasks):
+        for t in range(mt):
+            rows = [int8_row_base(lay, sl, mb, t, r)[0] for r in range(16)]
+            if lay.ldm:
+                for half in (rows[:8], rows[8:]):
+                    total += _most_on_one_bank({b // 16 for b in half}, 8)
+                continue
+            for r0, tap0 in ((0, 0), (8, 0), (0, 4), (8, 4)):
+                words = {(rows[r0 + g] + taps[tap0 + tig]) // 4 for g in range(8)
+                         for tig in range(4)}
+                total += _most_on_one_bank(words, 32)
+    return total
+
+
+def _most_on_one_bank(units, banks: int) -> int:
+    counts = [0] * banks
+    for u in units:
+        counts[u % banks] += 1
+    return max(counts)
+
+
+def int8_nt(pw: int, n: int, n_outputs: int) -> int:
+    """n8 tiles per warp task: the most the pool window's kernel compiles
+    that still gives each of a CTA's eight warps a task, else the
+    fewest."""
+    choices = I8_TILES_N.get(pw or 1, (1,))
+    m_tasks = -(-n_outputs // int8_tiles(pw)[1])
+    n_tiles = -(-n // 8)
+    for nt in choices:
+        if nt <= n_tiles and m_tasks * -(-n_tiles // nt) >= THREADS // 32:
+            return nt
+    return choices[-1]
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_layer(sl: Int8Slab) -> Int8Layer:
+    """The int8 layout of one layer: the column stride (C rounded up to
+    16, or 16 more, on the ldmatrix path; C rounded up to 4 on the word
+    path), the row pad and, at pool window 2, the position swizzle that
+    put the A loads in the fewest wavefronts (``int8_wavefronts``), then
+    the fewest bytes."""
+    ldm = sl.c % 16 == 0
+    cpad = sl.c if ldm else round_up(sl.c, 4)
+    kdim = sl.k * sl.k * cpad
+    kpad = round_up(kdim, MMA_K)
+    q = -(-sl.cols // sl.stride)
+    nt = int8_nt(sl.pw, sl.n, sl.n_wr * sl.n_wc)
+    fixed = dict(cpad=cpad, q=q, rows=sl.rows, kdim=kdim, kpad=kpad, nt=nt,
+                 n_pad=round_up(sl.n, 8 * nt), w_row=round_up(kpad, W_ROW_ALIGN))
+    col_strides = (cpad, cpad + 16) if ldm else (cpad,)
+    step = 16 if ldm else 4
+    best = None
+    for cs in col_strides:
+        for pad in range(0, 128 if ldm else 64, step):
+            for swz in ((0, 1) if sl.pw == 2 else (0,)):
+                lay = Int8Layer(cs=cs, rs=sl.stride * q * cs + pad, swz=swz, **fixed)
+                key = (int8_wavefronts(lay, sl), lay.slab_bytes, swz)
+                if best is None or key < best[0]:
+                    best = (key, lay)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def int8_layout(slabs: tuple) -> Int8Layout:
+    """The int8 kernels' shared memory for a block of layers (one for the
+    single-layer kernel): layer i's slab in buffer i % 2, one tap table
+    and one layer's staged weights, each region on a 16-byte boundary.
+    Every sizing of an int8 block (``pyramid_smem_bytes``,
+    ``fused_geometry``, ``card_groups`` and the compiler's sizing of
+    singletons) goes through here."""
+    layers = tuple(int8_layer(sl) for sl in slabs)
+    bufs = [0, 0]
+    for i, lay in enumerate(layers):
+        bufs[i % 2] = max(bufs[i % 2], round_up(lay.slab_bytes, 16))
+    taps = round_up(4 * max(lay.kpad // lay.grain for lay in layers), 16)
+    tap_off = bufs[0] + bufs[1]
+    wst_off = tap_off + taps
+    return Int8Layout(layers=layers, buf0=bufs[0], buf1=bufs[1], tap_off=tap_off,
+                      wst_off=wst_off, smem=wst_off + max(lay.w_bytes for lay in layers))
+
+
+# ---------------------------------------------------------------------------
 # Single-layer fused conv.
 
 
@@ -297,21 +538,21 @@ def fused_geometry(h: int, wd: int, c: int, *, k: int, stride: int,
     (first input column, end, first output column, end) per launch; one
     strip of the whole frame unless ``block_w``, conv columns per strip as
     the reference rounds them, is narrower than the conv output) and the
-    block's shared-memory bytes for the widest strip. At ``elem_bytes=1``
-    (the int8 kernel) that is the slab at one byte per element; at 4 (the
-    fp32 kernel, which needs ``n_out``) the slab with ``column_stride``
-    words per column, the tap table and two weight stages of ``n_slice``
-    channels (default ``n_out``), laid out as the returned word offsets
-    say. Halves the row block toward the multiple until it fits; raises if
-    even that does not."""
+    block's shared-memory bytes for the widest strip, for ``n_slice``
+    output channels (default ``n_out``). At ``elem_bytes=4`` (the fp32
+    kernel) the slab with ``column_stride`` words per column, the tap
+    table and two weight stages, laid out as the returned word offsets
+    say; at 1 (the int8 kernel) the block's ``int8_layout``, whose byte
+    offsets and per-layer fields are returned. Halves the row block toward
+    the multiple until it fits; raises if even that does not."""
     pw, ps = normalize_pool(pool, pool_stride)
     s = stride
     h_out, w_out = (h - k) // s + 1, (wd - k) // s + 1
     h_keep = pool_out_dim(h_out, pw, ps) if pw else h_out
     w_keep = pool_out_dim(w_out, pw, ps) if pw else w_out
     mult, _, overlap = _block_multiple(k, s, pw, ps)
-    if elem_bytes == 4 and n_out is None:
-        raise ValueError("fused_geometry needs n_out to size the fp32 kernel's weight stages")
+    if n_out is None:
+        raise ValueError("fused_geometry needs n_out to size the kernels' weight stages")
     ns = n_out if n_slice is None else n_slice
     wc = round_up(max(block_w if block_w > 0 else w_out, mult), mult)
     if wc >= w_out:
@@ -324,9 +565,16 @@ def fused_geometry(h: int, wd: int, c: int, *, k: int, stride: int,
 
     def layout(r):
         in_rows = (r + overlap - 1) * s + k
-        if elem_bytes == 1:
-            return in_rows, {}, in_rows * cols_in * c
         r_o = r // ps if pw else r
+        if elem_bytes == 1:
+            lay = int8_layout((Int8Slab(rows=in_rows, cols=cols_in, c=c, k=k, stride=s, pw=pw,
+                                        ps=ps, n=ns, n_wr=r_o, n_wc=cols_keep),))
+            (li,) = lay.layers
+            tasks = -(-r_o * cols_keep // int8_tiles(pw)[1]) * -(-ns // (8 * li.nt))
+            i8 = dict(threads=32 * min(THREADS // 32, tasks), cs=li.cs, rs=li.rs, tn=li.nt,
+                      np=li.n_pad, q=li.q, cpad=li.cpad, kpad=li.kpad, wrow=li.w_row,
+                      swz=li.swz, tap_off=lay.tap_off, wst_off=lay.wst_off)
+            return in_rows, i8, lay.smem
         tn, threads = fused_tile(pw, ns, r_o * cols_keep)
         np_, stage = _stage_words(ns, tn)
         cs = column_stride(c)
@@ -362,10 +610,11 @@ def fused_plan(h: int, wd: int, c: int, *, k: int, stride: int, pool: int,
                elem_bytes: int = 4) -> dict:
     """The single-layer launcher's ``fused_geometry``: the caller's
     ``block_w`` where the smallest row block fits in shared memory, else
-    column strips halved until one fits, then (fp32) slices of the output
+    column strips halved until one fits, then slices of the output
     channels halved until one fits. Raises where even one strip of the
-    narrowest legal width and one slice of four channels do not fit (a
-    tap table of K * K * C words above the block, about 58,000)."""
+    narrowest legal width and one slice of four (fp32) or eight (int8)
+    channels do not fit (fp32: a tap table of K * K * C words above the
+    block, about 58,000)."""
     pw, ps = normalize_pool(pool, pool_stride)
     mult = _block_multiple(k, stride, pw, ps)[0]
     w_out = (wd - k) // stride + 1
@@ -376,9 +625,9 @@ def fused_plan(h: int, wd: int, c: int, *, k: int, stride: int, pool: int,
     while wc > mult:
         wc = max(mult, round_up(wc // 2, mult))
         widths.append(wc)
-    slices = [n_out]
-    while elem_bytes == 4 and slices[-1] > 4:
-        slices.append(round_up(-(-slices[-1] // 2), 4))
+    slices, step = [n_out], 4 if elem_bytes == 4 else 8  # fp32 float4s, int8 n8 tiles
+    while slices[-1] > step:
+        slices.append(round_up(-(-slices[-1] // 2), step))
     err = None
     for ns in slices:
         for bw in widths:
@@ -454,9 +703,12 @@ def stream_conv_fused_cuda(
         x_img=h * wd * c, out_img=g["h_keep"] * g["w_keep"] * n, x_rs=wd * c,
         out_rs=g["w_keep"] * n, out_cs=n, w_ld=n,
     )
-    if not int8:
-        common.update(threads=g["threads"], cs=g["cs"], rs=g["rs"], tn=g["tn"], np=g["np"],
-                      tap_off=g["tap_off"], wst_off=g["wst_off"], wst_elems=g["wst_elems"])
+    common.update(threads=g["threads"], cs=g["cs"], rs=g["rs"], tn=g["tn"], np=g["np"],
+                  tap_off=g["tap_off"], wst_off=g["wst_off"])
+    if int8:
+        common.update(q=g["q"], cpad=g["cpad"], kpad=g["kpad"], wrow=g["wrow"], swz=g["swz"])
+    else:
+        common.update(wst_elems=g["wst_elems"])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for in_lo, in_hi, o_lo, o_hi in g["strips"]:
@@ -477,20 +729,24 @@ def stream_conv_fused_cuda(
 # Cross-layer fused pyramid.
 
 
-def pyramid_buffers(geom, elem_bytes: int = 4) -> tuple:
-    """Elements of the int8 kernel's two ping-pong slab buffers: buffer
-    i % 2 holds layer i's whole halo'd, column-padded input slab (layer
-    0's read from the frame, later ones written by the previous layer's
-    epilogue), C elements per column. With 1-byte elements the first
-    buffer is rounded up to ``INT8_BUF_ALIGN`` so the second starts
-    aligned. (The fp32 kernel's layout is ``pyramid_layout``.)"""
-    bufs = [0, 0]
-    for i, g in enumerate(geom.layers):
-        cols = g.in_cols + g.pads[1][0] + g.pads[1][1]
-        bufs[i % 2] = max(bufs[i % 2], g.in_slab_rows * cols * g.in_ch)
-    if elem_bytes == 1:
-        bufs[0] = round_up(bufs[0], INT8_BUF_ALIGN)
-    return tuple(bufs)
+def int8_pyramid_slabs(geom) -> tuple:
+    """The int8 pyramid's layers as ``Int8Slab``s: each slab holds the
+    rows ``pyramid_rows`` says the widest row block reads (the fp32
+    kernel's walk), each layer's tiles sized for the most outputs a block
+    computes."""
+    per_block = [pyramid_rows(geom, rb) for rb in range(geom.n_row_blocks)]
+    return tuple(
+        Int8Slab(rows=max(r[i][3] - r[i][2] for r in per_block),
+                 cols=g.in_cols + g.pads[1][0] + g.pads[1][1], c=g.in_ch, k=g.k,
+                 stride=g.stride, pw=g.pw, ps=g.ps, n=g.n_out,
+                 n_wr=max(r[i][1] - r[i][0] for r in per_block), n_wc=g.out_cols)
+        for i, g in enumerate(geom.layers))
+
+
+@functools.lru_cache(maxsize=256)
+def int8_pyramid_layout(geom) -> Int8Layout:
+    """The int8 pyramid kernel's ``int8_layout`` for a group geometry."""
+    return int8_layout(int8_pyramid_slabs(geom))
 
 
 def pyramid_rows(geom, rb: int) -> tuple:
@@ -577,9 +833,9 @@ def pyramid_layout(geom) -> PyramidLayout:
 def pyramid_smem_bytes(geom, elem_bytes: int = 4) -> int:
     """Shared memory one pyramid block needs for this group geometry: the
     fp32 kernel's ``pyramid_layout`` at ``elem_bytes=4``, the int8
-    kernel's ``pyramid_buffers`` at 1."""
+    kernel's ``int8_pyramid_layout`` at 1."""
     if elem_bytes == 1:
-        return sum(pyramid_buffers(geom, 1))
+        return int8_pyramid_layout(geom).smem
     return pyramid_layout(geom).smem
 
 
@@ -644,12 +900,17 @@ def card_groups(h: int, w: int, c: int, layers, kernels, n_outs, groups, *,
 
 
 def _pyramid_desc(x, weights, biases, out, geom, act_bits, int8_scales) -> _ScPyramid:
-    lay = None if int8_scales is not None else pyramid_layout(geom)
+    int8 = int8_scales is not None
+    lay = int8_pyramid_layout(geom) if int8 else pyramid_layout(geom)
     layer_descs = []
     for i, (g, w, b) in enumerate(zip(geom.layers, weights, biases)):
-        fp32 = {} if lay is None else dict(
-            cs=lay.cs[i], rs=lay.rs[i], tn=lay.tn[i], np=lay.np[i], wvec=_weights_16b(w),
-        )
+        if int8:
+            li = lay.layers[i]
+            fields = dict(cs=li.cs, rs=li.rs, tn=li.nt, np=li.n_pad, q=li.q, cpad=li.cpad,
+                          kpad=li.kpad, wrow=li.w_row, swz=li.swz)
+        else:
+            fields = dict(cs=lay.cs[i], rs=lay.rs[i], tn=lay.tn[i], np=lay.np[i],
+                          wvec=_weights_16b(w))
         layer_descs.append(
             _ScLayer(
                 w=w.data_ptr(), b=b.data_ptr(), k=g.k, stride=g.stride,
@@ -660,19 +921,16 @@ def _pyramid_desc(x, weights, biases, out, geom, act_bits, int8_scales) -> _ScPy
                 out_cols=g.out_cols, n_out=g.n_out,
                 in_mult=g.in_mult, in_off=g.in_off,
                 in_slab_rows=g.in_slab_rows, out_slab_rows=g.out_slab_rows,
-                deq=1.0 if int8_scales is None else int8_scales[i].deq_scale,
-                **fp32,
+                deq=int8_scales[i].deq_scale if int8 else 1.0,
+                **fields,
             )
         )
-    fp32 = {} if lay is None else dict(
-        buf0_elems=lay.buf0, tap_off=lay.tap_off, wst_off=lay.wst_off,
-        wst_elems=lay.wst_elems,
-    )
     desc = _ScPyramid(
         x=x.data_ptr(), out=out.data_ptr(), batch=x.shape[0],
         n_layers=len(geom.layers), n_rb=geom.n_row_blocks,
         block_rows=geom.block_rows, out_rows=geom.out_rows,
-        **(fp32 or dict(buf0_elems=pyramid_buffers(geom, 1)[0])),
+        buf0_elems=lay.buf0, tap_off=lay.tap_off, wst_off=lay.wst_off,
+        wst_elems=0 if int8 else lay.wst_elems,
     )
     for i, d in enumerate(layer_descs):
         desc.L[i] = d

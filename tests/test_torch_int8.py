@@ -450,30 +450,53 @@ def test_engine_per_layer_rung_on_int8_plan_equals_fused_rung(name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_int8_kernels_count_one_byte_per_slab_element(name):
-    """The int8 pyramid's slabs at the int8 plan's block: a quarter of the
-    fp32 bytes, the second buffer starting on a 16-byte boundary (cifar10:
-    6,480 + 17,920 = 24,400 B); the single-layer slab likewise."""
+    """The int8 pyramid's slabs at the int8 plan's block hold one byte per
+    channel: a column of C bytes padded to the ldmatrix path's 16-byte
+    multiple (plus 16 where that clears bank conflicts) or the word path's
+    4, the stride's phases of columns, rows of the rows the fp32 walk
+    computes; each buffer on a 16-byte boundary, then the tap table and
+    one layer's staged weights (cifar10: 7,344 + 19,200 + 208 + 57,344 =
+    84,096 B, two CTAs an SM). The single-layer block likewise, at the
+    fp32 kernel's row block."""
     tt = TORCH_TOPOLOGIES[name]
     (grp,) = tfusion.plan_fusion_groups(tt, tuple(range(len(tt.conv_layers))), elem_bytes=1)
     geom = tfusion._group_geom(tt, grp.layers, grp.block_rows)
-    buf0, buf1 = kconv.pyramid_buffers(geom, 1)
-    assert buf0 % kconv.INT8_BUF_ALIGN == 0
-    assert buf0 - kconv.INT8_BUF_ALIGN < kconv.pyramid_buffers(geom)[0] <= buf0
-    assert kconv.pyramid_smem_bytes(geom, 1) == buf0 + buf1 <= kconv.SMEM_LIMIT
+    lay = kconv.int8_pyramid_layout(geom)
+    buf0, buf1 = lay.buf0, lay.buf1
+    assert buf0 % 16 == buf1 % 16 == 0
+    fp32 = kconv.pyramid_layout(geom)
+    for i, (g, li) in enumerate(zip(geom.layers, lay.layers)):
+        cols = g.in_cols + sum(g.pads[1])
+        assert li.cpad == (g.in_ch if g.in_ch % 16 == 0 else -(-g.in_ch // 4) * 4)
+        assert li.cs - li.cpad in ((0, 16) if li.ldm else (0,))
+        assert li.q == -(-cols // g.stride)
+        assert li.rs - g.stride * li.q * li.cs in range(0, 128)
+        assert li.rows == fp32.slab_rows[i]
+        assert (buf0, buf1)[i % 2] >= li.rows * li.rs
+    assert buf0 == max(-(-li.slab_bytes // 16) * 16 for li in lay.layers[0::2])
+    assert kconv.pyramid_smem_bytes(geom, 1) == lay.smem <= kconv.SMEM_LIMIT
+    assert lay.smem == buf0 + buf1 + (lay.wst_off - lay.tap_off) + max(
+        li.w_bytes for li in lay.layers)
     if name in ("cifar10", "svhn"):
-        assert kconv.pyramid_smem_bytes(geom, 1) == 24_400
+        assert (buf0, buf1, lay.smem) == (7_344, 19_200, 84_096)
+        assert 2 * (lay.smem + 1024) <= 228 * 1024
     h, w = tt.input_shape
     spec = tt.conv_layers[0]
     kw = dict(k=spec.kernel, stride=spec.stride, pool=spec.pool, pool_stride=spec.pool_stride,
-              block_r=8)
+              block_r=8, n_out=spec.n_out)
     c = tt.input_channels
-    g4 = kconv.fused_geometry(h + 4, w + 4, c, n_out=spec.n_out, **kw)
+    g4 = kconv.fused_geometry(h + 4, w + 4, c, **kw)
     g1 = kconv.fused_geometry(h + 4, w + 4, c, elem_bytes=1, **kw)
     assert g1["r"] == g4["r"] and g1["in_rows_blk"] == g4["in_rows_blk"]
-    assert g1["smem"] == g1["in_rows_blk"] * (w + 4) * c
+    q = -(-(w + 4) // spec.stride)
+    assert g1["cpad"] == 4 and g1["cs"] == 4 and g1["q"] == q
+    assert g1["rs"] - spec.stride * q * 4 in range(0, 64, 4)
+    assert g1["tap_off"] == -(-g1["in_rows_blk"] * g1["rs"] // 16) * 16
+    assert g1["wst_off"] - g1["tap_off"] == 4 * g1["kpad"] // 4 == 128 == g1["wrow"]
+    assert g1["smem"] == g1["wst_off"] + g1["np"] * g1["wrow"]
     # The fp32 kernel: the slab at 4 bytes (an odd C keeps its column
     # stride, a row takes at most 31 words of pad), then the tap table and
     # the weight stages.
     assert g4["cs"] == c and g4["rs"] - (w + 4) * c in range(32)
     assert g4["tap_off"] == -(-g4["in_rows_blk"] * g4["rs"] // 4) * 4
-    assert g4["smem"] == 4 * (g4["wst_off"] + 2 * g4["wst_elems"]) > 4 * g1["smem"]
+    assert g4["smem"] == 4 * (g4["wst_off"] + 2 * g4["wst_elems"]) > g1["smem"]

@@ -268,3 +268,79 @@ def test_scan_plan_takes_a_compiled_tile_for_every_n():
 def test_scan_plan_refuses_what_no_kernel_takes():
     with pytest.raises(ValueError, match="at most 512 states"):
         _scan(1, 4, 8, 513)
+
+
+# ---------------------------------------------------------------------------
+# The int8 conv kernels' tiles and plans (conv.int8_layer, int8_layout).
+
+from repro_torch.core.dhm import QuantSpec, compile_dhm  # noqa: E402
+from repro_torch.core.dhm import compiler as tcompiler  # noqa: E402
+from repro_torch.core.dhm import fusion as tfusion  # noqa: E402
+from repro_torch.kernels.stream_conv import conv as kconv  # noqa: E402
+from repro_torch.models.cnn import ALL_TOPOLOGIES, init_cnn  # noqa: E402
+
+INT8_QUANT = QuantSpec(weight_bits=8, act_bits=8, int8_compute=True)
+
+
+@pytest.mark.parametrize("name", sorted(ALL_TOPOLOGIES))
+@pytest.mark.parametrize("vmem_budget", [None, 0])
+def test_every_planned_int8_group_fits_and_keeps_the_reference_groups(name, vmem_budget):
+    """The five topologies' int8 plans: the card's groups are the
+    reference's, each multi-layer group's pyramid fits a Hopper block at
+    the reference's block_rows, and each singleton's single-layer launch
+    fits (sized as the launcher sizes it)."""
+    topo = ALL_TOPOLOGIES[name]
+    params = init_cnn(torch.Generator().manual_seed(0), topo, device="cpu")
+    plan = compile_dhm(topo, params, quant=INT8_QUANT, vmem_budget=vmem_budget, device="cpu")
+    idxs = tuple(range(len(topo.conv_layers)))
+    card = tcompiler.card_fusion_groups(topo, idxs, plan.fusion_groups, elem_bytes=1)
+    assert card == tuple(plan.fusion_groups)
+    h, w = topo.input_shape
+    dims = [(h, w, topo.input_channels)]
+    for spec in topo.conv_layers:
+        dims.append((*spec.out_hw(*dims[-1][:2]), spec.n_out))
+    for g in card:
+        if g.fused:
+            geom = tfusion._group_geom(topo, g.layers, g.block_rows)
+            assert kconv.pyramid_smem_bytes(geom, 1) <= kconv.SMEM_LIMIT
+            continue
+        (li,) = g.layers
+        spec = topo.conv_layers[li]
+        hp, wp = khalo.padded_frame(*dims[li][:2], spec.kernel, spec.stride, spec.padding)
+        fp = kconv.fused_plan(hp, wp, dims[li][2], k=spec.kernel, stride=spec.stride,
+                              pool=spec.pool, pool_stride=spec.pool_stride, block_r=8,
+                              n_out=spec.n_out, elem_bytes=1)
+        assert fp["smem"] <= kconv.SMEM_LIMIT
+        assert len(fp["strips"]) == len(fp["slices"]) == 1
+
+
+def test_int8_tiles_give_every_warp_of_cifar10_a_task():
+    """cifar10's int8 pyramid at B=256 (one whole-frame block an image):
+    4 n8 tiles a task at layer 0 (16 window sets), 2 at layer 1 (4 sets
+    of 32 channels), 1 at layer 2 (one set of 64): at least 8 tasks a
+    layer for the CTA's 8 warps; two CTAs fit an SM."""
+    topo = ALL_TOPOLOGIES["cifar10"]
+    geom = tfusion._group_geom(topo, (0, 1, 2), 0)
+    lay = kconv.int8_pyramid_layout(geom)
+    assert [li.nt for li in lay.layers] == [4, 2, 1]
+    for i, (g, li) in enumerate(zip(geom.layers, lay.layers)):
+        olo, ohi = kconv.pyramid_rows(geom, 0)[i][:2]
+        m_tasks = -(-(ohi - olo) * g.out_cols // kconv.int8_tiles(g.pw)[1])
+        assert m_tasks * -(-g.n_out // (8 * li.nt)) >= kconv.THREADS // 32
+    assert 2 * (lay.smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("pw", [0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n", [8, 20, 50, 64, 1024])
+@pytest.mark.parametrize("outputs", [1, 16, 64, 256])
+def test_int8_nt_is_an_instantiated_tile(pw, n, outputs):
+    """The host picks only n8 tiles the source instantiates for the pool
+    window (sc_gemm_i8_pick), and the staged rows cover every task's
+    tiles."""
+    nt = kconv.int8_nt(pw, n, outputs)
+    assert nt in kconv.I8_TILES_N.get(pw or 1, (1,))
+    sl = kconv.Int8Slab(rows=8, cols=8, c=16, k=3, stride=1, pw=pw, ps=pw or 1, n=n, n_wr=1,
+                        n_wc=outputs)
+    lay = kconv.int8_layer(sl)
+    groups = -(-(-(-n // 8)) // lay.nt)
+    assert groups * lay.nt * 8 <= lay.n_pad

@@ -647,6 +647,93 @@ def test_seed_conv_over_column_strips(card, b, h, w, c, n, k):
     _assert_matches(out, stream_conv2d_ref(x, wt), None, f"seed strips {(b, h, w, c, n, k)}")
 
 
+# (C, N, K, stride, pool, pool_stride) of one int8 layer at every path the
+# int8 kernels compile: the ldmatrix path (C of 16, 32, 48, 64) and the
+# word path (C of 1, 3, 4, 20); pool windows 2, 3, none, one position at
+# stride 2, and 4 (the run-time window); stride 2; N of 20 and 50; K not a
+# multiple of 32 (75, 500, 48, 36, 144).
+INT8_PATH_CASES = (
+    (32, 32, 5, 1, 2, None), (64, 64, 3, 1, 2, None), (32, 64, 3, 2, 0, None),
+    (3, 32, 5, 2, 0, None), (1, 20, 5, 1, 2, None), (20, 50, 5, 1, 2, None),
+    (32, 32, 5, 1, 3, 2), (3, 32, 5, 1, 3, 2), (16, 24, 3, 1, 4, 2), (4, 20, 3, 1, 4, None),
+    (48, 24, 1, 1, 0, None), (16, 12, 3, 1, 1, 2),
+)
+
+
+@pytest.mark.parametrize("case", INT8_PATH_CASES,
+                         ids=lambda c: "c{}_n{}_k{}_s{}_p{}_{}".format(*c))
+def test_int8_kernels_at_every_compiled_path(card, case):
+    """Both int8 kernels bit for bit against their plain versions: the
+    layer alone through the single-layer kernel, then as the first of a
+    two-layer pyramid at a row block below the frame (2 rows) and at the
+    whole frame."""
+    c, n, k, stride, pool, pool_stride = case
+    x = _frames(card, 20, 3, 19, 22, c)
+    wt, sc = _bake_int8(_frames(card, 21, k, k, c, n) * (2.0 / (k * k * c)) ** 0.5, 8)
+    b = _frames(card, 22, 1, 1, 1, n).reshape(n) * 0.1
+    kw = dict(padding="SAME", stride=stride, act="relu", pool=pool, pool_stride=pool_stride,
+              act_bits=8, int8_scales=Int8Scales(in_bits=8, w_scale=sc))
+    before = kconv.LAUNCHES["stream_conv_fused_int8"]
+    out = stream_conv_block(x, wt, b, **kw)
+    assert kconv.LAUNCHES["stream_conv_fused_int8"] == before + 1
+    _assert_int8_matches(out, stream_conv_block_ref(x, wt, b, **kw), 8, "relu", f"single {case}")
+    layers = [ConvLayerSpec(n_out=n, kernel=k, padding="SAME", stride=stride, act="relu",
+                            pool=pool, pool_stride=pool_stride),
+              ConvLayerSpec(n_out=8, kernel=3, padding="SAME", act="relu", pool=0)]
+    w2, sc2 = _bake_int8(_frames(card, 23, 3, 3, n, 8) * (2.0 / (9 * n)) ** 0.5, 8)
+    ws, bs = [wt, w2], [b, _frames(card, 24, 1, 1, 1, 8).reshape(8) * 0.1]
+    scales = (Int8Scales(in_bits=8, w_scale=sc), Int8Scales(in_bits=8, w_scale=sc2))
+    ref = stream_conv_pyramid_ref(x, ws, bs, layers=as_pyramid_layers(layers), act_bits=8,
+                                  int8_scales=scales)
+    for block_rows in (2, 0):
+        before = kconv.LAUNCHES["stream_conv_pyramid_int8"]
+        out = stream_conv_pyramid(x, ws, bs, layers=layers, act_bits=8, int8_scales=scales,
+                                  block_rows=block_rows)
+        assert kconv.LAUNCHES["stream_conv_pyramid_int8"] == before + 1
+        _assert_int8_matches(out, ref, 8, "relu", f"pyramid {case} block_rows {block_rows}")
+
+
+def _byte_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``offset`` bytes into its
+    storage (int8 tensors)."""
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 4 == offset % 4
+    return view
+
+
+@pytest.mark.parametrize("x_off,w_off", [(1, 0), (2, 3), (3, 1), (0, 2)])
+def test_int8_kernels_read_byte_views_at_any_offset(card, x_off, w_off):
+    """Frame and weight codes as contiguous views 1-3 bytes into their
+    storage: the kernels read them 32 bits at a time only where the
+    pointer and the rows allow, byte by byte otherwise, and agree with the
+    plain versions bit for bit (C = 32 and N = 32: rows whole words)."""
+    from repro_torch.kernels.stream_conv.ops import _pad_same
+
+    x = _frames(card, 25, 2, 12, 14, 32)
+    sc_in = Int8Scales(in_bits=8, w_scale=1.0)
+    codes = quantize_fixed(x, sc_in.in_spec).to(torch.int8)
+    wt, sc = _bake_int8(_frames(card, 26, 3, 3, 32, 32) * 0.08, 8)
+    w2, sc2 = _bake_int8(_frames(card, 27, 3, 3, 32, 16) * 0.08, 8)
+    b, b2 = _frames(card, 28, 1, 1, 1, 32).reshape(32) * 0.1, torch.zeros(16, device=card)
+    scales = (Int8Scales(in_bits=8, w_scale=sc), Int8Scales(in_bits=8, w_scale=sc2))
+    kw = dict(act="relu", pool=2, act_bits=8, int8_scales=scales[0])
+    padded = _pad_same(codes, 3).contiguous()
+    out = kconv.stream_conv_fused_cuda(_byte_view(padded, x_off), _byte_view(wt, w_off), b, **kw)
+    ref = stream_conv_block_ref(padded, wt, b, padding="VALID", **kw)
+    _assert_int8_matches(out, ref, 8, "relu", f"single layer x+{x_off} w+{w_off}")
+    layers = [ConvLayerSpec(n_out=32, kernel=3, padding="SAME", act="relu", pool=2),
+              ConvLayerSpec(n_out=16, kernel=3, padding="SAME", act="relu", pool=0)]
+    geom = group_geometry(12, 14, 32, as_pyramid_layers(layers), (3, 3), (32, 16))
+    out = kconv.stream_conv_pyramid_cuda(
+        _byte_view(codes, x_off), [_byte_view(wt, w_off), _byte_view(w2, (w_off + 1) % 4)],
+        [b, b2], geom=geom, act_bits=(8, 8), int8_scales=scales)
+    ref = stream_conv_pyramid_ref(codes, [wt, w2], [b, b2], layers=as_pyramid_layers(layers),
+                                  act_bits=8, int8_scales=scales)
+    _assert_int8_matches(out, ref, 8, "relu", f"pyramid x+{x_off} w+{w_off}")
+
+
 # ---------------------------------------------------------------------------
 # Plans the card refused before: five fused layers, any pool window, frames
 # wider than one block, weight stages wider than one block.
@@ -656,6 +743,7 @@ def test_seed_conv_over_column_strips(card, b, h, w, c, n, k):
     ("column strips", (2, 8, 20004, 3), 8, 0, False), ("column strips", (2, 8, 20004, 3), 8, 0, True),
     ("block_w", (2, 20, 90, 5), 12, 24, False), ("block_w", (2, 20, 90, 5), 12, 24, True),
     ("channel slices", (2, 12, 12, 8), 1024, 0, False),
+    ("channel slices", (2, 12, 12, 8), 2048, 0, True),
 ])
 def test_single_layer_kernel_over_strips_and_slices(card, what, frame, n, block_w, int8):
     b_, h, w, c = frame
