@@ -48,6 +48,18 @@ Phases (each asserts or exits non-zero):
      launched once per layer per call, the plain scan never called;
   5d. the seed conv's own path, what the kernel bench runs on it: the
      seed kernel beside the single-layer kernel on cifar10 conv1;
+  5e. multi-tenant serving under faults: verify_plan (plan and structure
+     scopes) finds no error on every card plan the script builds; NaN
+     quantizes to code 0 on the card as on the CPU, also through plan
+     (b)'s integer head; then one Router serves cifar10 at full width to
+     tenants "fp32" (the fused plan, weight 1) and "int8" (plan (b),
+     weight 3) from 4 submitter threads, 48 requests of 1-256 frames each
+     with 10 s deadlines, under faults scoped to "int8" (a dispatch error
+     one retry heals, then a stall past its 2 s watchdog that demotes it
+     to per_layer), with "fp32" hot-swapped to a seed-1 plan in flight and
+     rolled back, and swaps to a NaN-weight plan (V301) and a lenet5 plan
+     (serving surface) refused; every answer equals a direct call of the
+     plan and rung that served it, the plain versions are never called;
   6. time each kernel, its plain version and the library call with CUDA
      events at main-path shapes, beside the card's bound; the fp32 and
      int8 conv kernels, pow2_matmul, the seed conv and their library calls
@@ -56,7 +68,8 @@ Phases (each asserts or exits non-zero):
      launch (enqueue, no synchronise); the int8 convs also beside
      torch._int_mm of each layer's unfolded codes (the int8 products
      alone, device time); then the plans,
-     and one serving micro-batch piece by piece; the selective scan by
+     and one serving micro-batch piece by piece, and the Engine's host
+     split (submit, packing, watchdog, _stage, enqueue, _sync); the selective scan by
      its device time at the prefill, decode and one-sequence shapes, with
      the lanes its plan takes; then the LM's prefill and
      decode step, with their device time by kernel;
@@ -66,8 +79,9 @@ The launch counts are zeroed just before phase 4 and read just after
 phase 5 (the fp32 path), zeroed just before phase 4b and read just after
 phase 5b (the int8 and pow2 path), zeroed just before phase 4c's kernel
 runs and read just after phase 5c (the LM path), and zeroed just before
-phase 5d and read just after it: they show that each path went through
-its kernels. Reference outputs that need kernel launches are computed
+phase 5d and read just after it, and zeroed just before phase 5e's
+traffic and read just after it: they show that each path went through
+its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
 before a path's counts are zeroed.
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -77,6 +91,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -135,6 +150,10 @@ SFU_PER_CLOCK_PER_SM, N_SMS, BOOST_CLOCK_HZ = 16, 132, 1.98e9
 LM_ARCH = "falcon-mamba-7b"
 LM_GATE_BATCH, LM_GATE_LEN = 2, 256  # the fp32 gate's prompt
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 32  # bf16 serving
+# Phase 5e: requests per tenant, submitter threads, the requests' deadline
+# and the int8 tenant's watchdog.
+MT_REQUESTS, MT_SUBMITTERS, MT_DEADLINE_MS, MT_DISPATCH_TIMEOUT_S = 48, 4, 10_000.0, 2.0
+HOST_SPLIT_BATCHES = 40  # phase 6: micro-batches the Engine's host split averages
 
 
 def regroup_topologies(cnn) -> dict:
@@ -175,14 +194,26 @@ def main() -> None:
 
     import dataclasses
 
+    from repro_torch.analysis.verify import verify_plan
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core.dhm import Engine, QuantSpec, compile_dhm
+    from repro_torch.core.dhm import (
+        DispatchError,
+        Engine,
+        FaultPlan,
+        QuantSpec,
+        Router,
+        StalledDispatch,
+        SwapRejected,
+        compile_dhm,
+    )
+    from repro_torch.core.dhm.pipeline import join_watchdogs
     from repro_torch.core.dhm.fusion import plan_fusion_groups
     from repro_torch.core.quant.fixed_point import dynamic_spec, quantize_fixed
     from repro_torch.core.quant.packing import unpack_codes_u4
     from repro_torch.core.quant.pow2 import decode_pow2
     from repro_torch.kernels import _nvcc
+    from repro_torch.kernels.pow2_matmul import ops as kpow2_ops
     from repro_torch.kernels.pow2_matmul import pow2 as kpow2
     from repro_torch.kernels.pow2_matmul import (
         pow2_matmul,
@@ -194,6 +225,7 @@ def main() -> None:
     from repro_torch.kernels.ssm_scan import scan as kscan
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
     from repro_torch.kernels.stream_conv import conv as kconv
+    from repro_torch.kernels.stream_conv import ops as kconv_ops
     from repro_torch.kernels.stream_conv import legacy as klegacy
     from repro_torch.kernels.stream_conv import (
         stream_conv2d,
@@ -457,6 +489,7 @@ def main() -> None:
     # versions): equal, but where tanh follows (counted, as in phase 3).
     from repro_torch.models import cnn as tcnn
 
+    card_plans = []  # (what, plan) of every card plan the script builds: phase 5e verifies them
     for name, topo in regroup_topologies(tcnn).items():
         h, w = topo.input_shape
         x = randn(REGROUP_BATCH, h, w, topo.input_channels)
@@ -484,6 +517,7 @@ def main() -> None:
         tanh = any(spec.act == "tanh" for spec in topo.conv_layers)
         err8, off8 = compare_int8(feats8.cpu(), want8, "tanh" if tanh else "relu",
                                   f"{name} int8 plan")
+        card_plans += [(f"3d {name} fp32", rplan), (f"3d {name} int8", plan8)]
         print(f"[3d] {name} ({topo.input_shape} x {topo.input_channels}, {len(topo.conv_layers)} "
               f"layers, B={REGROUP_BATCH}): card groups {groups} (int8 "
               f"{[g.layers for g in plan8.fusion_groups]}); fp32 logits max |delta| {err:.3e} "
@@ -739,6 +773,210 @@ def main() -> None:
     print(f"[5d] kernel bench path: seed conv and single-layer kernel on {sb}x{sh}x{sw}x{sc}, "
           f"K {sk}, N {sn} agree (max |delta| {float((seed_out - fused_out).abs().max()):.3e}); "
           f"launches {seed_launches}")
+
+    # -- 5e. multi-tenant serving under faults: the Router, the Engine's fault ----
+    # hooks and the verifier's plan and structure scopes. Every card plan the
+    # script builds verifies clean first, and the card's NaN -> code result is
+    # held against the CPU's; then the launch counts are zeroed and two
+    # tenants serve cifar10 at full width through one Router: "fp32" (the
+    # fused fp32 plan) and "int8" (plan (b)), with faults scoped to "int8" (a
+    # dispatch error one retry heals, then a stall past its 2 s watchdog that
+    # demotes it to per_layer), a hot swap of "fp32" to a seed-1 plan with
+    # requests in flight, its rollback, and two swaps the verifier refuses.
+    t_phase = time.perf_counter()
+    plan_b0 = compile_dhm(topo, cparams, quant=quant_b, vmem_budget=0)
+    card_plans += [("cifar10 fp32 fused", plan), ("cifar10 fp32 vmem_budget=0", plan0),
+                   ("(a) fused", plan_a), ("(a) vmem_budget=0", plan_a0), ("(b) fused", plan_b),
+                   ("(b) vmem_budget=0", plan_b0), ("(c)", plan_c)]
+    for what, p_ in card_plans:
+        errors = [f.render() for f in verify_plan(p_, scopes=("plan", "structure")) if f.is_error]
+        check(not errors, f"verify_plan({what}): {errors}")
+    print(f"[5e] verify_plan(scopes=('plan', 'structure')): no error finding on "
+          f"{len(card_plans)} card plans ({', '.join(w for w, _ in card_plans)})")
+    # NaN -> integer code: C++ leaves the float -> int cast of NaN undefined;
+    # the port sets code 0 (the reference's), and the card must agree with
+    # the CPU, in the quantizers and through plan (b)'s integer head.
+    special = torch.tensor([float("nan"), -float("nan"), float("inf"), -float("inf"),
+                            1.0, -0.3, 7.9, 1e-3])
+    for what, fn in (("quantize_stream", lambda t: quantize_stream(t, INT8_BITS)),
+                     ("quantize_fixed", lambda t: quantize_fixed(t, qspec8))):
+        on_card, on_cpu = fn(special.to(dev)).cpu(), fn(special)
+        check(torch.equal(on_card, on_cpu), f"{what}: card {on_card.tolist()} vs CPU {on_cpu.tolist()}")
+    cpu_cparams = {k: [{kk: vv.cpu() for kk, vv in p_.items()} for p_ in v] for k, v in cparams.items()}
+    plan_b_cpu = compile_dhm(topo, cpu_cparams, quant=quant_b, device="cpu")
+    nan_feats = torch.full((4,) + tuple(topo.feature_shape()), float("nan"))
+    with torch.inference_mode():
+        head_card = plan_b.head_fn(nan_feats.to(dev)).cpu()
+        head_cpu = plan_b_cpu.head_fn(nan_feats)
+    check(bool(torch.isfinite(head_card).all()) and torch.equal(head_card, head_cpu),
+          f"plan (b) head on NaN features: card {head_card[0].tolist()} vs CPU {head_cpu[0].tolist()}")
+    print(f"[5e] NaN -> code 0 on the card as on the CPU (quantize_stream, quantize_fixed); plan (b)'s "
+          f"integer head on NaN features serves finite logits equal to the CPU's, "
+          f"row 0 {head_card[0].tolist()}")
+
+    plan_s1 = compile_dhm(topo, init_cnn(torch.Generator().manual_seed(SEED + 1), topo, device=dev),
+                          quant=QuantSpec())
+    nan_params = {k: [{kk: vv.clone() for kk, vv in p_.items()} for p_ in v] for k, v in cparams.items()}
+    nan_params["conv"][0]["w"][0, 0, 0, 0] = float("nan")
+    plan_nan = compile_dhm(topo, nan_params, quant=QuantSpec())
+    plan_lenet = compile_dhm(ALL_TOPOLOGIES["lenet5"], params["lenet5"], quant=QuantSpec())
+    rng5e = np.random.default_rng(SEED + 5)
+    traffic = [(tenant, rng5e.normal(size=(int(rng5e.integers(1, BATCH + 1)), h, w,
+                                           topo.input_channels)).astype(np.float32))
+               for _ in range(MT_REQUESTS) for tenant in ("fp32", "int8")]
+    faults = FaultPlan([DispatchError(at=1, times=1, tenant="int8"),
+                        StalledDispatch(at=4, times=1, stall_s=30.0, rung="fused", tenant="int8")],
+                       seed=SEED)
+    torch.cuda.synchronize()
+    # Which rung served each request: the engine's rung when it completes
+    # it (a router flush takes at most one micro-batch, so one rung).
+    served_on, complete = {}, Engine._complete
+
+    def recording_complete(self, req, logits, done):
+        served_on[id(req)] = self.rung
+        return complete(self, req, logits, done)
+
+    plain = {"stream_conv_block_ref": 0, "stream_conv_pyramid_ref": 0, "pow2_matmul_ref": 0,
+             "pow2_matmul_int_ref": 0}
+    plain_fns = {name_: getattr(kconv_ops if "conv" in name_ else kpow2_ops, name_) for name_ in plain}
+
+    def counted(name_):
+        def call(*args, **kwargs):
+            plain[name_] += 1
+            return plain_fns[name_](*args, **kwargs)
+        return call
+
+    Engine._complete = recording_complete
+    for name_ in plain:
+        setattr(kconv_ops if "conv" in name_ else kpow2_ops, name_, counted(name_))
+    kconv.reset_launch_counts()
+    kpow2.reset_launch_counts()
+    try:
+        router = Router(microbatch=BATCH, default_deadline_ms=MT_DEADLINE_MS, fault_plan=faults,
+                        join_timeout_s=60.0)
+        router.add("fp32", plan, weight=1.0)
+        router.add("int8", plan_b, weight=3.0, dispatch_timeout_s=MT_DISPATCH_TIMEOUT_S)
+        eng_fp32_old = router.engine("fp32")
+        submitted, half, swapped = [], threading.Event(), threading.Event()
+        sub_lock = threading.Lock()
+
+        def submitter(tid):
+            # The first half of the traffic, then (once the swap is in) the rest.
+            for i in range(tid, len(traffic), MT_SUBMITTERS):
+                if i >= len(traffic) // 2 and not swapped.wait(60.0):
+                    return
+                tenant, f = traffic[i]
+                req = router.submit(tenant, f)
+                with sub_lock:
+                    submitted.append((i, req))
+                    if len(submitted) == len(traffic) // 2:
+                        half.set()
+
+        t0 = time.perf_counter()
+        with router:
+            threads = [threading.Thread(target=submitter, args=(tid,), name=f"submitter-{tid}")
+                       for tid in range(MT_SUBMITTERS)]
+            for t in threads:
+                t.start()
+            check(half.wait(60.0), "the submitters did not reach half the traffic")
+            queued_at_swap = len(eng_fp32_old._queue)
+            router.swap("fp32", plan_s1)  # with requests in flight
+            swapped.set()
+            for t in threads:
+                t.join(60.0)
+            check(not any(t.is_alive() for t in threads), "a submitter thread did not end")
+            answers = {i: req.result(timeout=60.0) for i, req in submitted}
+            wall_mt = time.perf_counter() - t0
+            eng_fp32_new, eng_int8 = router.engine("fp32"), router.engine("int8")
+            router.rollback("fp32")
+            x_rb = traffic[0][1]
+            answer_rb = router.submit("fp32", x_rb).result(timeout=60.0)
+            refused = {}
+            for what, bad in (("NaN weight", plan_nan), ("lenet5", plan_lenet)):
+                try:
+                    router.swap("fp32", bad)
+                except SwapRejected as e:
+                    refused[what] = e
+            check(router.engine("fp32") is eng_fp32_old, "rollback did not restore the old engine")
+        torch.cuda.synchronize()
+    finally:
+        Engine._complete = complete
+        for name_, fn_ in plain_fns.items():
+            setattr(kconv_ops if "conv" in name_ else kpow2_ops, name_, fn_)
+    mt_launches = {**kconv.LAUNCHES, **kpow2.LAUNCHES}
+    check(all(v == 0 for v in plain.values()), f"the serving phase called plain versions: {plain}")
+    for key in ("stream_conv_pyramid", "stream_conv_pyramid_int8", "stream_conv_fused_int8",
+                "pow2_matmul_int"):
+        check(mt_launches[key] > 0, f"the multi-tenant path never launched {key}")
+    check("V301" in getattr(refused.get("NaN weight"), "invariants", ()),
+          f"the NaN-weight swap was not refused with V301: {refused.get('NaN weight')!r}")
+    check("serving surface" in str(refused.get("lenet5", "")),
+          f"the lenet5 swap was not refused for its surface: {refused.get('lenet5')!r}")
+
+    # Every answer against a direct call, on the card, of the plan and rung
+    # that served it, on the request's frames padded to the micro-batch as
+    # the engine pads them (same shapes, so the same kernels and GEMMs).
+    def padded(f):
+        return np.concatenate([f, np.zeros((BATCH - f.shape[0],) + f.shape[1:], np.float32)])
+
+    per_layer_fwd = {}
+
+    def direct(eng_, rung_, f):
+        if rung_ == "fused":
+            fwd_ = eng_.plan
+        else:
+            fwd_ = per_layer_fwd.setdefault(id(eng_), eng_._build_unfused_fwd())
+        with torch.inference_mode():
+            return fwd_(torch.from_numpy(padded(f)).to(dev)).cpu()[: f.shape[0]]
+
+    n_pre = n_post = 0
+    rungs = {"fp32": set(), "int8": set()}
+    for i, req in submitted:
+        tenant, f = traffic[i]
+        rung_ = served_on[id(req)]
+        rungs[tenant].add(rung_)
+        if tenant == "fp32":
+            check(req._engine in (eng_fp32_old, eng_fp32_new), "an fp32 request on an unknown engine")
+            n_pre += req._engine is eng_fp32_old
+            n_post += req._engine is eng_fp32_new
+        want = direct(req._engine, rung_, f)
+        check(torch.equal(answers[i], want), f"{tenant} request {i} on rung {rung_}: max |delta| "
+              f"{float((answers[i] - want).abs().max())} against the direct call")
+    check(torch.equal(answer_rb, direct(eng_fp32_old, "fused", x_rb)), "after the rollback")
+    check(n_pre > 0 and n_post > 0, f"the swap split no traffic: {n_pre} pre-swap, {n_post} post-swap")
+    check(rungs["int8"] == {"fused", "per_layer"} and rungs["fp32"] == {"fused"},
+          f"rungs served: {rungs}")
+    for what, eng_ in (("fp32 (pre-swap engine)", eng_fp32_old), ("fp32 (post-swap engine)", eng_fp32_new)):
+        st_ = eng_.stats()
+        check(st_.n_errors == 0 and st_.n_retries == 0 and eng_.demotions == [],
+              f"{what}: {st_.summary()}")
+    st8 = eng_int8.stats()
+    check(st8.n_errors == 0 and st8.n_retries == 1 and eng_int8.rung == "per_layer"
+          and [d["rung"] for d in eng_int8.demotions] == ["fused"]
+          and "did not complete" in eng_int8.demotions[0]["reason"],
+          f"int8 tenant: {st8.summary()}, demotions {eng_int8.demotions}")
+    check(join_watchdogs(30.0) == 0, "a watchdog thread is still running after the phase")
+    torch.cuda.synchronize()
+    print(smi)
+    for tenant, engs in (("fp32", (("seed-0 plan", eng_fp32_old), ("seed-1 plan", eng_fp32_new))),
+                         ("int8", (("plan (b)", eng_int8),))):
+        sts = [(what, e_.stats()) for what, e_ in engs]
+        n_req = sum(st_.n_ok for _, st_ in sts)
+        n_fr = sum(st_.n_frames for _, st_ in sts)
+        lat = "; ".join(f"{what} rung {r_} p50 {v['p50_ms']:.3f} ms p99 {v['p99_ms']:.3f} ms "
+                        f"({v['n']} requests)"
+                        for what, st_ in sts for r_, v in st_.rung_latency_ms.items())
+        sts = [st_ for _, st_ in sts]
+        print(f"[5e] tenant {tenant}: {n_req} requests / {n_fr} frames, {n_fr / wall_mt:.0f} frames/s "
+              f"wall over the run; {lat}; retries {sum(st_.n_retries for st_ in sts)}, demotions "
+              f"{sum(st_.n_demotions for st_ in sts)}, errors {sum(st_.n_errors for st_ in sts)}")
+    print(f"[5e] {len(submitted)} requests from {MT_SUBMITTERS} submitter threads in {wall_mt:.2f} s; "
+          f"fp32 swapped to the seed-{SEED + 1} plan in flight ({queued_at_swap} requests queued at "
+          f"the swap; {n_pre} answers from the old plan, {n_post} from the new), rolled back; "
+          f"refused: NaN weight "
+          f"{list(refused['NaN weight'].invariants)}, lenet5 (serving surface); every answer equal "
+          f"to a direct call of its plan and rung; plain versions called 0 times; launches "
+          f"{ {k: v for k, v in mt_launches.items() if v} }; phase {time.perf_counter() - t_phase:.1f} s")
 
     # -- 6. timing at main-path shapes -------------------------------------------
     def time_ms(fn, iters=50, warmup=5):
@@ -1128,6 +1366,52 @@ def main() -> None:
     print(f"[6] engine micro-batch of {BATCH}: {per_batch_ms:.4f} ms host clock; on the card "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
           + f"; card share {sum(parts.values()) / per_batch_ms:.3f}")
+    # The Engine's host split, per micro-batch: an Engine on the fused fp32
+    # plan takes requests of BATCH frames, one flush each, with its own
+    # methods wrapped here to time them on the host clock (the Engine has no
+    # timing knob): submit (the gate's checks), the flush around the watched
+    # dispatch (packing and completing), the watchdog (call_with_timeout
+    # minus the work inside its thread: starting the thread and handing the
+    # result back), _stage (the copy to the card), the forward's enqueue of
+    # its launches, and _sync (the card finishing, then the copy back).
+    from repro_torch.core.dhm import engine as tengine
+
+    split = dict.fromkeys(("submit", "flush", "watchdog", "stage", "enqueue", "sync"), 0.0)
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            t_ = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                split[key] += time.perf_counter() - t_
+        return call
+
+    eng6 = Engine(plan, microbatch=BATCH)
+    split_frames = [rng.normal(size=(BATCH, h, w, topo.input_channels)).astype(np.float32)
+                    for _ in range(HOST_SPLIT_BATCHES)]
+    watchdog_fn = tengine.call_with_timeout
+    tengine.call_with_timeout = timed("watchdog", watchdog_fn)
+    eng6._stage, eng6._sync = timed("stage", eng6._stage), timed("sync", eng6._sync)
+    eng6._fwd = timed("enqueue", eng6._fwd)
+    submit6, flush6 = timed("submit", eng6.submit), timed("flush", eng6.flush)
+    try:
+        for warm in range(2):
+            for f in split_frames[:3] if warm == 0 else split_frames:
+                req = submit6(f)
+                flush6()
+                req.result(timeout=60.0)
+            if warm == 0:
+                split = dict.fromkeys(split, 0.0)
+    finally:
+        tengine.call_with_timeout = watchdog_fn
+    ms6 = {k: v / HOST_SPLIT_BATCHES * 1e3 for k, v in split.items()}
+    inside = ms6["stage"] + ms6["enqueue"] + ms6["sync"]
+    print(f"[6] engine host split per micro-batch of {BATCH} frames (host clock, mean of "
+          f"{HOST_SPLIT_BATCHES}): submit {ms6['submit']:.4f} ms; flush {ms6['flush']:.4f} ms = "
+          f"packing and completion {ms6['flush'] - ms6['watchdog']:.4f} + watchdog thread start and "
+          f"hand-off {ms6['watchdog'] - inside:.4f} + _stage {ms6['stage']:.4f} + forward enqueue "
+          f"{ms6['enqueue']:.4f} + _sync {ms6['sync']:.4f}")
 
     # The selective scan at the LM path's shapes: the falcon-mamba layer at
     # prefill (bf16 x, B and C, the zero cache as h0, as prefill passes it)
@@ -1269,6 +1553,9 @@ def main() -> None:
         ms_b256=s256["ms"], device_ms_b256=s256["dev"], library_device_ms_b256=s256["dev_lib"],
         bound_ms_b256=s256["bound"],
     ))
+
+    check(join_watchdogs(30.0) == 0, "a watchdog thread is still running at the end")
+    torch.cuda.synchronize()
 
     # -- 7. the record ------------------------------------------------------------
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,416 @@
+"""The named invariant registry the plan verifier enforces.
+
+The counterpart of ``repro.analysis.invariants``: the same IDs, names and
+scopes, for the two scopes the port has.
+
+- ``plan`` (V3xx): serving-fitness checks — finite baked params,
+  consistent stage IO geometry, stage bodies and head producing the
+  shapes they promise, the serving surface present. This scope IS the
+  ``check_plan`` rung probe: the serving engine, the router and the tests
+  enforce one registry. The reference interprets the stage bodies and the
+  head abstractly (``jax.eval_shape``); the port runs each on one zero
+  frame on the plan's device.
+- ``structure`` (V0xx): the reference traces a jaxpr and counts its
+  primitives. The port runs one probe of 2 frames on the plan's device
+  (``verify.ProbeContext.trace``) and counts what the probing thread
+  dispatched: kernel dispatches and card launches from the kernels'
+  ``probe`` log, aten ops from a ``TorchDispatchMode``. An op that runs
+  inside a kernel wrapper's dispatch is the kernel's own (on a CPU plan,
+  the plain version's); the others are the glue between launches.
+
+The reference's ``resource`` (V2xx) and ``pipeline`` (V1xx) scopes are
+not ported yet: ``SCOPES`` names them and ``verify_plan`` raises when
+asked for them.
+
+Invariants self-gate as in the reference: a check that only the kernel
+path has (V003, V007) returns no findings on a CPU plan, as the
+reference's kernel-structure checks return none on a non-Pallas
+backend. V001 and V006 have no observable counterpart in PyTorch; they
+are registered, and their docstrings say why they find nothing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict
+
+import torch
+
+SCOPES = ("plan", "structure", "resource", "pipeline")
+PORTED_SCOPES = ("plan", "structure")
+
+
+@dataclasses.dataclass(frozen=True)
+class Invariant:
+    id: str
+    name: str
+    scope: str
+    doc: str
+    fn: Callable
+
+
+REGISTRY: Dict[str, Invariant] = {}
+
+
+def invariant(id: str, *, name: str, scope: str):
+    """Register an invariant check under a stable ID."""
+    if scope not in PORTED_SCOPES:
+        raise ValueError(f"scope must be one of {PORTED_SCOPES}, got {scope!r}")
+
+    def deco(fn):
+        if id in REGISTRY:
+            raise ValueError(f"duplicate invariant id {id!r}")
+        REGISTRY[id] = Invariant(
+            id=id, name=name, scope=scope, doc=fn.__doc__ or "", fn=fn
+        )
+        return fn
+
+    return deco
+
+
+def _conv_dims(topo) -> list:
+    """(H, W, C) entering each conv layer of ``topo``."""
+    dims = [(*topo.input_shape, topo.input_channels)]
+    for spec in topo.conv_layers:
+        dims.append((*spec.out_hw(*dims[-1][:2]), spec.n_out))
+    return dims
+
+
+def planned_launches(plan) -> int:
+    """The kernel launches the card makes for ``plan.features``: one per
+    multi-layer fusion group (the pyramid kernel), and for each singleton
+    the column strips times the channel slices the single-layer launcher
+    plans for it (``conv.fused_plan`` over the SAME-padded frame)."""
+    from repro_torch.core.dhm.fusion import plan_elem_bytes
+    from repro_torch.kernels.stream_conv.conv import fused_plan
+    from repro_torch.kernels.stream_conv.halo import padded_frame
+
+    topo = plan.topo
+    dims = _conv_dims(topo)
+    elem_bytes = plan_elem_bytes(plan.quant)
+    n = 0
+    for g in plan.fusion_groups:
+        if len(g.layers) > 1:
+            n += 1
+            continue
+        sp = topo.conv_layers[g.layers[0]]
+        h, w, c = dims[g.layers[0]]
+        geo = fused_plan(*padded_frame(h, w, sp.kernel, sp.stride, sp.padding), c,
+                         k=sp.kernel, stride=sp.stride, pool=sp.pool,
+                         pool_stride=sp.pool_stride, block_r=plan.block_r,
+                         n_out=sp.n_out, elem_bytes=elem_bytes)
+        n += len(geo["strips"]) * len(geo["slices"])
+    return n
+
+
+# ---------------------------------------------------------------------------
+# plan scope (V3xx) — the check_plan rung-probe set
+
+
+@invariant("V301", name="finite-params", scope="plan")
+def _finite_params(ctx):
+    """Every baked parameter is finite — NaN/Inf weights must never reach
+    a serving rung. The port checks the FC head's baked parameters too,
+    beside the conv layers the reference checks."""
+    out = []
+    for group, params in (("conv", ctx.plan.conv_params),
+                          ("fc", getattr(ctx.plan, "fc_params", ()))):
+        for li, p in enumerate(params):
+            for k, v in p.items():
+                if not bool(torch.isfinite(v).all()):
+                    out.append(ctx.error(
+                        "V301",
+                        f"{group} layer {li} parameter {k!r} contains non-finite "
+                        "values — the plan cannot serve",
+                    ))
+    return out
+
+
+@invariant("V302", name="io-chain", scope="plan")
+def _io_chain(ctx):
+    """StageIOSpec geometry is present, starts at the topology input, and
+    chains stage-to-stage."""
+    plan = ctx.plan
+    ios = [st.io for st in plan.stages]
+    if any(io is None for io in ios):
+        return [ctx.error("V302", "plan stages miss StageIOSpec geometry")]
+    out = []
+    h, w = plan.topo.input_shape
+    if tuple(ios[0].in_shape) != (h, w, plan.topo.input_channels):
+        out.append(ctx.error(
+            "V302",
+            f"stage 0 input {ios[0].in_shape} does not match the topology "
+            f"input {(h, w, plan.topo.input_channels)}",
+        ))
+    for s in range(len(ios) - 1):
+        if tuple(ios[s].out_shape) != tuple(ios[s + 1].in_shape):
+            out.append(ctx.error(
+                "V302",
+                f"stage {s} output {ios[s].out_shape} does not chain into "
+                f"stage {s + 1} input {ios[s + 1].in_shape}",
+            ))
+    return out
+
+
+@invariant("V303", name="stage-io-shape", scope="plan")
+def _stage_io_shape(ctx):
+    """Each emitted stage body, run on one zero frame of its declared
+    input on the plan's device (the reference interprets it abstractly),
+    produces exactly the shape its StageIOSpec promises."""
+    plan = ctx.plan
+    out = []
+    for st in plan.stages:
+        if st.io is None:
+            continue  # V302 reports the missing geometry
+        try:
+            got = ctx.run(st.fn, plan.stage_params(st.index),
+                          ctx.zeros((1,) + tuple(st.io.in_shape)))
+        except Exception as e:  # noqa: BLE001 — surfaced as a finding
+            out.append(ctx.error(
+                "V303",
+                f"stage {st.index} body fails to run on its declared input "
+                f"{st.io.in_shape}: {e}",
+            ))
+            continue
+        if tuple(got.shape[1:]) != tuple(st.io.out_shape):
+            out.append(ctx.error(
+                "V303",
+                f"stage {st.index} body produces {tuple(got.shape[1:])}, "
+                f"but its StageIOSpec promises {tuple(st.io.out_shape)}",
+            ))
+    return out
+
+
+@invariant("V304", name="head-io", scope="plan")
+def _head_io(ctx):
+    """The FC head takes the final feature shape and yields rank-2 float
+    logits: its baked widths chain from the flattened features to the
+    topology's classes, and it runs on one zero frame of the final
+    feature shape (the reference interprets it abstractly)."""
+    plan = ctx.plan
+    last = plan.stages[-1].io
+    if last is None:
+        return []
+    width = math.prod(last.out_shape)
+    for i, p in enumerate(getattr(plan, "fc_params", ())):
+        if p["w"].shape[0] != width or tuple(p["b"].shape) != (p["w"].shape[1],):
+            return [ctx.error(
+                "V304", f"fc layer {i} {tuple(p['w'].shape)} does not take width {width}"
+            )]
+        width = p["w"].shape[1]
+    try:
+        got = ctx.run(plan.head_fn, ctx.zeros((1,) + tuple(last.out_shape)))
+    except Exception as e:  # noqa: BLE001 — surfaced as a finding
+        return [ctx.error(
+            "V304",
+            f"head fails to run on the final feature shape "
+            f"{tuple(last.out_shape)}: {e}",
+        )]
+    if got.ndim != 2 or got.shape[0] != 1:
+        return [ctx.error(
+            "V304",
+            f"head produces shape {tuple(got.shape)}; expected rank-2 "
+            "(batch, n_classes) logits",
+        )]
+    if got.shape[1] != plan.topo.n_classes:
+        return [ctx.error(
+            "V304",
+            f"head ends at width {got.shape[1]}, expected {plan.topo.n_classes} classes",
+        )]
+    return []
+
+
+@invariant("V305", name="serving-surface", scope="plan")
+def _serving_surface(ctx):
+    """The plan exposes the full surface the serving layer consumes —
+    ``topo.input_shape``/``input_channels`` (frame geometry), callable
+    ``features`` and ``head_fn``, and at least one stage — so a hot-swap
+    target missing any of it is rejected by ``verify_plan`` instead of
+    crashing the tenant's warmup dispatch."""
+    plan = ctx.plan
+    out = []
+    topo = getattr(plan, "topo", None)
+    shape = getattr(topo, "input_shape", None)
+    if (
+        topo is None
+        or not isinstance(shape, (tuple, list))
+        or len(shape) != 2
+        or not isinstance(getattr(topo, "input_channels", None), int)
+    ):
+        out.append(ctx.error(
+            "V305",
+            "plan topology does not declare the serving frame geometry "
+            "(input_shape pair + integer input_channels)",
+        ))
+    if not callable(getattr(plan, "features", None)):
+        out.append(ctx.error(
+            "V305", "plan has no callable ``features`` extractor"
+        ))
+    if not callable(getattr(plan, "head_fn", None)):
+        out.append(ctx.error(
+            "V305", "plan has no callable ``head_fn``"
+        ))
+    if not getattr(plan, "stages", ()):
+        out.append(ctx.error("V305", "plan has no stages"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# structure scope (V0xx)
+
+
+@invariant("V001", name="one-dot-per-conv-layer", scope="structure")
+def _one_dot_per_layer(ctx):
+    """The reference counts one ``dot_general`` per conv layer in its
+    trace. The port's conv GEMMs live inside hand-written CUDA kernels,
+    which PyTorch sees as opaque launches: no op is visible to count, so
+    this check has no observable counterpart and finds nothing. The
+    kernels' one implicit GEMM per layer is checked on the card against
+    the plain versions instead."""
+    return []
+
+
+@invariant("V002", name="one-pallas-call-per-group", scope="structure")
+def _one_launch_per_group(ctx):
+    """Each fusion group is ONE kernel dispatch — the no-external-memory
+    dataflow across fused layer boundaries. On the card the launches
+    are counted too: one per multi-layer group, and for a singleton the
+    column strips and channel slices its launcher plans."""
+    plan = ctx.plan
+    tr = ctx.trace()
+    n_groups = len(plan.fusion_groups)
+    convs = [d for d in tr.phase_dispatches("features") if d[1].startswith("stream_conv")]
+    out = []
+    if len(convs) != n_groups:
+        out.append(ctx.error(
+            "V002",
+            f"features made {len(convs)} conv kernel dispatches for {n_groups} "
+            "fusion groups — expected exactly one per group",
+        ))
+    if ctx.on_card:
+        want = planned_launches(plan)
+        got = len(tr.phase_launches("features"))
+        if got != want:
+            out.append(ctx.error(
+                "V002",
+                f"features launched {got} kernels on the card; the plan's "
+                f"{n_groups} fusion groups plan {want} (strips included)",
+            ))
+    return out
+
+
+@invariant("V003", name="no-conv-primitive", scope="structure")
+def _no_conv_primitive(ctx):
+    """No ``aten::convolution`` (or any of its forms) runs in the features
+    of a plan for the card — the DHM lowering maps convolutions onto the
+    streaming kernels, never onto cuDNN. A CPU plan's plain versions are
+    convolutions by design: no findings there."""
+    if not ctx.on_card:
+        return []
+    convs = [op.name for op in ctx.trace().phase_ops("features")
+             if op.name.startswith("aten::conv") or "convolution" in op.name]
+    if convs:
+        return [ctx.error(
+            "V003",
+            f"features ran {len(convs)} convolution op(s) {sorted(set(convs))} — "
+            "the plan fell back to the library convolution",
+        )]
+    return []
+
+
+@invariant("V004", name="dtype-drift", scope="structure")
+def _dtype_drift(ctx):
+    """Every stage boundary and the logits are float32, and so is every
+    floating-point tensor the glue between the kernels makes (features
+    and head; no float64/bfloat16 drift). Inside a kernel's dispatch the
+    plain versions may sum integer codes in float64, which is exact."""
+    tr = ctx.trace()
+    out = []
+    bad = sorted({str(d) for d in tr.stage_dtypes if d != torch.float32})
+    if bad:
+        out.append(ctx.error("V004", f"stage boundaries carry {bad}, not float32"))
+    if tr.logits_dtype != torch.float32:
+        out.append(ctx.error("V004", f"the logits are {tr.logits_dtype}, not float32"))
+    glue = sorted({str(d) for op in tr.ops if not op.inside
+                   for d in op.float_dtypes if d != torch.float32})
+    if glue:
+        out.append(ctx.error(
+            "V004", f"the glue between the kernels makes non-float32 float dtypes: {glue}",
+        ))
+    return out
+
+
+@invariant("V005", name="no-host-transfer", scope="structure")
+def _no_host_transfer(ctx):
+    """Nothing in the forward (features and head, as the reference's
+    closure) reads a value to the host (``aten::item`` /
+    ``_local_scalar_dense``) or copies a card tensor to the CPU —
+    nothing may stall the serving hot path on a host round-trip."""
+    seen = {}
+    for op in ctx.trace().ops:
+        if op.to_host:
+            seen[op.name] = seen.get(op.name, 0) + 1
+    if seen:
+        return [ctx.error(
+            "V005", f"the forward moves data to the host: {seen}",
+        )]
+    return []
+
+
+@invariant("V006", name="donation-declared", scope="structure")
+def _donation_declared(ctx):
+    """The reference checks that ``jitted_forward(donate=True)`` declares
+    its input donation to XLA. PyTorch has no buffer donation: the
+    engine stages each packed batch into a fresh device tensor that the
+    forward alone holds, so there is no declaration to drop and this
+    check finds nothing."""
+    return []
+
+
+@invariant("V007", name="in-kernel-stream-quant", scope="structure")
+def _in_kernel_stream_quant(ctx):
+    """With ``act_bits`` set, the feature-stream quantization runs INSIDE
+    the kernels' epilogues, not as separate ops between launches: the
+    features' glue holds no ``aten::round``. Int8 plans quantize each
+    group's INPUT frame to 1-byte codes before its launch: exactly one
+    round per fusion group is legal there, and no more. The kernel path
+    only: a CPU plan's plain versions quantize with ops by design."""
+    plan = ctx.plan
+    if not ctx.on_card or plan.quant.act_bits is None:
+        return []
+    rounds = sum(1 for op in ctx.trace().phase_ops("features")
+                 if not op.inside and op.name == "aten::round")
+    int8 = bool(getattr(plan.quant, "int8_compute", False))
+    allowed = len(plan.fusion_groups) if int8 else 0
+    if rounds != allowed:
+        return [ctx.error(
+            "V007",
+            f"{rounds} stream-quant round(s) between the kernels — expected "
+            f"{allowed} ({'one input-quantize per fusion group' if int8 else 'none'})",
+        )]
+    return []
+
+
+@invariant("V008", name="integer-conv-compute", scope="structure")
+def _integer_conv_compute(ctx):
+    """An ``int8_compute`` plan really computes in integers: every conv
+    dispatch of its features goes to an int8 kernel (``*_int8``: int8
+    codes, int32 accumulation; on a CPU plan the plain versions' integer
+    rendering) — no float kernel under an integer contract."""
+    plan = ctx.plan
+    if not bool(getattr(plan.quant, "int8_compute", False)):
+        return []
+    convs = [d for d in ctx.trace().phase_dispatches("features")
+             if d[1].startswith("stream_conv")]
+    if not convs:
+        return [ctx.error("V008", "int8 plan's features dispatch no conv kernel")]
+    return [
+        ctx.error(
+            "V008",
+            f"conv dispatch #{i} goes to {name} — an int8 plan runs a float "
+            "kernel (fp32 operands) instead of its int8 variant",
+        )
+        for i, (_, name, _) in enumerate(convs)
+        if not name.endswith("_int8")
+    ]

@@ -1,0 +1,234 @@
+"""Plan verifier: run a ``CompiledDHM`` against the invariant registry.
+
+The counterpart of ``repro.analysis.verify``. The reference interprets a
+plan abstractly (``jax.eval_shape`` / ``jax.make_jaxpr``) and executes
+no FLOPs; PyTorch has no abstract trace of the port's kernels, which are
+opaque launches of hand-written CUDA. So the port runs the plan, on its
+own device and at a tiny batch, and reads what happened:
+
+- the ``plan`` scope runs each stage body on one zero frame of its
+  declared input, and the head on one of the last stage's output;
+- the ``structure`` scope runs one probe of ``batch`` (2) zero frames
+  through the stages and the head, on the calling thread, under a
+  ``TorchDispatchMode`` that logs every aten op (its name, the dtypes it
+  made, whether it ran inside a kernel wrapper, whether it moved data to
+  the host) and with the kernels' ``probe`` log open, which records each
+  kernel dispatch and each launch. Both logs belong to the probing
+  thread, so another thread's launches (a router serving other tenants
+  while it verifies a swap) never enter the counts.
+
+``verify_plan`` returns findings; ``check_plan`` (what
+``CompiledDHM.self_check`` delegates to) raises ``PlanCheckError``
+carrying the failed invariant IDs, so the serving engine's rung probe,
+the router's swap and breaker probes and the tests enforce one registry.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+from repro_torch.analysis.findings import Finding
+from repro_torch.analysis.invariants import PORTED_SCOPES, REGISTRY, SCOPES
+from repro_torch.kernels import probe
+
+# Ops that hand a value to the host (a read of a device scalar).
+_HOST_READ_OPS = frozenset({"aten::item", "aten::_local_scalar_dense", "aten::is_nonzero"})
+
+
+@dataclasses.dataclass(frozen=True)
+class OpRecord:
+    """One aten op the structure probe saw."""
+
+    phase: str  # "features" | "head"
+    name: str  # schema name, e.g. "aten::round"
+    inside: bool  # ran inside a kernel wrapper's dispatch (the kernel's own)
+    float_dtypes: tuple  # dtypes of the floating-point tensors it made
+    to_host: bool  # read a value to the host or copied a card tensor to the CPU
+
+
+@dataclasses.dataclass
+class StructureTrace:
+    """What one structure probe of a plan dispatched."""
+
+    stage_dtypes: list  # dtype at each stage boundary
+    logits_dtype: torch.dtype
+    ops: list  # OpRecord per aten op
+    dispatches: list  # (phase, kernel name, plain version?) per wrapper dispatch
+    launches: list  # (phase, kernel name) per kernel launch on the card
+
+    def phase_ops(self, phase: str) -> list:
+        return [op for op in self.ops if op.phase == phase]
+
+    def phase_dispatches(self, phase: str) -> list:
+        return [d for d in self.dispatches if d[0] == phase]
+
+    def phase_launches(self, phase: str) -> list:
+        return [l for l in self.launches if l[0] == phase]
+
+
+class _OpLog(TorchDispatchMode):
+    """Logs every aten op of the thread that entered it."""
+
+    def __init__(self, log):
+        super().__init__()
+        self.log = log
+        self.ops: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        name = func._schema.name
+        ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
+        outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+        to_host = name in _HOST_READ_OPS or (
+            any(t.device.type == "cuda" for t in ins)
+            and any(t.device.type == "cpu" for t in outs)
+        )
+        self.ops.append(OpRecord(
+            phase=self.log.phase, name=name, inside=self.log.depth > 0,
+            float_dtypes=tuple(t.dtype for t in outs if t.is_floating_point()),
+            to_host=to_host,
+        ))
+        return out
+
+
+class ProbeContext:
+    """One plan under verification, with its probe runs cached: the
+    argument every invariant check receives."""
+
+    def __init__(self, plan, *, where: str = "", batch: int = 2):
+        self.plan = plan
+        self.batch = batch
+        self.where = where or getattr(getattr(plan, "topo", None), "name", "plan")
+        self._trace: Optional[StructureTrace] = None
+
+    # -- finding constructors ------------------------------------------------
+
+    def error(self, rule: str, message: str) -> Finding:
+        return Finding(
+            rule=rule, name=REGISTRY[rule].name, severity="error",
+            message=message, where=self.where,
+        )
+
+    # -- probe runs ------------------------------------------------------------
+
+    @property
+    def on_card(self) -> bool:
+        """Whether the plan runs the kernels (a CUDA plan) rather than
+        their plain versions (a CPU plan)."""
+        return torch.device(self.plan.device).type == "cuda"
+
+    def run(self, fn, *args):
+        """``fn(*args)`` on the plan's device, as the engine runs it."""
+        from repro_torch.core.dhm.engine import on_device
+
+        with torch.inference_mode(), on_device(torch.device(self.plan.device)):
+            out = fn(*args)
+            if self.on_card:
+                torch.cuda.synchronize(self.plan.device)
+            return out
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(tuple(shape), dtype=torch.float32, device=self.plan.device)
+
+    def trace(self) -> StructureTrace:
+        """The structure probe: ``batch`` zero frames through the stages
+        (one by one, as ``features`` runs them, so each boundary can be
+        read) and the head, with both logs open."""
+        if self._trace is None:
+            plan = self.plan
+            h, w = plan.topo.input_shape
+            x = self.zeros((self.batch, h, w, plan.topo.input_channels))
+            dtypes = []
+
+            def forward(x):
+                with probe.recording() as log, _OpLog(log) as ops:
+                    log.phase = "features"
+                    for st in plan.stages:
+                        x = st.fn(plan.stage_params(st.index), x)
+                        dtypes.append(x.dtype)
+                    log.phase = "head"
+                    out = plan.head_fn(x)
+                return out, log, ops
+
+            out, log, ops = self.run(forward, x)
+            self._trace = StructureTrace(
+                stage_dtypes=dtypes, logits_dtype=out.dtype, ops=ops.ops,
+                dispatches=log.dispatches, launches=log.launches,
+            )
+        return self._trace
+
+
+def _resolve_scopes(scopes, ids) -> tuple:
+    if scopes is None:
+        scopes = PORTED_SCOPES
+    scopes = tuple(scopes)
+    unknown = set(scopes) - set(SCOPES)
+    if unknown:
+        raise ValueError(f"unknown scopes {sorted(unknown)}; have {SCOPES}")
+    unported = [s for s in scopes if s not in PORTED_SCOPES]
+    if unported:
+        raise NotImplementedError(
+            f"the port has no {', '.join(unported)} scope yet; it verifies "
+            f"{PORTED_SCOPES}"
+        )
+    if ids is not None:
+        missing = sorted(set(ids) - set(REGISTRY))
+        if missing:
+            raise NotImplementedError(
+                f"the port has no invariant {', '.join(missing)}; it has "
+                f"{sorted(REGISTRY)}"
+            )
+    return scopes
+
+
+def verify_plan(
+    plan,
+    *,
+    scopes=None,
+    ids=None,
+    where: str = "",
+    batch: int = 2,
+) -> list:
+    """Run the invariant registry against one plan.
+
+    ``scopes`` restricts to registry scopes (default: every scope the
+    port has, ``plan`` and ``structure``); asking for a scope or an ID
+    the port does not have raises ``NotImplementedError`` — it never
+    passes quietly. ``ids`` restricts to specific invariant IDs. Returns
+    the findings (possibly empty). Runs the plan on its device: the plan
+    scope on one frame, the structure scope on ``batch`` frames.
+    """
+    scopes = _resolve_scopes(scopes, ids)
+    ctx = ProbeContext(plan, where=where, batch=batch)
+    findings = []
+    for inv in REGISTRY.values():
+        if inv.scope not in scopes:
+            continue
+        if ids is not None and inv.id not in ids:
+            continue
+        findings.extend(inv.fn(ctx))
+    return findings
+
+
+def check_plan(plan) -> None:
+    """The serving-fitness probe: run the ``plan``-scope invariants and
+    raise ``PlanCheckError`` (carrying the failed invariant IDs) on any
+    error — what ``CompiledDHM.self_check`` and the engine's rung
+    activation enforce."""
+    findings = [f for f in verify_plan(plan, scopes=("plan",)) if f.is_error]
+    if findings:
+        from repro_torch.core.dhm.compiler import PlanCheckError
+
+        ids = sorted({f.rule for f in findings})
+        detail = "; ".join(f.message for f in findings)
+        raise PlanCheckError(
+            f"{getattr(plan.topo, 'name', 'plan')}: plan check failed "
+            f"[{', '.join(ids)}]: {detail}",
+            invariants=ids,
+        )

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -70,8 +69,7 @@ PADDINGS = ("SAME", "VALID")
 class PlanCheckError(ValueError):
     """A compiled plan failed its self-check (non-finite baked parameters
     or inconsistent stage / head geometry) — the plan is not fit to serve.
-    ``invariants`` names the reference registry's IDs of the failed
-    checks."""
+    ``invariants`` names the registry's IDs of the failed checks."""
 
     def __init__(self, message: str, *, invariants=()):
         super().__init__(message)
@@ -586,46 +584,22 @@ class CompiledDHM:
 
 
 def check_plan(plan: CompiledDHM) -> None:
-    """Self-check a compiled plan with plain checks, no FLOPs spent: every
-    baked parameter finite (reference invariant V301), the stage IO
-    geometry chains from the input frame to the feature shape (V302), and
-    the head's widths chain from the flattened features to the classes
-    (V304). Raises :class:`PlanCheckError` with the failed IDs. The
-    serving ``Engine`` runs it before it promotes a rung."""
-    topo = plan.topo
-    failed, msgs = [], []
-    for group, params in (("conv", plan.conv_params), ("fc", plan.fc_params)):
-        for i, p in enumerate(params):
-            for name, t in p.items():
-                if not bool(torch.isfinite(t).all()):
-                    failed.append("V301")
-                    msgs.append(f"{group}[{i}].{name} has non-finite values")
-    h, w = topo.input_shape
-    expect = (h, w, topo.input_channels)
-    for st in plan.stages:
-        if st.io is None or tuple(st.io.in_shape) != expect:
-            failed.append("V302")
-            msgs.append(f"stage {st.index} input {st.io} does not chain from {expect}")
-            break
-        expect = tuple(st.io.out_shape)
-    if expect != tuple(topo.feature_shape()):
-        failed.append("V302")
-        msgs.append(f"stages end at {expect}, features are {topo.feature_shape()}")
-    width = math.prod(topo.feature_shape())
-    for i, p in enumerate(plan.fc_params):
-        if p["w"].shape[0] != width or p["b"].shape != (p["w"].shape[1],):
-            failed.append("V304")
-            msgs.append(f"fc[{i}] {tuple(p['w'].shape)} does not take width {width}")
-            break
-        width = p["w"].shape[1]
-    if width != topo.n_classes:
-        failed.append("V304")
-        msgs.append(f"head ends at width {width}, expected {topo.n_classes}")
-    if failed:
-        raise PlanCheckError(
-            "plan self-check failed: " + "; ".join(msgs),
-            invariants=tuple(dict.fromkeys(failed)),
-        )
+    """Self-check a compiled plan: the ``plan``-scope invariants of the
+    ``repro_torch.analysis`` registry — every baked parameter finite
+    (V301), the per-stage IO geometry chains (V302), every emitted stage
+    body and the head produce the shapes their :class:`StageIOSpec` and
+    the topology promise (V303/V304, each run on one zero frame on the
+    plan's device), the serving surface is present (V305).
+
+    Raises :class:`PlanCheckError` carrying the failed invariant IDs.
+    This doubles as the serving engine's health probe: a rung of the
+    degradation ladder is only promoted into service after the plan it
+    runs passes this check, so serving and the tests enforce the SAME
+    registry.
+    """
+    from repro_torch.analysis.verify import check_plan as _registry_check
+
+    _registry_check(plan)
 
 
 def compile_dhm(

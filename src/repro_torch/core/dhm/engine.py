@@ -13,14 +13,25 @@ The counterpart of ``repro.core.dhm.engine``:
   health-checked ladder (fused plan -> per-layer plan). Both rungs run
   the plan's kernels; there is no plain-version rung on the card.
   Failures surface as structured per-request errors — ``result()``
-  raises, it never hangs.
+  raises, it never hangs. A seed-driven
+  :class:`~repro_torch.core.dhm.faults.FaultPlan` injects failures
+  deterministically for the chaos tests; the tenant ``name`` scopes them.
 
-The mesh rung, the µbatch autotuner and fault injection are later slices
-of the port.
+Every dispatch runs on the plan's device (``torch.cuda.device``), from
+whichever thread makes it. A dispatch its watchdog has given up on
+launches nothing afterwards (``pipeline.Watch``): the reference lets a
+stalled attempt wake and run its forward, whose result it discards; on
+the card that forward would launch kernels after the engine has retried
+or demoted.
+
+The mesh rung and the µbatch autotuner (``n_microbatches="auto"``) need
+the reference's mesh executor (``pipeline.py``) and its throughput model
+(``throughput.py``), which the port does not have yet.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -30,7 +41,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.dhm.pipeline import CollectiveTimeout, call_with_timeout
+from repro_torch.core.dhm.faults import FaultPlan, InjectedDeviceLoss
+from repro_torch.core.dhm.pipeline import CollectiveTimeout, Watch, call_with_timeout
 
 _LOG = logging.getLogger("repro_torch.dhm.engine")
 
@@ -39,6 +51,14 @@ def forward(plan, x: torch.Tensor) -> torch.Tensor:
     """Eager single-device forward: sequential fused stages + FC head.
     x: (B, H, W, C) NHWC on the plan's device -> logits (B, n_classes)."""
     return plan.head_fn(plan.features(x))
+
+
+def on_device(device: torch.device):
+    """The context a thread launches on ``device`` in: that card made
+    current (``torch.cuda.device``), or nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +264,9 @@ class Engine:
     (``max_retries``), and demotes fused -> per_layer on persistent
     failure (``engine.demotions`` records why). A rung serves only after
     the plan passes its self-check and the rung completes a warmup probe.
+
+    ``fault_plan`` injects deterministic failures
+    (:mod:`repro_torch.core.dhm.faults`) for chaos testing.
     """
 
     def __init__(
@@ -266,6 +289,7 @@ class Engine:
         max_retries: int = 2,
         retry_backoff_s: float = 0.005,
         allow_degraded: bool = True,
+        fault_plan: Optional[FaultPlan] = None,
     ):
         if microbatch < 1:
             raise ValueError(f"microbatch must be >= 1, got {microbatch}")
@@ -293,6 +317,7 @@ class Engine:
         self.warmup_timeout_s = warmup_timeout_s
         self.max_retries = max_retries
         self.retry_backoff_s = retry_backoff_s
+        self._faults = fault_plan
 
         h, w = plan.topo.input_shape
         self._frame_shape = (h, w, plan.topo.input_channels)
@@ -319,6 +344,11 @@ class Engine:
         self._n_retries = 0
         self.demotions: list = []
         self._flusher: Optional[threading.Thread] = None
+        # A router's scheduler registers itself here (a zero-arg liveness
+        # predicate): while it is alive the engine behaves as if a
+        # background flusher runs — ``result()`` waits and block-policy
+        # submits park on the condition instead of draining inline.
+        self._external_flusher: Optional[Callable[[], bool]] = None
         self._stop = threading.Event()
 
         self._ladder: list = [("fused", self._build_fused_fwd)]
@@ -385,10 +415,11 @@ class Engine:
                 fwd = factory()
                 if self.warmup:
                     probe = np.zeros((self.microbatch,) + self._frame_shape, np.float32)
+                    watch = Watch()
                     out = call_with_timeout(
-                        lambda: self._sync(fwd(self._stage(probe))),
+                        lambda: self._watched(watch, lambda: fwd(self._stage(probe))),
                         timeout_s=self.warmup_timeout_s,
-                        what=f"warmup probe (rung {name})",
+                        what=f"warmup probe (rung {name})", watch=watch,
                     )
                     if not bool(torch.isfinite(out).all()):
                         raise _NonFiniteOutput(
@@ -545,20 +576,68 @@ class Engine:
         """Wait for the device and bring the logits to the host."""
         return out.to("cpu")
 
+    def _watched(self, watch: Watch, run: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """One attempt's launches: on the plan's device, and only if its
+        watchdog has not given up on it (``watch``) by then."""
+        with on_device(self.device):
+            if not watch.claim():
+                raise CollectiveTimeout("the watchdog gave up before the first launch")
+            return self._sync(run())
+
+    def _corrupted_forward(self, frames: np.ndarray, stage: int) -> torch.Tensor:
+        """Forward with NaN corruption injected at the boundary after conv
+        stage ``stage`` (the fault-injection path — models silent
+        mid-pipeline data corruption)."""
+        with torch.inference_mode():
+            x = self._stage(frames)
+            for st in self.plan.stages:
+                x = st.fn(self.plan.stage_params(st.index), x)
+                if st.index == stage:
+                    x = torch.full_like(x, float("nan"))
+            return self.plan.head_fn(x)
+
+    def _attempt(self, frames: np.ndarray, eff, fwd: Callable,
+                 watch: Watch) -> Callable[[], torch.Tensor]:
+        """One dispatch attempt as a closure over its own fault effects,
+        rung and watch: a worker abandoned by its watchdog that wakes after
+        the engine has moved on still sees only these, never the next
+        attempt's."""
+
+        def _run():
+            if eff is not None:
+                if eff.stall_s:
+                    watch.sleep(eff.stall_s)
+                if eff.exc is not None:
+                    raise eff.exc
+                if eff.corrupt_stage is not None:
+                    return self._watched(
+                        watch, lambda: self._corrupted_forward(frames, eff.corrupt_stage)
+                    )
+            return self._watched(watch, lambda: fwd(self._stage(frames)))
+
+        return _run
+
     def _run_group(self, frames: np.ndarray) -> torch.Tensor:
         """Run one exactly-``microbatch``-sized batch through the active rung:
-        watchdog timeout, bounded retry-with-backoff, demotion on
-        persistent failure. Raises :class:`LadderExhausted` when no rung
-        can complete the batch, :class:`_PoisonedBatch` when the inputs
-        themselves are non-finite."""
+        fault effects applied, watchdog timeout, bounded retry-with-backoff,
+        demotion on persistent failure. Raises :class:`LadderExhausted` when
+        no rung can complete the batch, :class:`_PoisonedBatch` when the
+        inputs themselves are non-finite."""
         backoff = self.retry_backoff_s
         retries_left = self.max_retries
         while True:
+            eff = (
+                self._faults.dispatch_effects(rung=self._rung_name, tenant=self.name)
+                if self._faults is not None
+                else None
+            )
+            watch = Watch()
             try:
                 out = call_with_timeout(
-                    lambda: self._sync(self._fwd(self._stage(frames))),
+                    self._attempt(frames, eff, self._fwd, watch),
                     timeout_s=self.dispatch_timeout_s,
                     what=f"dispatch (rung {self._rung_name})",
+                    watch=watch,
                 )
                 with self._lock:
                     self._batches += 1
@@ -572,8 +651,9 @@ class Engine:
                 return out
             except _PoisonedBatch:
                 raise
-            except CollectiveTimeout as e:
-                # A wedged dispatch will not heal on retry: demote now.
+            except (InjectedDeviceLoss, CollectiveTimeout) as e:
+                # Not transient: a lost device or a wedged dispatch will not
+                # heal on retry — demote off the rung now.
                 self._demote(e)
                 retries_left = self.max_retries
                 backoff = self.retry_backoff_s
@@ -609,6 +689,10 @@ class Engine:
             return self._flush_once(max_frames)
 
     def _flush_once(self, max_frames: Optional[int] = None) -> int:
+        if self._faults is not None:
+            delay = self._faults.on_flush(tenant=self.name)
+            if delay:
+                time.sleep(delay)
         with self._cv:
             if not self._queue:
                 return 0
@@ -710,7 +794,10 @@ class Engine:
     # -- background flush loop ------------------------------------------------
 
     def _flusher_alive(self) -> bool:
-        return self._flusher is not None and self._flusher.is_alive()
+        if self._flusher is not None and self._flusher.is_alive():
+            return True
+        ext = self._external_flusher
+        return bool(ext is not None and ext())
 
     def start(self) -> "Engine":
         """Start the background flush loop (idempotent): micro-batches go

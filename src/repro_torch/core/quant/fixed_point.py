@@ -77,9 +77,20 @@ class FixedPointSpec:
 
 
 def quantize_fixed(x: torch.Tensor, spec: FixedPointSpec) -> torch.Tensor:
-    """Quantize to integer codes (int32) with round-to-nearest-even."""
-    q = torch.round(x / spec.scale)
-    return torch.clamp(q, spec.qmin, spec.qmax).to(torch.int32)
+    """Quantize to integer codes (int32) with round-to-nearest-even.
+
+    NaN gives code 0 on every device, as the reference's float -> int
+    conversion (XLA's) gives it. C++ leaves the cast of NaN undefined: the
+    card's conversion gives 0, an x86 CPU's INT_MIN, so only a tensor off
+    the card has its NaNs set to 0 first (no extra launch on the card)."""
+    q = torch.clamp(torch.round(x / spec.scale), spec.qmin, spec.qmax)
+    return nan_codes_to_zero(q).to(torch.int32)
+
+
+def nan_codes_to_zero(q: torch.Tensor) -> torch.Tensor:
+    """The card's float -> int conversion of NaN (0), made explicit where
+    the tensor lies elsewhere; a CUDA tensor is returned as it is."""
+    return q if q.is_cuda else torch.nan_to_num(q, nan=0.0)
 
 
 def dequantize_fixed(q: torch.Tensor, spec: FixedPointSpec) -> torch.Tensor:

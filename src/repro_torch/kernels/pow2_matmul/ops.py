@@ -4,7 +4,8 @@ dispatch on the device of the input.
 A CUDA tensor goes to the hand-written kernel (``pow2.py``) and the call
 raises if the kernel cannot take it; a CPU tensor goes to the plain
 PyTorch version (``ref.py``). There is no other path and no fallback
-between the two.
+between the two. Each call is also logged to ``probe`` (for the plan
+verifier).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 from repro_torch.core.quant.fixed_point import quantize_fixed
 from repro_torch.core.quant.packing import pack_codes_u4
 from repro_torch.core.quant.pow2 import pow2_codes
+from repro_torch.kernels import probe
 from repro_torch.kernels.backends import on_cuda
 from repro_torch.kernels.pow2_matmul.pow2 import pow2_matmul_cuda
 from repro_torch.kernels.pow2_matmul.ref import pow2_matmul_int_ref, pow2_matmul_ref
@@ -65,18 +67,18 @@ def pow2_matmul(
             f"the integer rendering takes int8 activation codes; x_spec has "
             f"{x_spec.bits} bits"
         )
+    name = "pow2_matmul" if x_spec is None else "pow2_matmul_int"
     if not on_cuda(x):
-        if x_spec is not None:
-            return pow2_matmul_int_ref(x, packed, scale, x_spec=x_spec)
-        return pow2_matmul_ref(x, packed, scale)
-    if x_spec is None:
+        with probe.dispatch(name, plain=True):
+            if x_spec is not None:
+                return pow2_matmul_int_ref(x, packed, scale, x_spec=x_spec)
+            return pow2_matmul_ref(x, packed, scale)
+    if x_spec is not None and x.is_floating_point():
+        # Quantize onto the activation grid before the launch, as the conv
+        # wrappers quantize their frame: the kernel reads 1-byte codes.
+        x = quantize_fixed(x, x_spec).to(torch.int8)
+    with probe.dispatch(name, plain=False):
         return pow2_matmul_cuda(
-            x.contiguous(), packed.contiguous(), scale.contiguous()
+            x.contiguous(), packed.contiguous(), scale.contiguous(),
+            x_scale=None if x_spec is None else x_spec.scale,
         )
-    # Quantize onto the activation grid before the launch, as the conv
-    # wrappers quantize their frame: the kernel reads 1-byte codes.
-    qx = quantize_fixed(x, x_spec).to(torch.int8) if x.is_floating_point() else x
-    return pow2_matmul_cuda(
-        qx.contiguous(), packed.contiguous(), scale.contiguous(),
-        x_scale=x_spec.scale,
-    )

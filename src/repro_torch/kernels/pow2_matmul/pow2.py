@@ -11,7 +11,8 @@ of a thread-block cluster split each output tile's K range.
 The wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch is refused. ``LAUNCHES`` counts the launches of each
-mode; nothing else touches the counts. The plain versions are in
+mode; nothing else touches the counts. Each launch is also logged to the
+calling thread's ``probe`` log, where one is open. The plain versions are in
 ``ref.py``; ``ops.py`` picks between them by the device of the input.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _nvcc
+from repro_torch.kernels import _nvcc, probe
 from repro_torch.kernels.backends import sm_count
 
 BLOCK_M = 16  # P2_BM in the source: output rows per tile
@@ -136,5 +137,7 @@ def pow2_matmul_cuda(
         err = lib.p2_matmul_launch(ctypes.addressof(desc), stream)
     if err:
         raise RuntimeError(f"pow2_matmul launch failed: CUDA error {err}")
-    LAUNCHES["pow2_matmul_int" if int_mode else "pow2_matmul"] += 1
+    name = "pow2_matmul_int" if int_mode else "pow2_matmul"
+    LAUNCHES[name] += 1
+    probe.launched(name)
     return out

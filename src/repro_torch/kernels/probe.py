@@ -1,0 +1,80 @@
+"""A per-thread log of the kernel dispatches one caller makes.
+
+The plan verifier's structure scope (``repro_torch.analysis``) runs a
+plan on a probe batch and reads what it dispatched. It cannot read the
+launch counters (``conv.LAUNCHES`` and its siblings): they are shared by
+every thread, and a tenant's hot swap is verified while the router's
+scheduler serves the other tenants. So the wrappers also report to this
+log, which exists only on the thread that opened it with
+:func:`recording` and only while it is open; every other caller pays one
+thread-local lookup.
+
+Two kinds of entries: a **dispatch** is one call of a kernel wrapper to
+its kernel or its plain version (``ops.py``), and marks the ops run
+inside it as the kernel's own (``DispatchLog.depth``); a **launch** is
+one kernel launch on the card (a single-layer call over column strips
+launches several).
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Optional
+
+_local = threading.local()
+
+
+class DispatchLog:
+    """What one thread dispatched while its log was open. ``phase`` is a
+    label the caller sets (the verifier uses ``"features"`` and
+    ``"head"``); each entry carries the phase it was made in."""
+
+    def __init__(self):
+        self.phase = ""
+        self.depth = 0
+        self.dispatches: list = []  # (phase, kernel name, plain version?)
+        self.launches: list = []  # (phase, kernel name)
+
+
+def active() -> Optional[DispatchLog]:
+    """The calling thread's open log, or None."""
+    return getattr(_local, "log", None)
+
+
+@contextlib.contextmanager
+def recording():
+    """Open a log on the calling thread for the duration of the block."""
+    log, prev = DispatchLog(), active()
+    _local.log = log
+    try:
+        yield log
+    finally:
+        _local.log = prev
+
+
+class dispatch:
+    """``with dispatch(name, plain=...):`` around a wrapper's call of its
+    kernel launcher or its plain version: logs the dispatch and marks the
+    block as inside the kernel."""
+
+    __slots__ = ("log",)
+
+    def __init__(self, name: str, *, plain: bool):
+        self.log = active()
+        if self.log is not None:
+            self.log.dispatches.append((self.log.phase, name, plain))
+
+    def __enter__(self):
+        if self.log is not None:
+            self.log.depth += 1
+
+    def __exit__(self, *exc):
+        if self.log is not None:
+            self.log.depth -= 1
+
+
+def launched(name: str) -> None:
+    """Log one launch of kernel ``name`` (beside its ``LAUNCHES`` count)."""
+    log = active()
+    if log is not None:
+        log.launches.append((log.phase, name))

@@ -28,7 +28,8 @@ layers within ``SMEM_LIMIT``).
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch is refused. ``LAUNCHES`` counts the launches of each
-kernel; nothing else touches the counts. The plain versions of both
+kernel; nothing else touches the counts. Each launch is also logged to
+the calling thread's ``probe`` log, where one is open. The plain versions of both
 kernels are in ``ref.py``; ``ops.py`` picks between them by the device of
 the input tensor.
 """
@@ -41,7 +42,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _nvcc
+from repro_torch.kernels import _nvcc, probe
 from repro_torch.kernels.padding import round_up
 from repro_torch.kernels.stream_conv.epilogue import (
     normalize_pool,
@@ -722,6 +723,7 @@ def stream_conv_fused_cuda(
                 )
                 _raise_on(launch(ctypes.addressof(desc), g["smem"], stream), name)
                 LAUNCHES[name] += 1
+                probe.launched(name)
     return out
 
 
@@ -987,4 +989,5 @@ def stream_conv_pyramid_cuda(
         err = launch(ctypes.addressof(desc), smem, stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1
+    probe.launched(name)
     return out

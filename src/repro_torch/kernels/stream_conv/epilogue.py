@@ -25,7 +25,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.quant.fixed_point import FixedPointSpec
+from repro_torch.core.quant.fixed_point import FixedPointSpec, nan_codes_to_zero
 
 ACTS = ("none", "relu", "tanh")
 
@@ -132,10 +132,11 @@ def quantize_stream(x: torch.Tensor, act_bits: int) -> torch.Tensor:
     CODES (value = code * scale). Exact (a pure representation change)
     when ``x`` already sits on the grid, which every fused-kernel boundary
     guarantees. int8 holds any stream code: ``act_bits <= 8`` is enforced
-    by the compile-time ``int8_compute`` validation."""
+    by the compile-time ``int8_compute`` validation. NaN gives code 0 on
+    every device (``fixed_point.nan_codes_to_zero``)."""
     spec = stream_quant_spec(act_bits)
     q = torch.clamp(torch.round(x / spec.scale), spec.qmin, spec.qmax)
-    return q.to(torch.int8)
+    return nan_codes_to_zero(q).to(torch.int8)
 
 
 def apply_epilogue(

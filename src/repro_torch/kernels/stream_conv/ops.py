@@ -9,13 +9,15 @@ Each wrapper validates its arguments the same way on every device, then
 dispatches on the device of ``x``: a CUDA tensor goes to the hand-written
 kernel (``conv.py``) and the call raises if the kernel cannot take it; a
 CPU tensor goes to the plain PyTorch version (``ref.py``). There is no
-other path and no fallback between the two.
+other path and no fallback between the two. Each call of a kernel or a
+plain version is also logged to ``probe`` (for the plan verifier).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import probe
 from repro_torch.kernels.backends import on_cuda
 from repro_torch.kernels.stream_conv.conv import (
     stream_conv_fused_cuda,
@@ -149,21 +151,24 @@ def stream_conv_block(
         pool_stride=pool_stride, act_bits=act_bits,
     )
     _validate_int8(int8_scales, act_bits, w)
+    name = "stream_conv_fused" if int8_scales is None else "stream_conv_fused_int8"
     if not on_cuda(x):
-        return stream_conv_block_ref(
-            x, w, b, padding=padding, stride=stride, act=act, pool=pool,
-            pool_stride=pool_stride, act_bits=act_bits,
-            int8_scales=int8_scales,
-        )
+        with probe.dispatch(name, plain=True):
+            return stream_conv_block_ref(
+                x, w, b, padding=padding, stride=stride, act=act, pool=pool,
+                pool_stride=pool_stride, act_bits=act_bits,
+                int8_scales=int8_scales,
+            )
     if int8_scales is not None:
         x = _as_codes(x, int8_scales.in_bits)  # pad zeros below are code 0
     if padding == "SAME":
         x = _pad_same(x, w.shape[0], stride)
-    return stream_conv_fused_cuda(
-        x.contiguous(), w.contiguous(), b.contiguous(), stride=stride,
-        act=act, pool=pool, pool_stride=pool_stride, act_bits=act_bits,
-        int8_scales=int8_scales, block_r=block_r, block_w=block_w,
-    )
+    with probe.dispatch(name, plain=False):
+        return stream_conv_fused_cuda(
+            x.contiguous(), w.contiguous(), b.contiguous(), stride=stride,
+            act=act, pool=pool, pool_stride=pool_stride, act_bits=act_bits,
+            int8_scales=int8_scales, block_r=block_r, block_w=block_w,
+        )
 
 
 def stream_conv_pyramid(
@@ -227,11 +232,13 @@ def stream_conv_pyramid(
                     "inter-layer code chain)"
                 )
     pyr = as_pyramid_layers(layers)
+    name = "stream_conv_pyramid" if int8_scales is None else "stream_conv_pyramid_int8"
     if not on_cuda(x):
-        return stream_conv_pyramid_ref(
-            x, weights, biases, layers=pyr, act_bits=bits,
-            int8_scales=int8_scales,
-        )
+        with probe.dispatch(name, plain=True):
+            return stream_conv_pyramid_ref(
+                x, weights, biases, layers=pyr, act_bits=bits,
+                int8_scales=int8_scales,
+            )
     if int8_scales is not None:
         x = _as_codes(x, int8_scales[0].in_bits)
     b_, h, w, c = x.shape
@@ -239,8 +246,9 @@ def stream_conv_pyramid(
         h, w, c, pyr, tuple(wt.shape[0] for wt in weights),
         tuple(wt.shape[3] for wt in weights), block_rows=block_rows,
     )
-    return stream_conv_pyramid_cuda(
-        x.contiguous(), [wt.contiguous() for wt in weights],
-        [bs.contiguous() for bs in biases], geom=geom, act_bits=bits,
-        int8_scales=int8_scales,
-    )
+    with probe.dispatch(name, plain=False):
+        return stream_conv_pyramid_cuda(
+            x.contiguous(), [wt.contiguous() for wt in weights],
+            [bs.contiguous() for bs in biases], geom=geom, act_bits=bits,
+            int8_scales=int8_scales,
+        )

@@ -1,0 +1,303 @@
+"""The port's plan verifier on the CPU, held against the reference's
+(``tests/test_analysis.py``, its plan and structure scopes).
+
+- the registry: the port's IDs, names and scopes are the reference's,
+  for every invariant of the two scopes it has;
+- seeded plan defects that have a counterpart in the port (non-finite
+  params, a broken IO chain, dtype drift, a host round-trip, float
+  kernels under an int8 contract, a stage that splits its fusion group)
+  give the same invariant IDs as the reference's ``verify_plan`` on the
+  same defect;
+- clean plans of all five topologies verify clean, fp32, fake-quant and
+  int8;
+- a probe counts only its own thread's dispatches, however many another
+  thread makes meanwhile;
+- asking for a scope or an ID the port does not have raises.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+# One intra-op thread: the suite runs in parallel workers, and idle
+# OpenMP threads would spin on cores that timing tests elsewhere use.
+torch.set_num_threads(1)
+
+import dataclasses  # noqa: E402
+import functools  # noqa: E402
+import threading  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.analysis import invariants as jinvariants  # noqa: E402
+from repro.analysis.verify import verify_plan as jverify_plan  # noqa: E402
+from repro.core.dhm import compiler as jcompiler  # noqa: E402
+from repro.core.dhm.pipeline import StageIOSpec as JStageIOSpec  # noqa: E402
+from repro.models.cnn import ALL_TOPOLOGIES as JAX_TOPOLOGIES  # noqa: E402
+from repro.models.cnn import init_cnn as jax_init_cnn  # noqa: E402
+from repro_torch.analysis import invariants as tinvariants  # noqa: E402
+from repro_torch.analysis.findings import Finding  # noqa: E402
+from repro_torch.analysis.verify import ProbeContext, verify_plan  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.core.dhm import Engine, PlanCheckError, QuantSpec, compile_dhm, emit_conv_stage  # noqa: E402
+from repro_torch.core.dhm.pipeline import StageIOSpec  # noqa: E402
+from repro_torch.kernels.stream_conv import stream_conv_block  # noqa: E402
+from repro_torch.models import cnn as tcnn  # noqa: E402
+from repro_torch.models.cnn import ALL_TOPOLOGIES  # noqa: E402
+
+NAME = "lenet5"
+
+
+def _ids(findings):
+    return sorted({f.rule for f in findings})
+
+
+@functools.lru_cache(maxsize=None)
+def _np_params(name="lenet5", seed=0):
+    params = jax_init_cnn(jax.random.PRNGKey(seed), JAX_TOPOLOGIES[name])
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _plans(name=NAME, *, jax_backend=None, **kw):
+    """(reference plan, port CPU plan) of ``name`` on the same params."""
+    quant = kw.pop("quant", {})
+    p = _np_params(name)
+    jplan = jcompiler.compile_dhm(JAX_TOPOLOGIES[name], jax.tree_util.tree_map(jnp.asarray, p),
+                                  quant=jcompiler.QuantSpec(**quant), backend=jax_backend, **kw)
+    tplan = compile_dhm(ALL_TOPOLOGIES[name], params_from_numpy(p, "cpu"),
+                        quant=QuantSpec(**quant), device="cpu", **kw)
+    return jplan, tplan
+
+
+def _tparams(name):
+    """The port's own init of ``name`` (seed 0), for the checks that
+    compare with no reference plan."""
+    return tcnn.init_cnn(torch.Generator().manual_seed(0), ALL_TOPOLOGIES[name], device="cpu")
+
+
+def _tplan(name=NAME, **kw):
+    """The port's CPU plan of ``name`` alone."""
+    quant = kw.pop("quant", {})
+    return compile_dhm(ALL_TOPOLOGIES[name], _tparams(name), quant=QuantSpec(**quant),
+                       device="cpu", **kw)
+
+
+# ---------------------------------------------------------------------------
+# registry hygiene
+
+
+class TestRegistry:
+    def test_ids_names_and_scopes_are_the_references(self):
+        want = {i: (inv.name, inv.scope) for i, inv in jinvariants.REGISTRY.items()
+                if inv.scope in tinvariants.PORTED_SCOPES}
+        got = {i: (inv.name, inv.scope) for i, inv in tinvariants.REGISTRY.items()}
+        assert got == want
+        assert tinvariants.SCOPES == jinvariants.SCOPES
+        assert set(tinvariants.PORTED_SCOPES) == {"plan", "structure"}
+
+    def test_every_invariant_says_what_it_checks(self):
+        for inv in tinvariants.REGISTRY.values():
+            assert inv.doc.strip(), f"{inv.id} has no doc"
+        for rule in ("V001", "V006"):  # no observable counterpart in PyTorch
+            assert "nothing" in tinvariants.REGISTRY[rule].doc
+
+    def test_finding_severity_validated(self):
+        with pytest.raises(ValueError):
+            Finding(rule="X", name="x", severity="fatal", message="m")
+
+
+class TestUnportedScopes:
+    def test_unported_scope_or_id_raises(self):
+        plan = _tplan()
+        for scopes in (("resource",), ("plan", "pipeline")):
+            with pytest.raises(NotImplementedError, match="no .* scope"):
+                verify_plan(plan, scopes=scopes)
+        with pytest.raises(NotImplementedError, match="no invariant V201"):
+            verify_plan(plan, ids=("V201",))
+        with pytest.raises(ValueError, match="unknown scopes"):
+            verify_plan(plan, scopes=("nope",))
+
+
+# ---------------------------------------------------------------------------
+# clean runs
+
+
+class TestCleanRun:
+    @pytest.mark.parametrize("name", sorted(ALL_TOPOLOGIES))
+    def test_topology_verifies_clean(self, name):
+        p = _tparams(name)
+        n_conv = len(ALL_TOPOLOGIES[name].conv_layers)
+        for quant in (QuantSpec(), QuantSpec(weight_bits=6, act_bits=6),
+                      QuantSpec(weight_bits=8, act_bits=8, int8_compute=True),
+                      QuantSpec(act_bits=8, pow2_weights=True, int8_compute=True,
+                                per_layer_bits=(8,) * n_conv)):
+            for budget in (None, 0):
+                plan = compile_dhm(ALL_TOPOLOGIES[name], p, quant=quant, vmem_budget=budget,
+                                   device="cpu")
+                assert verify_plan(plan) == [], f"{name}/{quant}/{budget}"
+
+    def test_probe_reads_one_dispatch_per_group_and_float32_boundaries(self):
+        plan = _tplan(quant=dict(weight_bits=8, act_bits=8, int8_compute=True),
+                         vmem_budget=0)
+        tr = ProbeContext(plan).trace()
+        assert [d[1:] for d in tr.phase_dispatches("features")] == [
+            ("stream_conv_fused_int8", True)] * len(plan.fusion_groups)
+        assert tr.launches == []  # a CPU plan launches nothing
+        assert tr.stage_dtypes == [torch.float32] and tr.logits_dtype == torch.float32
+        assert not any(op.to_host for op in tr.ops)
+
+    def test_kernel_only_checks_find_nothing_on_a_cpu_plan(self):
+        plan = _tplan(quant=dict(weight_bits=6, act_bits=6))
+        assert verify_plan(plan, ids=("V001", "V003", "V006", "V007")) == []
+
+    def test_planned_launches_count_the_strips(self):
+        """A singleton too wide for one block of the single-layer kernel
+        runs in column strips, one launch each: V002's count on the card."""
+        spec = tcnn.ConvLayerSpec(n_out=8, kernel=5, padding="SAME", pool=2, act="relu")
+        wide = tcnn.CNNTopology("wide", (12, 4100), 3, (spec,), (), 10)
+        plan = compile_dhm(wide, tcnn.init_cnn(torch.Generator().manual_seed(0), wide,
+                                               device="cpu"), device="cpu")
+        assert len(plan.fusion_groups) == 1
+        assert tinvariants.planned_launches(plan) > 1
+        lenet = _tplan()
+        assert tinvariants.planned_launches(lenet) == 1  # one pyramid group
+
+
+# ---------------------------------------------------------------------------
+# seeded plan defects -> the reference's invariant IDs
+
+
+def _both_ids(jbad, tbad, **kw):
+    want = _ids(f for f in jverify_plan(jbad, **kw) if f.is_error)
+    got = _ids(f for f in verify_plan(tbad, **kw) if f.is_error)
+    assert got == want
+    return got
+
+
+class TestSeededPlanDefects:
+    def test_nonfinite_param_is_V301(self):
+        jplan, tplan = _plans()
+        jbad = dataclasses.replace(jplan, conv_params=tuple(
+            {k: (v.at[0].set(jnp.nan) if k == "b" else v) for k, v in p.items()} if i == 0 else p
+            for i, p in enumerate(jplan.conv_params)))
+        tb = tplan.conv_params[0]["b"].clone()
+        tb[0] = float("nan")
+        tbad = dataclasses.replace(tplan, conv_params=(
+            {"w": tplan.conv_params[0]["w"], "b": tb},) + tplan.conv_params[1:])
+        assert _both_ids(jbad, tbad, scopes=("plan",)) == ["V301"]
+        with pytest.raises(PlanCheckError) as ei:
+            tbad.self_check()
+        assert ei.value.invariants == ("V301",)
+
+    def test_broken_io_chain_is_V302(self):
+        jplan, tplan = _plans(n_stages=2)
+        bad = []
+        for plan, io_cls in ((jplan, JStageIOSpec), (tplan, StageIOSpec)):
+            st0 = plan.stages[0]
+            io = io_cls(in_shape=st0.io.in_shape, out_shape=(1, 1, 999))
+            bad.append(dataclasses.replace(
+                plan, stages=(dataclasses.replace(st0, io=io),) + plan.stages[1:]))
+        ids = _both_ids(*bad, scopes=("plan",))
+        assert "V302" in ids and "V303" in ids
+
+    def test_fp32_compute_under_int8_contract_is_V008(self):
+        jfq, tfq = _plans(quant=dict(weight_bits=8, act_bits=8))
+        jlying = dataclasses.replace(
+            jfq, quant=jcompiler.QuantSpec(weight_bits=8, act_bits=8, int8_compute=True))
+        tlying = dataclasses.replace(
+            tfq, quant=QuantSpec(weight_bits=8, act_bits=8, int8_compute=True))
+        assert _both_ids(jlying, tlying, ids=("V008",)) == ["V008"]
+        assert any("float" in f.message for f in verify_plan(tlying, ids=("V008",)))
+
+    def test_dtype_drift_is_V004(self):
+        jplan, tplan = _plans()
+        jbad = dataclasses.replace(jplan, head_fn=lambda h, _i=jplan.head_fn: _i(
+            h.astype(jnp.bfloat16).astype(jnp.float32)))
+        tbad = dataclasses.replace(tplan, head_fn=lambda h, _i=tplan.head_fn: _i(
+            h.to(torch.bfloat16).to(torch.float32)))
+        assert _both_ids(jbad, tbad, ids=("V004",)) == ["V004"]
+
+    def test_host_round_trip_is_V005(self):
+        """A stage body that reads a value to the host: a callback in the
+        reference's trace, a ``.item()`` in the port's probe."""
+        jplan, tplan = _plans()
+        jst, tst = jplan.stages[0], tplan.stages[0]
+
+        def jfn(params, x, _f=jst.fn):
+            x = jax.pure_callback(lambda a: a, jax.ShapeDtypeStruct(x.shape, x.dtype), x)
+            return _f(params, x)
+
+        def tfn(params, x, _f=tst.fn):
+            float(x.sum())
+            return _f(params, x)
+
+        jbad = dataclasses.replace(jplan, stages=(dataclasses.replace(jst, fn=jfn),))
+        tbad = dataclasses.replace(tplan, stages=(dataclasses.replace(tst, fn=tfn),))
+        assert _both_ids(jbad, tbad, ids=("V005",)) == ["V005"]
+
+    def test_stage_that_splits_its_group_is_V002(self):
+        """The plan says one fusion group; the stage body runs its layers
+        as separate kernel calls. The reference counts pallas_calls on its
+        interpret backend; the port counts kernel dispatches."""
+        jplan, tplan = _plans(jax_backend="pallas_interpret")
+        assert len(tplan.fusion_groups) == len(jplan.fusion_groups) == 1
+        jst, tst = jplan.stages[0], tplan.stages[0]
+        jsplit = dataclasses.replace(jplan, stages=(dataclasses.replace(
+            jst, fn=jcompiler.emit_conv_stage(jst.specs, backend="pallas_interpret")),))
+        tsplit = dataclasses.replace(tplan, stages=(dataclasses.replace(
+            tst, fn=emit_conv_stage(tst.specs)),))
+        assert _both_ids(jsplit, tsplit, ids=("V002",)) == ["V002"]
+        # One kernel call per layer is right where the plan groups each
+        # layer alone. (The reference's interpret pyramid does not trace
+        # under this JAX, so the clean fused plan is held on the port only.)
+        assert _both_ids(*_plans(jax_backend="pallas_interpret", vmem_budget=0),
+                         ids=("V002",)) == []
+        assert verify_plan(tplan, ids=("V002",)) == []
+
+
+# ---------------------------------------------------------------------------
+# the probe counts its own thread only
+
+
+def test_probe_is_not_disturbed_by_another_threads_dispatches():
+    """While another thread serves the same plan through an Engine and
+    calls the conv wrappers in a loop, the probe still reads exactly its
+    own one dispatch per fusion group."""
+    plan = _tplan(vmem_budget=0)
+    stop = threading.Event()
+    busy = []
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 28, 28, 1)).astype(np.float32))
+    w, b = plan.conv_params[0]["w"], plan.conv_params[0]["b"]
+    eng = Engine(plan, microbatch=2)
+
+    def hammer():
+        while not stop.is_set():
+            stream_conv_block(x, w, b, padding="VALID", act="relu", pool=2)
+            eng.infer(x.numpy())
+            busy.append(1)
+
+    t = threading.Thread(target=hammer, daemon=True)
+    t.start()
+    try:
+        while not busy:
+            stop.wait(0.001)
+        for _ in range(5):
+            ctx = ProbeContext(plan)
+            assert len(ctx.trace().phase_dispatches("features")) == len(plan.fusion_groups)
+            assert verify_plan(plan) == []
+    finally:
+        stop.set()
+        t.join(timeout=30.0)
+    assert not t.is_alive() and len(busy) > 1
+
+
+# ---------------------------------------------------------------------------
+# the serving path cites the same registry
+
+
+def test_demotion_record_cites_invariants():
+    e = PlanCheckError("nope", invariants=("V301", "V303"))
+    rec = Engine._demotion_record("fused", e)
+    assert rec["invariants"] == ["V301", "V303"] and rec["rung"] == "fused"
+    assert "invariants" not in Engine._demotion_record("fused", RuntimeError("x"))
