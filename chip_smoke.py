@@ -60,6 +60,21 @@ Phases (each asserts or exits non-zero):
      rolled back, and swaps to a NaN-weight plan (V301) and a lenet5 plan
      (serving surface) refused; every answer equals a direct call of the
      plan and rung that served it, the plain versions are never called;
+  5f. the spatial pipeline: cifar10 at full width as a 3-stage plan (one
+     conv layer a stage) in fp32 and with plan (b)'s quantization, on a
+     stage mesh of three slots on cuda:0, each its own stream; B=256 as 4
+     µbatches of 64 through run_pipelined, exact and boxed edges, serial
+     and overlapped, and on a (3, 2) (stage, data) mesh: features bit for
+     bit against the same plan run in sequence, logits against the
+     1-stage fused plans (fp32 at the logits' tolerance, int8 bit for
+     bit), S x M stage launches a call (fill and drain launch nothing);
+     phase 5's 24 requests through Engine(plan, mesh=..., microbatch=64,
+     n_microbatches=4), every answer equal to the plan on the padded group
+     and the rung staying mesh; a DeviceLoss on the mesh rung demotes to
+     fused with no retry, a StalledDispatch past its watchdog demotes and
+     the abandoned attempt launches nothing; verify_plan(scopes=
+     ("pipeline",)) finds no error on either plan and one V103 warning on
+     the boxed runner; no plain version is called;
   6. time each kernel, its plain version and the library call with CUDA
      events at main-path shapes, beside the card's bound; the fp32 and
      int8 conv kernels, pow2_matmul, the seed conv and their library calls
@@ -72,16 +87,24 @@ Phases (each asserts or exits non-zero):
      split (submit, packing, watchdog, _stage, enqueue, _sync); the selective scan by
      its device time at the prefill, decode and one-sequence shapes, with
      the lanes its plan takes; then the LM's prefill and
-     decode step, with their device time by kernel;
+     decode step, with their device time by kernel; then the pipeline
+     sweep: the 3-stage fp32 plan on the stage mesh over M in {1, 2, 4, 8}
+     x µbatch in {16, 32, 64, 128, 256} x overlap, in frames/s, beside the 1-stage
+     fused plan and the stages run in sequence, with the profiler's union
+     of kernel device time against its sum; the 2-stage plan's serial
+     rows; fit_constants on the serial rows, estimate_pipeline beside each
+     row and autotune_pipeline's pick, every line with the card's name and
+     power limit;
   7. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The launch counts are zeroed just before phase 4 and read just after
 phase 5 (the fp32 path), zeroed just before phase 4b and read just after
 phase 5b (the int8 and pow2 path), zeroed just before phase 4c's kernel
 runs and read just after phase 5c (the LM path), and zeroed just before
-phase 5d and read just after it, and zeroed just before phase 5e's
-traffic and read just after it: they show that each path went through
-its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
+phase 5d and read just after it, zeroed just before phase 5e's
+traffic and read just after it, and zeroed just before phase 5f's
+pipelined runs and read just after them (``launches_5f`` in the record):
+they show that each path went through its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
 before a path's counts are zeroed.
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -154,6 +177,13 @@ LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 32  # bf16 serving
 # and the int8 tenant's watchdog.
 MT_REQUESTS, MT_SUBMITTERS, MT_DEADLINE_MS, MT_DISPATCH_TIMEOUT_S = 48, 4, 10_000.0, 2.0
 HOST_SPLIT_BATCHES = 40  # phase 6: micro-batches the Engine's host split averages
+# Phase 5f: the stage mesh and the µbatches B=256 is cut into; phase 6's
+# pipeline sweep: µbatch counts, µbatch sizes (128 and 256 beside the
+# serving sizes, to see whether the streams overlap once a stage's kernels
+# outlast the host's enqueue), and the stage counts of the plans the cost
+# model is fitted on.
+PIPE_STAGES, PIPE_M = 3, 4
+SWEEP_M, SWEEP_MB, SWEEP_STAGES = (1, 2, 4, 8), (16, 32, 64, 128, 256), (3, 2)
 
 
 def regroup_topologies(cnn) -> dict:
@@ -978,6 +1008,176 @@ def main() -> None:
           f"to a direct call of its plan and rung; plain versions called 0 times; launches "
           f"{ {k: v for k, v in mt_launches.items() if v} }; phase {time.perf_counter() - t_phase:.1f} s")
 
+    # -- 5f. the spatial pipeline: the stages on their own streams --------------
+    # cifar10 at full width, 3 stages of one conv layer each, fp32 and plan
+    # (b)'s quantization; a stage mesh of three slots on the card, each its
+    # own stream. B=256 as 4 µbatches of 64 through run_pipelined (exact and
+    # boxed edges, serial and overlapped, and a (3, 2) (stage, data) mesh):
+    # the features bit for bit against the same plan run in sequence, the
+    # logits against the 1-stage fused plans (fp32 at the logits'
+    # tolerance, int8 bit for bit). Then phase 5's burst through the
+    # Engine's mesh rung, chaos on that rung, and the verifier's pipeline
+    # scope. References are computed before the counts are zeroed; every
+    # plain version is counted and must not be called.
+    from repro_torch.analysis.invariants import planned_launches
+    from repro_torch.analysis.verify import make_pipeline_probe
+    from repro_torch.core.dhm import DeviceLoss, PipelineConfig, build_plan_pipeline
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    pipe_mesh = make_mesh((PIPE_STAGES,), ("stage",))
+    pipe_mesh2 = make_mesh((PIPE_STAGES, 2), ("stage", "data"))
+    check({str(d) for d in pipe_mesh.devices} == {"cuda:0"}
+          and len({sl.stream.cuda_stream for sl in pipe_mesh.slots}) == PIPE_STAGES,
+          f"stage mesh {pipe_mesh}: not {PIPE_STAGES} streams on cuda:0")
+    plan3 = compile_dhm(topo, cparams, quant=QuantSpec(), n_stages=PIPE_STAGES)
+    plan3_b = compile_dhm(topo, cparams, quant=quant_b, n_stages=PIPE_STAGES)
+    for p_ in (plan3, plan3_b):
+        check([st.conv_layers for st in p_.stages] == [(0,), (1,), (2,)],
+              f"3-stage plan stages {[st.conv_layers for st in p_.stages]}")
+    pipe_shape = (PIPE_M, BATCH // PIPE_M) + tuple(x.shape[1:])
+    pipe_in = {"fp32": (plan3, x, plan), "(b)": (plan3_b, xq, plan_b)}
+    with torch.inference_mode():
+        pipe_want = {k: (p3.features(xin), p1(xin)) for k, (p3, xin, p1) in pipe_in.items()}
+        # (what, request) -> the 3-stage plan on the frames padded to a group
+        pipe_direct = {(what, i): p3(torch.from_numpy(padded(f)).to(dev)).cpu()[: f.shape[0]]
+                       for what, (p3, fs) in (("fp32", (plan3, frames)), ("(b)", (plan3_b, q_frames)))
+                       for i, f in enumerate(fs)}
+    per_call = {k: planned_launches(p3) for k, (p3, _, _) in pipe_in.items()}
+    torch.cuda.synchronize()
+    for name_ in plain:
+        plain[name_] = 0
+        setattr(kconv_ops if "conv" in name_ else kpow2_ops, name_, counted(name_))
+    kconv.reset_launch_counts()
+    kpow2.reset_launch_counts()
+    try:
+        pipe_errs = {}
+        for what, (p3, xin, p1) in pipe_in.items():
+            feats_want, logits_1 = pipe_want[what]
+            mbs = xin.reshape(pipe_shape)
+            runs = [(em, ov, pipe_mesh, None) for em in ("exact", "boxed") for ov in (False, True)]
+            runs.append(("auto", False, pipe_mesh2, "data"))
+            for em, ov, mesh_, dax in runs:
+                before = sum(kconv.LAUNCHES.values())
+                with torch.inference_mode():
+                    feats = p3.run_pipelined(mbs, mesh=mesh_, data_axis=dax, overlap=ov,
+                                             edge_mode=em)
+                    flat = feats.reshape((BATCH,) + tuple(feats.shape[2:]))
+                    logits_p = p3.head_fn(flat)
+                torch.cuda.synchronize()
+                n_l = sum(kconv.LAUNCHES.values()) - before
+                d_ = 2 if dax else 1
+                check(n_l == d_ * PIPE_M * per_call[what],
+                      f"5f {what} {em} overlap={ov} data={dax}: {n_l} stage launches, want "
+                      f"{d_} x {PIPE_M} x {per_call[what]}")
+                check(torch.equal(flat, feats_want), f"5f {what} {em} overlap={ov} data={dax}: "
+                      f"features max |delta| {float((flat - feats_want).abs().max())}")
+                err = float((logits_p - logits_1).abs().max())
+                if what == "fp32":
+                    check(torch.allclose(logits_p, logits_1, rtol=LOGITS_RTOL, atol=LOGITS_ATOL),
+                          f"5f fp32 logits max |delta| {err} against the 1-stage fused plan")
+                else:
+                    check(torch.equal(logits_p, logits_1),
+                          f"5f (b) logits max |delta| {err} against the 1-stage fused plan (b)")
+                pipe_errs[what] = max(pipe_errs.get(what, 0.0), err)
+            print(f"[5f] {what} 3-stage plan, {PIPE_M} µbatches of {BATCH // PIPE_M}: exact and "
+                  f"boxed, serial and overlapped, and a (3, 2) (stage, data) mesh: features equal "
+                  f"to the plan run in sequence bit for bit, {per_call[what]} launch(es) per stage "
+                  f"body, {PIPE_M * per_call[what]} per call (fill and drain launch nothing); "
+                  f"logits max |delta| {pipe_errs[what]:.3e} against the 1-stage fused plan")
+        # Phase 5's burst through the Engine's mesh rung.
+        pipe_engines = {}
+        for what, (p3, _, _) in pipe_in.items():
+            eng_p = Engine(p3, mesh=pipe_mesh, microbatch=BATCH // PIPE_M, n_microbatches=PIPE_M,
+                           auto_flush=True, default_deadline_ms=10_000.0)
+            eng_p.reset_stats()
+            burst = frames if what == "fp32" else q_frames
+            t0 = time.perf_counter()
+            reqs = [eng_p.submit(f) for f in burst]
+            got_p = [r.result(timeout=120.0) for r in reqs]
+            wall_p = time.perf_counter() - t0
+            eng_p.stop()
+            for i, g_ in enumerate(got_p):
+                want_ = pipe_direct[(what, i)]
+                check(torch.equal(g_, want_), f"5f engine {what} request {i}: max |delta| "
+                      f"{float((g_ - want_).abs().max())} against the plan")
+            st_p = eng_p.stats()
+            check(eng_p.rung == "mesh" and eng_p.demotions == [] and st_p.n_retries == 0
+                  and st_p.n_ok == len(burst) and st_p.n_errors == 0,
+                  f"5f engine {what}: rung {eng_p.rung}, {st_p.summary()}")
+            pipe_engines[what] = (st_p, wall_p)
+            lat = st_p.rung_latency_ms["mesh"]
+            print(f"[5f] engine {what} on the mesh rung (group {eng_p.group} = {PIPE_M} x "
+                  f"{BATCH // PIPE_M}): {len(burst)} requests / {n_frames} frames, p50 "
+                  f"{lat['p50_ms']:.3f} ms p99 {lat['p99_ms']:.3f} ms, {st_p.frames_per_s:.0f} "
+                  f"frames/s busy, {n_frames / wall_p:.0f} frames/s wall, {st_p.n_batches} groups; "
+                  "every answer equal to the plan on the padded group; 0 retries, 0 demotions")
+        # Chaos on the mesh rung: a device loss demotes with no retry; a stall
+        # past the watchdog demotes, and the abandoned attempt launches
+        # nothing: the only launches are the fused rung's warmup and the
+        # request's, and the mesh closure is never entered.
+        x_c = frames[3]
+        eng_l = Engine(plan3, mesh=pipe_mesh, microbatch=BATCH // PIPE_M, n_microbatches=PIPE_M,
+                       retry_backoff_s=1e-4,
+                       fault_plan=FaultPlan([DeviceLoss(at=0, times=None, rung="mesh")]))
+        got_l = eng_l.infer(x_c)
+        check(eng_l.rung == "fused" and [d["rung"] for d in eng_l.demotions] == ["mesh"]
+              and eng_l.stats().n_retries == 0, f"5f device loss: rung {eng_l.rung}, "
+              f"demotions {eng_l.demotions}, retries {eng_l.stats().n_retries}")
+        check(torch.equal(got_l, pipe_direct[("fp32", 3)]), "5f device loss: answer")
+        eng_s = Engine(plan3, mesh=pipe_mesh, microbatch=BATCH // PIPE_M, n_microbatches=PIPE_M,
+                       dispatch_timeout_s=MT_DISPATCH_TIMEOUT_S,
+                       fault_plan=FaultPlan([StalledDispatch(at=0, times=1, stall_s=30.0,
+                                                             rung="mesh")]))
+        mesh_calls, mesh_fwd = [], eng_s._fwd
+        eng_s._fwd = lambda xb: mesh_calls.append(1) or mesh_fwd(xb)
+        torch.cuda.synchronize()
+        before = sum(kconv.LAUNCHES.values())
+        t0 = time.perf_counter()
+        got_s = eng_s.infer(x_c)
+        check(join_watchdogs(30.0) == 0, "5f: a watchdog thread outlived the stall")
+        stall_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        n_after = sum(kconv.LAUNCHES.values()) - before
+        check(mesh_calls == [] and eng_s.rung == "fused"
+              and [d["rung"] for d in eng_s.demotions] == ["mesh"]
+              and "did not complete" in eng_s.demotions[0]["reason"],
+              f"5f stall: rung {eng_s.rung}, demotions {eng_s.demotions}, mesh calls {mesh_calls}")
+        check(n_after == 2 * per_call["fp32"],
+              f"5f stall: {n_after} launches after the stall, want the fused rung's "
+              f"{2 * per_call['fp32']} (warmup and request)")
+        check(torch.equal(got_s, pipe_direct[("fp32", 3)]), "5f stall: answer")
+        print(f"[5f] chaos on the mesh rung: DeviceLoss demotes to fused with 0 retries; a "
+              f"StalledDispatch past its {MT_DISPATCH_TIMEOUT_S:.0f} s watchdog demotes to fused "
+              f"in {stall_wall:.2f} s, the abandoned attempt launched nothing ({n_after} "
+              "launches after it, all the fused rung's warmup and request)")
+        # The verifier's pipeline scope on both plans, exact and boxed.
+        for what, (p3, _, _) in pipe_in.items():
+            pr_ = make_pipeline_probe(p3, n_microbatches=PIPE_M, microbatch=BATCH // PIPE_M)
+            errors = [f.render() for f in verify_plan(p3, scopes=("pipeline",), pipeline=pr_)
+                      if f.is_error]
+            check(not errors and len(pr_.transfers) == (PIPE_STAGES - 1) * PIPE_M,
+                  f"5f verify_plan({what}, pipeline): {errors}, {len(pr_.transfers)} transfers")
+            boxed_ = verify_plan(p3, scopes=("pipeline",), pipeline=make_pipeline_probe(
+                p3, n_microbatches=PIPE_M, microbatch=BATCH // PIPE_M, edge_mode="boxed"))
+            check([(f.rule, f.severity) for f in boxed_] == [("V103", "warning")],
+                  f"5f boxed probe of {what}: {[f.render() for f in boxed_]}")
+            print(f"[5f] verify_plan({what}, scopes=('pipeline',)): no error, "
+                  f"{len(pr_.transfers)} edge transfers in classes "
+                  f"{sorted({t[0] for t in pr_.transfers})}; the boxed runner: one V103 warning "
+                  f"({boxed_[0].message})")
+        torch.cuda.synchronize()
+    finally:
+        for name_, fn_ in plain_fns.items():
+            setattr(kconv_ops if "conv" in name_ else kpow2_ops, name_, fn_)
+    pipe_launches = {**kconv.LAUNCHES, **kpow2.LAUNCHES}
+    check(all(v == 0 for v in plain.values()), f"phase 5f called plain versions: {plain}")
+    for key in ("stream_conv_fused", "stream_conv_fused_int8", "pow2_matmul_int"):
+        check(pipe_launches[key] > 0, f"the pipeline path never launched {key}")
+    check(join_watchdogs(30.0) == 0, "a watchdog thread is still running after phase 5f")
+    print(f"[5f] pipeline path launches: { {k: v for k, v in pipe_launches.items() if v} }; plain "
+          f"versions called 0 times; phase {time.perf_counter() - t_phase:.1f} s")
+
     # -- 6. timing at main-path shapes -------------------------------------------
     def time_ms(fn, iters=50, warmup=5):
         for _ in range(warmup):
@@ -1554,10 +1754,108 @@ def main() -> None:
         bound_ms_b256=s256["bound"],
     ))
 
+    # The spatial pipeline sweep: cifar10's 3-stage fp32 plan on the stage
+    # mesh (three streams of cuda:0), M µbatches of mb frames, serial and
+    # overlapped, in frames/s from CUDA events; beside each row the same
+    # frames through the 1-stage fused plan (one pyramid launch) and the
+    # 3-stage plan run in sequence on one stream, and the profiler's union
+    # of kernel device time against its sum (a union below the sum means
+    # the stage streams overlapped). Then the 2-stage plan's serial rows
+    # (another ratio of stage FLOPs to edge bytes, without which the fit is
+    # degenerate), fit_constants on the serial rows, estimate_pipeline
+    # beside each row, and autotune_pipeline's pick from the rows.
+    from repro_torch.core.dhm import autotune_pipeline, estimate_pipeline, fit_constants, sweep_sample
+
+    trace_path = os.path.join(ROOT, "build", "pipeline_sweep_trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+
+    def kernel_union(fn, reps=5):
+        """(sum, union) of the kernels' device intervals per call, ms, over
+        ``reps`` calls on the profiler's clock, and the kernels per call."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as fh:
+            evs = [e for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"]
+        os.remove(trace_path)
+        iv = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in evs)
+        total = sum(b - a for a, b in iv)
+        union, end = 0.0, None
+        for a, b in iv:
+            if end is None or a > end:
+                union += b - a
+                end = b
+            elif b > end:
+                union += b - end
+                end = b
+        return total / reps / 1e3, union / reps / 1e3, len(evs) / reps
+
+    sweep_rows, sweep_samples = [], []
+    sweep_plans = {3: plan3, 2: compile_dhm(topo, cparams, quant=QuantSpec(), n_stages=2)}
+    gen_sw = torch.Generator().manual_seed(SEED + 6)
+    for n_st in SWEEP_STAGES:
+        p_st = sweep_plans[n_st]
+        mesh_st = pipe_mesh if n_st == PIPE_STAGES else make_mesh((n_st,), ("stage",))
+        for mb in SWEEP_MB:
+            for m_ in SWEEP_M:
+                xs = torch.randn((m_ * mb, h, w, topo.input_channels), generator=gen_sw).to(dev)
+                mbs = xs.reshape((m_, mb) + tuple(xs.shape[1:]))
+                with torch.inference_mode():
+                    t_fused = time_ms(lambda: plan.features(xs), iters=20)
+                    t_seq = time_ms(lambda: p_st.features(xs), iters=20)
+                for ov in ((False, True) if n_st == PIPE_STAGES else (False,)):
+                    runner = build_plan_pipeline(p_st, mesh=mesh_st,
+                                                 cfg=PipelineConfig(n_st, m_, overlap=ov),
+                                                 microbatch=mb)
+                    with torch.inference_mode():
+                        t_pipe = time_ms(lambda: runner(mbs), iters=20)
+                        k_sum, k_union, k_n = kernel_union(lambda: runner(mbs))
+                    fps = m_ * mb / t_pipe * 1e3
+                    row = dict(n_stages=n_st, n_microbatches=m_, microbatch=mb, data=1,
+                               overlap=ov, edge_mode="auto", frames_per_s=fps, ms=t_pipe,
+                               fused_fps=m_ * mb / t_fused * 1e3,
+                               sequential_fps=m_ * mb / t_seq * 1e3,
+                               kernel_sum_ms=k_sum, kernel_union_ms=k_union, kernels=k_n)
+                    sweep_rows.append(row)
+                    if not ov:
+                        sweep_samples.append(sweep_sample(p_st, n_microbatches=m_, microbatch=mb,
+                                                          data=1, frames_per_s=fps))
+    fitted = fit_constants(sweep_samples)
+    print(f"[6] pipeline sweep, cifar10 fp32 ({smi}): fit_constants on "
+          f"{len(sweep_samples)} serial rows: {fitted.flops_per_s:.4e} FLOP/s, "
+          f"{fitted.bytes_per_s:.4e} B/s, tick overhead {fitted.tick_overhead_s * 1e3:.4f} ms "
+          f"(source {fitted.source})")
+    for row in sweep_rows:
+        est = estimate_pipeline(sweep_plans[row["n_stages"]], n_microbatches=row["n_microbatches"],
+                                microbatch=row["microbatch"], overlap=row["overlap"],
+                                constants=fitted)
+        row["model_fps"] = est.frames_per_s
+        print(f"[6] pipeline S={row['n_stages']} M={row['n_microbatches']} "
+              f"mb={row['microbatch']} overlap={row['overlap']} ({smi}): "
+              f"{row['frames_per_s']:.0f} frames/s ({row['ms']:.4f} ms a call, CUDA events); "
+              f"1-stage fused {row['fused_fps']:.0f}, {row['n_stages']}-stage in sequence "
+              f"{row['sequential_fps']:.0f} frames/s; kernels {row['kernels']:.0f} a call, device "
+              f"sum {row['kernel_sum_ms']:.4f} ms, union {row['kernel_union_ms']:.4f} ms "
+              f"(union/sum {row['kernel_union_ms'] / row['kernel_sum_ms']:.3f}, busy share "
+              f"{row['kernel_union_ms'] / row['ms']:.3f}); model {est.frames_per_s:.0f} frames/s")
+    pick = autotune_pipeline(plan3, PIPE_STAGES,
+                             measurements=[r for r in sweep_rows if r["n_stages"] == PIPE_STAGES],
+                             constants=fitted)
+    model_pick = autotune_pipeline(plan3, PIPE_STAGES, constants=fitted,
+                                   grains=SWEEP_MB, microbatches=SWEEP_M)
+    print(f"[6] autotune_pipeline(cifar10 3-stage, 3 slots, the measured rows) ({smi}): "
+          f"{pick.summary()}; on the fitted model alone: {model_pick.summary()}")
+
     check(join_watchdogs(30.0) == 0, "a watchdog thread is still running at the end")
     torch.cuda.synchronize()
 
     # -- 7. the record ------------------------------------------------------------
+    for rec in kernels:
+        rec["launches_5f"] = pipe_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -18,9 +18,16 @@ scopes, for the two scopes the port has.
   inside a kernel wrapper's dispatch is the kernel's own (on a CPU plan,
   the plain version's); the others are the glue between launches.
 
-The reference's ``resource`` (V2xx) and ``pipeline`` (V1xx) scopes are
-not ported yet: ``SCOPES`` names them and ``verify_plan`` raises when
-asked for them.
+- ``pipeline`` (V1xx): the reference reads the ``ppermute``s of the traced
+  pipelined closure. The port runs the pipelined runner once on zero
+  µbatches (``verify.make_pipeline_probe``) and reads the edge transfers
+  it logged on the probing thread (``kernels/probe.py``): each hand-off's
+  shape class, (source, destination) stages and buffer shape. A class's
+  transfers play the part of the reference's one ``ppermute`` per class.
+  With no probe given, the scope finds nothing, as the reference's.
+
+The reference's ``resource`` (V2xx) scope is not ported yet: ``SCOPES``
+names it and ``verify_plan`` raises when asked for it.
 
 Invariants self-gate as in the reference: a check that only the kernel
 path has (V003, V007) returns no findings on a CPU plan, as the
@@ -38,7 +45,7 @@ from typing import Callable, Dict
 import torch
 
 SCOPES = ("plan", "structure", "resource", "pipeline")
-PORTED_SCOPES = ("plan", "structure")
+PORTED_SCOPES = ("plan", "structure", "pipeline")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -414,3 +421,112 @@ def _integer_conv_compute(ctx):
         for i, (_, name, _) in enumerate(convs)
         if not name.endswith("_int8")
     ]
+
+
+# ---------------------------------------------------------------------------
+# pipeline scope (V1xx)
+
+
+def _transfers_by_class(ctx):
+    """Group the probe's logged transfers by the class they were sent in,
+    and match each group to an EdgePlan shape class by its (src, dst)
+    pairs, as the reference matches each ``ppermute`` by its perm;
+    returns (assignments [(class, transfers)], unmatched groups)."""
+    probe = ctx.pipeline
+    groups: dict = {}
+    for c, pair, shape in probe.transfers:
+        groups.setdefault(c, []).append((c, tuple(pair), tuple(shape)))
+    pairs_of = {
+        c: frozenset(map(tuple, probe.edge_plan.class_pairs(c)))
+        for c in range(probe.edge_plan.n_classes)
+    }
+    assigned, unmatched = [], []
+    for group in groups.values():
+        pairs = frozenset(pair for _, pair, _ in group)
+        for c, want in pairs_of.items():
+            if pairs == want:
+                assigned.append((c, group))
+                break
+        else:
+            unmatched.append(group)
+    return assigned, unmatched
+
+
+@invariant("V101", name="interior-edge-count", scope="pipeline")
+def _interior_edge_count(ctx):
+    """The pipelined run makes exactly the EdgePlan's transfers: one group
+    per shape class, whose (src, dst) pairs together cover every interior
+    edge (s, s+1) exactly once — S-1 edges total."""
+    probe = ctx.pipeline
+    if probe is None:
+        return []
+    ep = probe.edge_plan
+    if ep.n_edges == 0:
+        return []
+    assigned, unmatched = _transfers_by_class(ctx)
+    out = []
+    if unmatched:
+        pairs = [sorted({pair for _, pair, _ in g}) for g in unmatched]
+        out.append(ctx.error(
+            "V101",
+            f"{len(unmatched)} logged transfer class(es) match no EdgePlan "
+            f"shape class: pairs {pairs}",
+        ))
+    got_classes = sorted(c for c, _ in assigned)
+    want_classes = list(range(ep.n_classes))
+    if got_classes != want_classes:
+        out.append(ctx.error(
+            "V101",
+            f"the run's transfers cover shape classes {got_classes}; the "
+            f"EdgePlan requires exactly one transfer group per class "
+            f"{want_classes}",
+        ))
+        return out
+    covered = set()
+    for c, _ in assigned:
+        covered.update(map(tuple, ep.class_pairs(c)))
+    want = {(s, s + 1) for s in range(ep.n_edges)}
+    if covered != want:
+        out.append(ctx.error(
+            "V101",
+            f"the run's transfers cover interior edges {sorted(covered)}; the "
+            f"plan has {ep.n_edges} interior edges {sorted(want)}",
+        ))
+    return out
+
+
+@invariant("V102", name="edge-exact-shape", scope="pipeline")
+def _edge_exact_shape(ctx):
+    """Each class's transfers move exactly (microbatch, *class_shape)
+    elements — no silently widened (padded) transfer on the exact path."""
+    probe = ctx.pipeline
+    if probe is None or probe.edge_plan.n_edges == 0:
+        return []
+    assigned, _ = _transfers_by_class(ctx)
+    out = []
+    for c, group in assigned:
+        want = (probe.mb_local,) + tuple(probe.edge_plan.class_shapes[c])
+        got = sorted({shape for _, _, shape in group})
+        if got != [want]:
+            out.append(ctx.error(
+                "V102",
+                f"shape class {c} transfers move {got}; the EdgePlan "
+                f"promises exactly {want}",
+            ))
+    return out
+
+
+@invariant("V103", name="boxed-padding", scope="pipeline")
+def _boxed_padding(ctx):
+    """A boxed (max-shape) edge fallback is legal but pays padding bytes
+    on every hop — flag it with the fraction so the regression is
+    visible, not silent."""
+    probe = ctx.pipeline
+    if probe is None or probe.edge_plan.mode != "boxed":
+        return []
+    frac = probe.edge_plan.padding_fraction()
+    return [ctx.warning(
+        "V103",
+        f"edge plan fell back to boxed transfers: "
+        f"{frac:.1%} of every interior-edge hop is padding",
+    )]

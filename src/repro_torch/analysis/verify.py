@@ -8,6 +8,10 @@ own device and at a tiny batch, and reads what happened:
 
 - the ``plan`` scope runs each stage body on one zero frame of its
   declared input, and the head on one of the last stage's output;
+- the ``pipeline`` scope reads a :class:`PipelineProbe`: the plan's
+  pipelined runner run once on zero µbatches on a stage mesh
+  (:func:`make_pipeline_probe`), with the edge transfers it logged on the
+  probing thread; with no probe it finds nothing, as the reference's;
 - the ``structure`` scope runs one probe of ``batch`` (2) zero frames
   through the stages and the head, on the calling thread, under a
   ``TorchDispatchMode`` that logs every aten op (its name, the dtypes it
@@ -97,14 +101,29 @@ class _OpLog(TorchDispatchMode):
         return out
 
 
+@dataclasses.dataclass
+class PipelineProbe:
+    """One run of a plan's pipelined runner plus the EdgePlan it must
+    realize: what the pipeline-scope invariants inspect. The reference's
+    holds the traced jaxpr; the port's holds what the run logged."""
+
+    transfers: list  # (edge class, (src, dst) stages, buffer shape) per hand-off
+    launches: list  # (phase, kernel name) per kernel launch on the card
+    edge_plan: object
+    cfg: object
+    mb_local: int  # per-slot µbatch rows each transfer moves
+
+
 class ProbeContext:
     """One plan under verification, with its probe runs cached: the
     argument every invariant check receives."""
 
-    def __init__(self, plan, *, where: str = "", batch: int = 2):
+    def __init__(self, plan, *, where: str = "", batch: int = 2,
+                 pipeline: Optional[PipelineProbe] = None):
         self.plan = plan
         self.batch = batch
         self.where = where or getattr(getattr(plan, "topo", None), "name", "plan")
+        self.pipeline = pipeline
         self._trace: Optional[StructureTrace] = None
 
     # -- finding constructors ------------------------------------------------
@@ -112,6 +131,12 @@ class ProbeContext:
     def error(self, rule: str, message: str) -> Finding:
         return Finding(
             rule=rule, name=REGISTRY[rule].name, severity="error",
+            message=message, where=self.where,
+        )
+
+    def warning(self, rule: str, message: str) -> Finding:
+        return Finding(
+            rule=rule, name=REGISTRY[rule].name, severity="warning",
             message=message, where=self.where,
         )
 
@@ -174,8 +199,8 @@ def _resolve_scopes(scopes, ids) -> tuple:
     unported = [s for s in scopes if s not in PORTED_SCOPES]
     if unported:
         raise NotImplementedError(
-            f"the port has no {', '.join(unported)} scope yet; it verifies "
-            f"{PORTED_SCOPES}"
+            f"the port has no {', '.join(unported)} scope yet (the resource "
+            f"scope waits for a Hopper cost model); it verifies {PORTED_SCOPES}"
         )
     if ids is not None:
         missing = sorted(set(ids) - set(REGISTRY))
@@ -194,18 +219,20 @@ def verify_plan(
     ids=None,
     where: str = "",
     batch: int = 2,
+    pipeline: Optional[PipelineProbe] = None,
 ) -> list:
     """Run the invariant registry against one plan.
 
     ``scopes`` restricts to registry scopes (default: every scope the
-    port has, ``plan`` and ``structure``); asking for a scope or an ID
+    port has, ``plan``, ``structure`` and ``pipeline``; the last reads
+    ``pipeline``, a :class:`PipelineProbe`); asking for a scope or an ID
     the port does not have raises ``NotImplementedError`` — it never
     passes quietly. ``ids`` restricts to specific invariant IDs. Returns
     the findings (possibly empty). Runs the plan on its device: the plan
     scope on one frame, the structure scope on ``batch`` frames.
     """
     scopes = _resolve_scopes(scopes, ids)
-    ctx = ProbeContext(plan, where=where, batch=batch)
+    ctx = ProbeContext(plan, where=where, batch=batch, pipeline=pipeline)
     findings = []
     for inv in REGISTRY.values():
         if inv.scope not in scopes:
@@ -232,3 +259,39 @@ def check_plan(plan) -> None:
             f"[{', '.join(ids)}]: {detail}",
             invariants=ids,
         )
+
+
+def make_pipeline_probe(
+    plan, *, mesh=None, n_microbatches: Optional[int] = None,
+    microbatch: int = 2, overlap: bool = False, edge_mode: str = "auto",
+) -> PipelineProbe:
+    """Build the plan's pipelined runner on a stage mesh and run it once
+    on zero µbatches, on the probing thread with the kernels' log open;
+    returns the :class:`PipelineProbe` the pipeline-scope invariants
+    consume. ``mesh`` defaults to an ``n_stages`` stage mesh on the
+    plan's device type (a CPU mesh needs no forced device count)."""
+    from repro_torch.core.dhm.engine import build_plan_pipeline, on_device
+    from repro_torch.core.dhm.pipeline import PipelineConfig
+    from repro_torch.launch.mesh import make_mesh
+
+    S = plan.n_stages
+    dev = torch.device(plan.device)
+    if mesh is None:
+        mesh = make_mesh((S,), ("stage",), device=dev.type)
+    M = n_microbatches if n_microbatches is not None else max(S, 2)
+    cfg = PipelineConfig(
+        S, M, stage_axis=mesh.axis_names[0], overlap=overlap,
+        edge_mode=edge_mode,
+    )
+    runner = build_plan_pipeline(plan, mesh=mesh, cfg=cfg, microbatch=microbatch)
+    h, w = plan.topo.input_shape
+    mbs = torch.zeros((M, microbatch, h, w, plan.topo.input_channels),
+                      dtype=torch.float32, device=dev)
+    with torch.inference_mode(), on_device(dev), probe.recording() as log:
+        runner(mbs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    return PipelineProbe(
+        transfers=list(log.transfers), launches=list(log.launches),
+        edge_plan=runner.edge_plan, cfg=cfg, mb_local=microbatch,
+    )

@@ -582,6 +582,51 @@ class CompiledDHM:
 
         return forward(self, torch.as_tensor(x, dtype=torch.float32, device=self.device))
 
+    # -- spatial (mesh) execution ------------------------------------------
+
+    def pipeline_spec(self):
+        """Per-stage closures + params + per-edge activation geometry
+        (:class:`StageIOSpec`) for the heterogeneous streaming executor."""
+        from repro_torch.core.dhm.engine import pipeline_spec
+
+        return pipeline_spec(self)
+
+    def edge_plan(self, *, mode: str = "auto", max_classes: int = 4):
+        """How this plan's interior stage-boundary activations travel
+        between slots: the :class:`~repro_torch.core.dhm.pipeline.EdgePlan`
+        (shape classes, per-class pairs, padding fraction) the executor
+        builds from the :class:`StageIOSpec` chain."""
+        from repro_torch.core.dhm.pipeline import plan_edges
+
+        return plan_edges(
+            [st.io for st in self.stages], mode=mode, max_classes=max_classes
+        )
+
+    def edge_shapes(self) -> tuple:
+        """The exact per-interior-edge activation element shapes (stage
+        s -> s+1), straight off the :class:`StageIOSpec` chain."""
+        return tuple(
+            tuple(self.stages[s].io.out_shape)
+            for s in range(self.n_stages - 1)
+        )
+
+    def run_pipelined(
+        self, microbatches, *, mesh, cfg=None, data_axis=None,
+        overlap=False, edge_mode="auto",
+    ):
+        """Stream (M, mb, H, W, C) µbatches through the conv stages on a
+        mesh (one slot per stage; with ``data_axis`` each data column of a
+        2D ``(stage, data)`` mesh takes its shard of the µbatch;
+        ``overlap``/``edge_mode`` select the copy-stream schedule and the
+        edge path). Returns the feature stream; apply ``head_fn`` after
+        re-flattening for logits."""
+        from repro_torch.core.dhm.engine import run_pipelined
+
+        return run_pipelined(
+            self, microbatches, mesh=mesh, cfg=cfg, data_axis=data_axis,
+            overlap=overlap, edge_mode=edge_mode,
+        )
+
 
 def check_plan(plan: CompiledDHM) -> None:
     """Self-check a compiled plan: the ``plan``-scope invariants of the

@@ -1,8 +1,13 @@
-"""Execution + serving for compiled DHM plans (single device).
+"""Execution + serving for compiled DHM plans.
 
 The counterpart of ``repro.core.dhm.engine``:
 
 - :func:`forward` — the eager stage/head composition on the plan's device.
+- :func:`pipeline_spec` / :func:`build_plan_pipeline` /
+  :func:`run_pipelined` — spatial execution on a mesh of slots: the
+  plan's per-stage closures and per-edge :class:`StageIOSpec` geometry
+  feed the GPipe executor (``pipeline.build_pipeline``), optionally with
+  batch sharding on a 2D ``(stage, data)`` mesh.
 - :class:`Engine` — the fault-tolerant continuous-batching server.
   Requests carry per-request deadlines (``submit(x, deadline_ms=...)``);
   a background flush loop packs a micro-batch when it fills *or* the
@@ -10,8 +15,9 @@ The counterpart of ``repro.core.dhm.engine``:
   (``block | reject | shed_oldest``) and validates every frame at the
   gate; dispatch runs under a watchdog timeout with bounded
   retry-with-backoff; persistent failures demote the engine down a
-  health-checked ladder (fused plan -> per-layer plan). Both rungs run
-  the plan's kernels; there is no plain-version rung on the card.
+  health-checked ladder (mesh pipeline, when a ``mesh`` is given ->
+  fused plan -> per-layer plan). Every rung runs the plan's kernels;
+  there is no plain-version rung on the card.
   Failures surface as structured per-request errors — ``result()``
   raises, it never hangs. A seed-driven
   :class:`~repro_torch.core.dhm.faults.FaultPlan` injects failures
@@ -24,9 +30,14 @@ stalled attempt wake and run its forward, whose result it discards; on
 the card that forward would launch kernels after the engine has retried
 or demoted.
 
-The mesh rung and the µbatch autotuner (``n_microbatches="auto"``) need
-the reference's mesh executor (``pipeline.py``) and its throughput model
-(``throughput.py``), which the port does not have yet.
+On the ``mesh`` rung one group of ``microbatch * n_microbatches`` frames
+streams through the pipeline as ``n_microbatches`` µbatches, one stream
+per stage slot, and the head runs on the caller's stream after the last
+stage; ``n_microbatches="auto"`` (or a ``tuning``) takes the geometry
+from the throughput model's autotuner. The fault hooks reach the rung as
+any other: a device loss demotes without a retry, a stall past the
+watchdog raises ``CollectiveTimeout`` and demotes, and the abandoned
+attempt launches nothing afterwards.
 """
 from __future__ import annotations
 
@@ -51,6 +62,60 @@ def forward(plan, x: torch.Tensor) -> torch.Tensor:
     """Eager single-device forward: sequential fused stages + FC head.
     x: (B, H, W, C) NHWC on the plan's device -> logits (B, n_classes)."""
     return plan.head_fn(plan.features(x))
+
+
+def pipeline_spec(plan):
+    """The heterogeneous pipeline description of a compiled plan: per-stage
+    closures, per-stage params, and the per-edge activation geometry
+    (:class:`~repro_torch.core.dhm.pipeline.StageIOSpec` per stage,
+    computed by the compiler from the topology)."""
+    return (
+        [st.fn for st in plan.stages],
+        [plan.stage_params(s) for s in range(plan.n_stages)],
+        tuple(st.io for st in plan.stages),
+    )
+
+
+def build_plan_pipeline(plan, *, mesh, cfg, microbatch=None):
+    """Build the plan's spatial-pipeline runner once (each stage's params
+    resident on its slots), the repeated-serving path the ``Engine``
+    takes. A mesh whose slots are on another device type than the plan's
+    raises: a CUDA plan never runs a CPU slot, nor a CPU plan a card's."""
+    from repro_torch.core.dhm.pipeline import build_pipeline
+
+    bad = sorted({str(d) for d in mesh.devices if d.type != plan.device.type})
+    if bad:
+        raise ValueError(
+            f"the mesh's slots on {bad} cannot run a plan on {plan.device}"
+        )
+    stage_fns, stage_params, io_specs = pipeline_spec(plan)
+    return build_pipeline(
+        stage_fns, stage_params, mesh=mesh, cfg=cfg, io_specs=io_specs,
+        microbatch=microbatch,
+    )
+
+
+def run_pipelined(
+    plan, microbatches, *, mesh, cfg=None, data_axis=None,
+    overlap=False, edge_mode="auto",
+):
+    """Stream (M, mb, H, W, C) µbatches through the plan's conv stages on
+    a mesh (one slot per stage; heterogeneous stage shapes flow over
+    exact-shape-class edges, ``edge_mode="boxed"`` forces the max-shape
+    fallback, ``overlap=True`` hands edges off on copy streams). Returns
+    the feature stream; apply ``plan.head_fn`` after re-flattening for
+    logits."""
+    from repro_torch.core.dhm.pipeline import PipelineConfig
+
+    if cfg is None:
+        cfg = PipelineConfig(
+            plan.n_stages, microbatches.shape[0], data_axis=data_axis,
+            overlap=overlap, edge_mode=edge_mode,
+        )
+    runner = build_plan_pipeline(
+        plan, mesh=mesh, cfg=cfg, microbatch=microbatches.shape[1]
+    )
+    return runner(microbatches)
 
 
 def on_device(device: torch.device):
@@ -253,7 +318,8 @@ class Engine:
 
     Requests enter a bounded queue via :meth:`submit`, optionally with a
     latency SLO (``deadline_ms``). :meth:`flush` packs the queue on the
-    host into ``microbatch``-sized groups (tail padded with zero frames,
+    host into ``group``-sized groups (``microbatch``, or ``microbatch *
+    n_microbatches`` with a ``mesh``; tail padded with zero frames,
     outputs sliced back per request), copies each group to the device and
     runs it through the active rung; with :meth:`start` (or
     ``auto_flush=True``, or the context manager) a background loop does
@@ -261,9 +327,10 @@ class Engine:
     blocks, rejects or sheds; gate validation fails non-finite or
     non-float frames at submit. Dispatch runs under a watchdog
     (``dispatch_timeout_s``), retries with exponential backoff
-    (``max_retries``), and demotes fused -> per_layer on persistent
-    failure (``engine.demotions`` records why). A rung serves only after
-    the plan passes its self-check and the rung completes a warmup probe.
+    (``max_retries``), and demotes (mesh ->) fused -> per_layer on
+    persistent failure (``engine.demotions`` records why). A rung serves
+    only after the plan passes its self-check and the rung completes a
+    warmup probe.
 
     ``fault_plan`` injects deterministic failures
     (:mod:`repro_torch.core.dhm.faults`) for chaos testing.
@@ -275,6 +342,13 @@ class Engine:
         *,
         name: Optional[str] = None,
         microbatch: int = 8,
+        mesh=None,
+        n_microbatches=4,  # int, or "auto" to run the µbatch autotuner
+        data_axis: Optional[str] = None,
+        stage_axis: str = "stage",
+        overlap: bool = False,
+        edge_mode: str = "auto",
+        tuning=None,  # a throughput.PipelineTuning overriding the knobs
         warmup: bool = True,
         max_queue: int = 0,
         admission: str = "block",
@@ -291,6 +365,22 @@ class Engine:
         allow_degraded: bool = True,
         fault_plan: Optional[FaultPlan] = None,
     ):
+        # Autotuned pipeline geometry: an explicit PipelineTuning (from
+        # throughput.autotune_pipeline over measured sweeps) or
+        # n_microbatches="auto" (the model-priced grid) overrides
+        # microbatch / n_microbatches / overlap / edge_mode.
+        if tuning is None and n_microbatches == "auto":
+            if mesh is None:
+                raise ValueError('n_microbatches="auto" needs a mesh to tune for')
+            from repro_torch.core.dhm.throughput import autotune_pipeline
+
+            tuning = autotune_pipeline(plan, mesh.size)
+        if tuning is not None:
+            microbatch = tuning.microbatch
+            n_microbatches = tuning.n_microbatches
+            overlap = tuning.overlap
+            edge_mode = tuning.edge_mode
+        self.tuning = tuning
         if microbatch < 1:
             raise ValueError(f"microbatch must be >= 1, got {microbatch}")
         admission = admission.replace("-", "_")
@@ -301,10 +391,22 @@ class Engine:
             )
         if max_queue < 0:
             raise ValueError("max_queue must be >= 0 (0 = unbounded)")
+        if mesh is not None and (
+            not isinstance(n_microbatches, int) or n_microbatches < 1
+        ):
+            raise ValueError(f"n_microbatches must be >= 1, got {n_microbatches}")
         self.plan = plan
         self.device = plan.device
         self.name = name
         self.microbatch = microbatch
+        self.mesh = mesh
+        self.n_microbatches = n_microbatches
+        self.data_axis = data_axis
+        self.stage_axis = stage_axis
+        self.overlap = overlap
+        self.edge_mode = edge_mode
+        # Frames one dispatch consumes.
+        self.group = microbatch if mesh is None else microbatch * n_microbatches
         self.warmup = warmup
         self.max_queue = max_queue
         self.admission = admission
@@ -351,7 +453,10 @@ class Engine:
         self._external_flusher: Optional[Callable[[], bool]] = None
         self._stop = threading.Event()
 
-        self._ladder: list = [("fused", self._build_fused_fwd)]
+        self._ladder: list = []
+        if mesh is not None:
+            self._ladder.append(("mesh", self._build_mesh_fwd))
+        self._ladder.append(("fused", self._build_fused_fwd))
         if allow_degraded:
             self._ladder.append(("per_layer", self._build_unfused_fwd))
         plan.self_check()
@@ -403,6 +508,31 @@ class Engine:
 
         return _fwd
 
+    def _build_mesh_fwd(self) -> Callable:
+        """The mesh rung: the group reshaped into ``n_microbatches``
+        µbatches, streamed through the plan's stages on the mesh's slots
+        (each stage's params resident there, built once here), then the
+        head on the caller's stream."""
+        from repro_torch.core.dhm.pipeline import PipelineConfig
+
+        plan = self.plan
+        mb, n_mb = self.microbatch, self.n_microbatches
+        cfg = PipelineConfig(
+            plan.n_stages, n_mb, stage_axis=self.stage_axis,
+            data_axis=self.data_axis, overlap=self.overlap,
+            edge_mode=self.edge_mode,
+        )
+        runner = build_plan_pipeline(plan, mesh=self.mesh, cfg=cfg, microbatch=mb)
+        self._runner = runner
+
+        def _fwd(xb):
+            with torch.inference_mode():
+                feats = runner.apply(runner.stacked_leaves,
+                                     xb.reshape((n_mb, mb) + tuple(xb.shape[1:])))
+                return plan.head_fn(feats.reshape((n_mb * mb,) + tuple(feats.shape[2:])))
+
+        return _fwd
+
     def _activate_rung(self, idx: int, reason: Optional[str], cause=None) -> bool:
         """Walk the ladder from ``idx`` until a rung builds and passes its
         warmup probe; record every rung skipped or left as a demotion."""
@@ -414,7 +544,7 @@ class Engine:
             try:
                 fwd = factory()
                 if self.warmup:
-                    probe = np.zeros((self.microbatch,) + self._frame_shape, np.float32)
+                    probe = np.zeros((self.group,) + self._frame_shape, np.float32)
                     watch = Watch()
                     out = call_with_timeout(
                         lambda: self._watched(watch, lambda: fwd(self._stage(probe))),
@@ -618,7 +748,7 @@ class Engine:
         return _run
 
     def _run_group(self, frames: np.ndarray) -> torch.Tensor:
-        """Run one exactly-``microbatch``-sized batch through the active rung:
+        """Run one exactly-``group``-sized batch through the active rung:
         fault effects applied, watchdog timeout, bounded retry-with-backoff,
         demotion on persistent failure. Raises :class:`LadderExhausted` when
         no rung can complete the batch, :class:`_PoisonedBatch` when the
@@ -677,7 +807,7 @@ class Engine:
     # -- flushing -------------------------------------------------------------
 
     def flush(self, max_frames: Optional[int] = None) -> int:
-        """Drain the queue: pack pending frames into ``microbatch``-sized
+        """Drain the queue: pack pending frames into ``group``-sized
         micro-batches (zero-padded tail), run each through the active
         rung, and scatter the logits back to their requests. Expired
         deadlines complete with :class:`DeadlineExceeded` at pack time.
@@ -725,14 +855,14 @@ class Engine:
         try:
             frames = np.concatenate([r._frames for r in live], axis=0)
             n = frames.shape[0]
-            pad = -n % self.microbatch
+            pad = -n % self.group
             if pad:
                 frames = np.concatenate(
                     [frames, np.zeros((pad,) + self._frame_shape, frames.dtype)]
                 )
             outs = [
-                self._run_group(frames[start : start + self.microbatch])
-                for start in range(0, frames.shape[0], self.microbatch)
+                self._run_group(frames[start : start + self.group])
+                for start in range(0, frames.shape[0], self.group)
             ]
             logits = torch.cat(outs, dim=0)[:n]
         except _PoisonedBatch:
@@ -776,13 +906,13 @@ class Engine:
                     "from its batch"
                 ))
                 continue
-            pad = -req.n_frames % self.microbatch
+            pad = -req.n_frames % self.group
             if pad:
                 x = np.concatenate([x, np.zeros((pad,) + self._frame_shape, x.dtype)])
             try:
                 outs = [
-                    self._run_group(x[start : start + self.microbatch])
-                    for start in range(0, x.shape[0], self.microbatch)
+                    self._run_group(x[start : start + self.group])
+                    for start in range(0, x.shape[0], self.group)
                 ]
             except (LadderExhausted, _PoisonedBatch) as e:
                 self._fail(req, BatchFailed(
@@ -857,7 +987,7 @@ class Engine:
                 if not self._queue:
                     self._cv.wait(timeout=interval)
                     continue
-                full = self._queue_frames >= self.microbatch
+                full = self._queue_frames >= self.group
                 ddl = min(
                     (r.deadline_at for r in self._queue if r.deadline_at is not None),
                     default=None,

@@ -180,7 +180,7 @@ def _group_cost(plan, engine: Engine) -> float:
         per_frame = float(sum(float(st.cost_flops) for st in plan.stages))
     except Exception:  # noqa: BLE001 — cost model is advisory
         per_frame = 1.0
-    return max(per_frame, 1.0) * engine.microbatch
+    return max(per_frame, 1.0) * engine.group
 
 
 class Router:
@@ -418,7 +418,7 @@ class Router:
                 ts.name, [f.rule for f in findings],
             )
             return False
-        probe = np.zeros((eng.microbatch,) + eng._frame_shape, np.float32)
+        probe = np.zeros((eng.group,) + eng._frame_shape, np.float32)
         try:
             out = eng._run_group(probe)
             return bool(torch.isfinite(out).all())
@@ -679,13 +679,13 @@ class Router:
                 failed0 = eng._n_failed
                 demoted0 = len(eng.demotions)
                 ok0 = eng._n_ok
-            n = eng.flush(max_frames=eng.microbatch)
+            n = eng.flush(max_frames=eng.group)
             if n == 0:
                 ts.deficit = 0.0
                 break
             dispatched = True
             urgent = False
-            ts.deficit -= math.ceil(n / eng.microbatch) * ts.group_cost
+            ts.deficit -= math.ceil(n / eng.group) * ts.group_cost
             self._observe_flush(ts, eng, failed0, demoted0, ok0)
             with ts.cv:
                 if ts.breaker.state != CLOSED:

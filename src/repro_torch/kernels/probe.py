@@ -9,11 +9,13 @@ log, which exists only on the thread that opened it with
 :func:`recording` and only while it is open; every other caller pays one
 thread-local lookup.
 
-Two kinds of entries: a **dispatch** is one call of a kernel wrapper to
-its kernel or its plain version (``ops.py``), and marks the ops run
+Three kinds of entries: a **dispatch** is one call of a kernel wrapper
+to its kernel or its plain version (``ops.py``), and marks the ops run
 inside it as the kernel's own (``DispatchLog.depth``); a **launch** is
 one kernel launch on the card (a single-layer call over column strips
-launches several).
+launches several); a **transfer** is one hand-off of an activation over
+an interior edge of the spatial pipeline (``core/dhm/pipeline.py``),
+which the verifier's pipeline scope reads.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ class DispatchLog:
         self.depth = 0
         self.dispatches: list = []  # (phase, kernel name, plain version?)
         self.launches: list = []  # (phase, kernel name)
+        self.transfers: list = []  # (edge class, (src stage, dst stage), buffer shape)
 
 
 def active() -> Optional[DispatchLog]:
@@ -78,3 +81,11 @@ def launched(name: str) -> None:
     log = active()
     if log is not None:
         log.launches.append((log.phase, name))
+
+
+def transferred(edge_class: int, pair: tuple, shape: tuple) -> None:
+    """Log one hand-off over an interior pipeline edge: the edge's shape
+    class, its (source, destination) stages and the buffer's shape."""
+    log = active()
+    if log is not None:
+        log.transfers.append((edge_class, tuple(pair), tuple(shape)))

@@ -12,6 +12,12 @@
   int8;
 - a probe counts only its own thread's dispatches, however many another
   thread makes meanwhile;
+- the pipeline scope (V101-V103): clean on good plans of all five
+  topologies; the reference test's three seeded defects (a dropped edge
+  class, a widened transfer, the boxed fallback) are found under the same
+  IDs; the probe reads only its own thread's transfers. The reference's
+  own pipeline-scope tests need two devices and skip in a plain run; the
+  port's probe runs on a CPU mesh;
 - asking for a scope or an ID the port does not have raises.
 """
 import pytest
@@ -38,7 +44,12 @@ from repro.models.cnn import ALL_TOPOLOGIES as JAX_TOPOLOGIES  # noqa: E402
 from repro.models.cnn import init_cnn as jax_init_cnn  # noqa: E402
 from repro_torch.analysis import invariants as tinvariants  # noqa: E402
 from repro_torch.analysis.findings import Finding  # noqa: E402
-from repro_torch.analysis.verify import ProbeContext, verify_plan  # noqa: E402
+from repro_torch.analysis.verify import (  # noqa: E402
+    PipelineProbe,
+    ProbeContext,
+    make_pipeline_probe,
+    verify_plan,
+)
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.dhm import Engine, PlanCheckError, QuantSpec, compile_dhm, emit_conv_stage  # noqa: E402
 from repro_torch.core.dhm.pipeline import StageIOSpec  # noqa: E402
@@ -94,7 +105,9 @@ class TestRegistry:
         got = {i: (inv.name, inv.scope) for i, inv in tinvariants.REGISTRY.items()}
         assert got == want
         assert tinvariants.SCOPES == jinvariants.SCOPES
-        assert set(tinvariants.PORTED_SCOPES) == {"plan", "structure"}
+        assert set(tinvariants.PORTED_SCOPES) == {"plan", "structure", "pipeline"}
+        assert {inv.id for inv in tinvariants.REGISTRY.values() if inv.scope == "pipeline"} == \
+            {"V101", "V102", "V103"}
 
     def test_every_invariant_says_what_it_checks(self):
         for inv in tinvariants.REGISTRY.values():
@@ -110,7 +123,7 @@ class TestRegistry:
 class TestUnportedScopes:
     def test_unported_scope_or_id_raises(self):
         plan = _tplan()
-        for scopes in (("resource",), ("plan", "pipeline")):
+        for scopes in (("resource",), ("plan", "resource")):
             with pytest.raises(NotImplementedError, match="no .* scope"):
                 verify_plan(plan, scopes=scopes)
         with pytest.raises(NotImplementedError, match="no invariant V201"):
@@ -301,3 +314,99 @@ def test_demotion_record_cites_invariants():
     rec = Engine._demotion_record("fused", e)
     assert rec["invariants"] == ["V301", "V303"] and rec["rung"] == "fused"
     assert "invariants" not in Engine._demotion_record("fused", RuntimeError("x"))
+
+
+# ---------------------------------------------------------------------------
+# the pipeline scope (V1xx)
+
+
+class TestPipelineScope:
+    @pytest.mark.parametrize("name", sorted(ALL_TOPOLOGIES))
+    def test_pipeline_scope_is_clean_on_good_plans(self, name):
+        p = _tparams(name)
+        n_conv = len(ALL_TOPOLOGIES[name].conv_layers)
+        for quant in (QuantSpec(), QuantSpec(weight_bits=8, act_bits=8, int8_compute=True)):
+            for n_stages in range(1, n_conv + 1):
+                plan = compile_dhm(ALL_TOPOLOGIES[name], p, quant=quant, n_stages=n_stages,
+                                   device="cpu")
+                for overlap in (False, True):
+                    pr = make_pipeline_probe(plan, overlap=overlap)
+                    assert verify_plan(plan, scopes=("pipeline",), pipeline=pr) == []
+                    assert len(pr.transfers) == (n_stages - 1) * pr.cfg.n_microbatches
+                assert verify_plan(plan, pipeline=make_pipeline_probe(plan)) == []
+
+    def test_without_a_probe_the_scope_finds_nothing(self):
+        assert verify_plan(_tplan(n_stages=2), scopes=("pipeline",)) == []
+
+    def test_dropped_edge_class_is_V101(self):
+        plan = _tplan(n_stages=2)
+        probe_ = make_pipeline_probe(plan, microbatch=2)
+        ep = probe_.edge_plan
+        # claim a second shape class that no logged transfer serves
+        tampered = dataclasses.replace(
+            ep, class_shapes=ep.class_shapes + ((9, 9, 9),),
+            edge_class=tuple(1 for _ in ep.edge_class))
+        bad = dataclasses.replace(probe_, edge_plan=tampered)
+        assert "V101" in _ids(verify_plan(plan, scopes=("pipeline",), pipeline=bad))
+
+    def test_transfers_over_an_unplanned_edge_are_V101(self):
+        plan = _tplan("cifar10", n_stages=3)
+        probe_ = make_pipeline_probe(plan)
+        bad = dataclasses.replace(probe_, transfers=[
+            (c, (0, 2) if pair == (0, 1) else pair, shape) for c, pair, shape in probe_.transfers])
+        assert _ids(verify_plan(plan, scopes=("pipeline",), pipeline=bad)) == ["V101"]
+        dropped = dataclasses.replace(probe_, transfers=[
+            t for t in probe_.transfers if t[1] != (1, 2)])
+        assert "V101" in _ids(verify_plan(plan, scopes=("pipeline",), pipeline=dropped))
+
+    def test_wrong_edge_shape_is_V102(self):
+        plan = _tplan(n_stages=2)
+        probe_ = make_pipeline_probe(plan, microbatch=2)
+        ep = probe_.edge_plan
+        tampered = dataclasses.replace(ep, class_shapes=((9, 9, 9),) * len(ep.class_shapes))
+        bad = dataclasses.replace(probe_, edge_plan=tampered)
+        assert "V102" in _ids(verify_plan(plan, scopes=("pipeline",), pipeline=bad))
+        widened = dataclasses.replace(probe_, transfers=[
+            (c, pair, (shape[0],) + tuple(d + 1 for d in shape[1:]))
+            for c, pair, shape in probe_.transfers])
+        assert _ids(verify_plan(plan, scopes=("pipeline",), pipeline=widened)) == ["V102"]
+
+    def test_boxed_fallback_is_flagged_V103(self):
+        for name, n_stages in (("lenet5", 2), ("cifar10", 3)):
+            plan = _tplan(name, n_stages=n_stages)
+            probe_ = make_pipeline_probe(plan, microbatch=2, edge_mode="boxed")
+            findings = verify_plan(plan, scopes=("pipeline",), pipeline=probe_)
+            warnings_ = [f for f in findings if f.rule == "V103"]
+            assert len(findings) == len(warnings_) == 1
+            assert not warnings_[0].is_error and "padding" in warnings_[0].message
+            assert warnings_[0].name == "boxed-padding"
+
+    def test_probe_reads_only_its_own_threads_transfers(self):
+        from repro_torch.launch.mesh import make_mesh
+
+        plan = _tplan("cifar10", n_stages=3)
+        other = compile_dhm(ALL_TOPOLOGIES["cifar10"], _tparams("cifar10"), n_stages=3,
+                            device="cpu")
+        mesh = make_mesh((3,), ("stage",), device="cpu")
+        x = torch.zeros((2, 2, 32, 32, 3))
+        stop, busy = threading.Event(), []
+
+        def hammer():
+            while not stop.is_set():
+                other.run_pipelined(x, mesh=mesh, edge_mode="boxed")
+                busy.append(1)
+
+        t = threading.Thread(target=hammer, daemon=True)
+        t.start()
+        try:
+            while not busy:
+                stop.wait(0.001)
+            for _ in range(3):
+                pr = make_pipeline_probe(plan, n_microbatches=4)
+                assert isinstance(pr, PipelineProbe)
+                assert len(pr.transfers) == 2 * 4 and pr.mb_local == 2
+                assert verify_plan(plan, scopes=("pipeline",), pipeline=pr) == []
+        finally:
+            stop.set()
+            t.join(timeout=30.0)
+        assert not t.is_alive() and len(busy) > 1
