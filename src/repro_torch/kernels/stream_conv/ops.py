@@ -11,8 +11,19 @@ kernel (``conv.py``) and the call raises if the kernel cannot take it; a
 CPU tensor goes to the plain PyTorch version (``ref.py``). There is no
 other path and no fallback between the two. Each call of a kernel or a
 plain version is also logged to ``probe`` (for the plan verifier).
+
+A call that autograd must see through (grad mode on, and ``x``, a weight
+or a bias requiring grad) goes through :class:`_GroupGrad`: its forward is
+the same dispatch, so the loss comes from the kernel's output; its
+backward recomputes the group's composition in plain PyTorch ops and
+differentiates it, the counterpart of XLA's autodiff of the reference's
+``ref`` composition (the JAX package has no backward kernel). Int8 calls
+are forward-only: asking them for a gradient raises.
 """
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +39,9 @@ from repro_torch.kernels.stream_conv.epilogue import (
     quantize_stream,
     validate_epilogue,
 )
+from repro_torch.kernels.stream_conv import ref as _ref
 from repro_torch.kernels.stream_conv.halo import (
+    PyramidLayer,
     as_pyramid_layers,
     group_geometry,
     padded_frame,
@@ -98,6 +111,79 @@ def _as_codes(x: torch.Tensor, in_bits: int) -> torch.Tensor:
     return quantize_stream(x, in_bits) if x.is_floating_point() else x
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_int8_grad(int8_scales) -> None:
+    if int8_scales is not None:
+        raise ValueError(
+            "int8 stream-conv calls are forward-only: integer codes have no "
+            "gradient (run them under torch.no_grad() or inference_mode)"
+        )
+
+
+@contextlib.contextmanager
+def _backward_numerics(t: torch.Tensor):
+    """IEEE fp32 and deterministic convolutions for the backward on the
+    card: PyTorch's own CUDA convolution (im2col and cuBLAS GEMMs, TF32
+    off) in place of cuDNN. On an H100, under ``deterministic=True,
+    allow_tf32=False``, cuDNN picks for lenet5's first layer at B=16 an
+    algorithm whose gradients sit 5.8e-4 (relative L2) from a float64
+    composition, where this path sits at 4.5e-7 (``chip_smoke.py`` phase
+    5g prints both); it costs a slower backward. On the CPU nothing
+    changes."""
+    if not t.is_cuda:
+        yield
+        return
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=False, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+class _GroupGrad(torch.autograd.Function):
+    """One fp32 / fake-quant fusion group (or single layer) with a gradient.
+
+    ``run(x, weights, biases)`` is the wrapper's own dispatch: the kernel on
+    a CUDA tensor, the plain version on a CPU one. The backward recomputes
+    the group from the saved input with the per-layer composition of
+    ``ref.py`` (conv, + bias, act, ``F.max_pool2d``, ``fake_quant_ste``),
+    which sends a tied pool window's gradient to its first element and
+    masks the clipped fake-quant elements as the reference's autodiff does,
+    and returns ``torch.autograd.grad`` of it, on the card under
+    ``_backward_numerics``. It calls ``ref.py`` directly, not through a
+    wrapper, so no plain-version dispatch is logged.
+    """
+
+    @staticmethod
+    def forward(ctx, run, layers, bits, x, *params):
+        n = len(params) // 2
+        ctx.layers, ctx.bits = layers, bits
+        ctx.save_for_backward(x, *params)
+        return run(x, params[:n], params[n:])
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:]
+        n = (len(saved) - 1) // 2
+        with torch.enable_grad(), _backward_numerics(g):
+            leaves = [t.detach().requires_grad_(r) for t, r in zip(saved, need)]
+            y = _ref.stream_conv_pyramid_ref(
+                leaves[0], leaves[1 : 1 + n], leaves[1 + n :],
+                layers=ctx.layers, act_bits=ctx.bits,
+            )
+            grads = iter(torch.autograd.grad(
+                y, [t for t, r in zip(leaves, need) if r], g
+            ))
+        return (None, None, None, *(next(grads) if r else None for r in need))
+
+
 def stream_conv2d(
     x: torch.Tensor,  # (B, H, W, C)
     w: torch.Tensor,  # (K, K, C, N) HWIO
@@ -151,6 +237,23 @@ def stream_conv_block(
         pool_stride=pool_stride, act_bits=act_bits,
     )
     _validate_int8(int8_scales, act_bits, w)
+    run = functools.partial(
+        _run_block, padding=padding, stride=stride, act=act, pool=pool,
+        pool_stride=pool_stride, act_bits=act_bits, int8_scales=int8_scales,
+        block_r=block_r, block_w=block_w,
+    )
+    if _needs_grad(x, w, b):
+        _refuse_int8_grad(int8_scales)
+        layer = PyramidLayer(padding=padding, stride=stride, act=act, pool=pool,
+                             pool_stride=pool_stride)
+        return _GroupGrad.apply(run, (layer,), (act_bits,), x, w, b)
+    return run(x, (w,), (b,))
+
+
+def _run_block(x, ws, bs, *, padding, stride, act, pool, pool_stride,
+               act_bits, int8_scales, block_r, block_w) -> torch.Tensor:
+    """``stream_conv_block``'s dispatch, on validated arguments."""
+    (w,), (b,) = ws, bs
     name = "stream_conv_fused" if int8_scales is None else "stream_conv_fused_int8"
     if not on_cuda(x):
         with probe.dispatch(name, plain=True):
@@ -232,6 +335,17 @@ def stream_conv_pyramid(
                     "inter-layer code chain)"
                 )
     pyr = as_pyramid_layers(layers)
+    run = functools.partial(_run_pyramid, pyr=pyr, bits=bits,
+                            int8_scales=int8_scales, block_rows=block_rows)
+    if _needs_grad(x, *weights, *biases):
+        _refuse_int8_grad(int8_scales)
+        return _GroupGrad.apply(run, pyr, bits, x, *weights, *biases)
+    return run(x, weights, biases)
+
+
+def _run_pyramid(x, weights, biases, *, pyr, bits, int8_scales,
+                 block_rows) -> torch.Tensor:
+    """``stream_conv_pyramid``'s dispatch, on validated arguments."""
     name = "stream_conv_pyramid" if int8_scales is None else "stream_conv_pyramid_int8"
     if not on_cuda(x):
         with probe.dispatch(name, plain=True):

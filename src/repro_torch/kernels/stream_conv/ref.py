@@ -12,8 +12,11 @@ The convs go through ``F.conv2d`` on NCHW views. SAME padding is applied
 explicitly with XLA's rule (``halo.same_pads``: total = max((ceil(d/s) -
 1)*s + k - d, 0), low = total // 2), because ``padding="same"`` pads
 differently for even windows and refuses stride > 1. Pooling is
-``F.max_pool2d`` with the VALID floor; quantization goes through
-``fake_quant_ste``. On a CUDA tensor these run cuDNN convs: a caller that
+``F.max_pool2d`` with the VALID floor (a tied window's gradient goes to
+its first element, as under the reference's ``reduce_window``);
+quantization goes through ``fake_quant_ste``. The training backward
+differentiates this composition (``ops._GroupGrad``), so its autograd
+follows the reference's autodiff too (``relu`` as ``max(y, 0)``). On a CUDA tensor these run cuDNN convs: a caller that
 compares them with a kernel turns cuDNN's TF32 off first.
 
 With ``int8_scales`` the conv is the true-integer rendering: int8 input
@@ -104,7 +107,10 @@ def stream_conv_block_ref(
         y = _conv_nhwc(x, w, stride=stride, padding=padding)
     y = y + b.to(torch.float32)
     if act == "relu":
-        y = F.relu(y)
+        # max(y, 0) as the reference writes it (``jnp.maximum``): the same
+        # values as F.relu, and autograd gives an exact zero half the
+        # gradient, as JAX's does (F.relu gives it none).
+        y = torch.maximum(y, y.new_zeros(()))
     elif act == "tanh":
         y = torch.tanh(y)
     if pw:

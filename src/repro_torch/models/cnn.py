@@ -106,6 +106,17 @@ class CNNTopology:
             return (self.input_hw, self.input_hw)
         return self.input_hw
 
+    def square_input_hw(self) -> int:
+        """The square frame side; raises on a rectangular frame, for the
+        paths (the synthetic datasets) that need a square one."""
+        h, w = self.input_shape
+        if h != w:
+            raise ValueError(
+                f"{self.name}: this path requires a square input frame, "
+                f"got {h}x{w}"
+            )
+        return h
+
     def conv_shapes(self):
         """Per-layer (C_in, N_out, K, H_out, W_out) after conv (pre-pool)."""
         h, w = self.input_shape

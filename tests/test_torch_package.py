@@ -122,3 +122,33 @@ def test_kernel_wrappers_follow_the_tensor_and_never_fall_back():
     with pytest.raises(ValueError, match="unsupported device"):
         kops.stream_conv_block(x.to("meta"), w.to("meta"), b.to("meta"), padding="SAME")
     assert kconv.LAUNCHES == before
+
+
+@pytest.mark.parametrize("sub", ["optim", "data", "checkpoint", "runtime", "paper"])
+def test_the_training_subpackages_are_walked_and_import_no_jax(sub):
+    """The training slice's subpackages sit at the reference's paths with
+    its public names; the package walk above imports them and the source
+    scan reads them."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"import repro_torch.{sub} as pkg\n"
+        f"mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'repro_torch.{sub}.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(len(mods), bad, sorted(getattr(pkg, '__all__', [])))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120, check=True,
+    ).stdout
+    n, rest = out.split(maxsplit=1)
+    assert int(n) >= 1 and rest.startswith("[] ")
+    ref = SRC / "repro" / sub / "__init__.py"
+    names = [n.value for node in ast.walk(ast.parse(ref.read_text())) if isinstance(node, ast.Assign)
+             and any(getattr(t, "id", "") == "__all__" for t in node.targets) for n in node.value.elts]
+    assert all(f"'{name}'" in rest for name in names), (sub, names, rest)
+    assert (SRC / "repro_torch" / sub).is_dir() and sorted(
+        p.name for p in (SRC / "repro" / sub).glob("*.py")) == sorted(
+        p.name for p in (SRC / "repro_torch" / sub).glob("*.py"))
