@@ -88,6 +88,15 @@ Phases (each asserts or exits non-zero):
      frames/s (fp32 and QAT 8), and the forward's device time against the
      backward's (profiler); the stream-conv kernels launch once per group a
      forward, no plain version is called, the phase takes under 60 s;
+  5h. the static gate and the CNN examples on the card: the analysis
+     CLI's run_verify over the five topologies x fp32 / quant / int8 in
+     the plan, structure and resource scopes and the pipelined probe
+     (pipeline scope) finds no error, and V203 reads each launch's
+     requested shared memory (nonzero, at most 232,448 B); run_lint()
+     over src/repro_torch finds nothing; examples/torch/dhm_cnn.py and
+     serve_cnn.py run at their default sizes and print OK; the pyramid
+     and single-layer kernels, fp32 and int8, launch, no plain version
+     is called, the phase takes under 120 s;
   6. time each kernel, its plain version and the library call with CUDA
      events at main-path shapes, beside the card's bound; the fp32 and
      int8 conv kernels, pow2_matmul, the seed conv and their library calls
@@ -118,7 +127,8 @@ phase 5d and read just after it, zeroed just before phase 5e's
 traffic and read just after it, and zeroed just before phase 5f's
 pipelined runs and read just after them (``launches_5f`` in the record),
 and zeroed just before phase 5g's training runs and read just after them
-(``launches_5g``):
+(``launches_5g``), and zeroed just before phase 5h's verification and
+examples and read just after them (``launches_5h``):
 they show that each path went through its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
 before a path's counts are zeroed.
 Imports nothing of JAX and nothing of the reference package.
@@ -209,6 +219,9 @@ POW2_TRAIN_STEPS = 10
 RESILIENT_STEPS, RESILIENT_CKPT, RESILIENT_FAILS = 30, 5, (7, 19, 23)
 TRAIN_TIMED_STEPS, TRAIN_PROFILED = 10, 3
 PHASE_5G_LIMIT_S = 60.0
+# Phase 5h: the static gate's matrix and the two CNN examples, and its
+# time limit.
+PHASE_5H_LIMIT_S = 120.0
 # 8-bit QAT gradients against another device's or another order's sums:
 # each tensor within this relative L2 error, the features equal but for
 # at most QUANT_MAX_STEP_SHARE elements one quant step apart (a float64
@@ -311,6 +324,33 @@ def f64_grads(topo, params, x, y) -> list:
     return [g.float() for g in torch.autograd.grad(loss, leaves)]
 
 
+def count_plain_versions() -> tuple:
+    """Wrap the conv and pow2 wrappers' plain versions so that each call
+    is counted: returns the counts by name and a function that puts the
+    plain versions back."""
+    from repro_torch.kernels.pow2_matmul import ops as kpow2_ops
+    from repro_torch.kernels.stream_conv import ops as kconv_ops
+
+    plain = {"stream_conv_block_ref": 0, "stream_conv_pyramid_ref": 0, "pow2_matmul_ref": 0,
+             "pow2_matmul_int_ref": 0}
+    mods = {n_: kconv_ops if "conv" in n_ else kpow2_ops for n_ in plain}
+    plain_fns = {n_: getattr(mods[n_], n_) for n_ in plain}
+
+    def counted(name_):
+        def call(*args, **kwargs):
+            plain[name_] += 1
+            return plain_fns[name_](*args, **kwargs)
+        return call
+
+    def restore():
+        for n_, fn_ in plain_fns.items():
+            setattr(mods[n_], n_, fn_)
+
+    for n_ in plain:
+        setattr(mods[n_], n_, counted(n_))
+    return plain, restore
+
+
 def phase_5g(smi: str) -> dict:
     """Training on the card (phase 5g). Returns the launches of the
     training path's window."""
@@ -323,7 +363,6 @@ def phase_5g(smi: str) -> dict:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core.dhm import compile_dhm
     from repro_torch.data import make_image_dataset
-    from repro_torch.kernels.pow2_matmul import ops as kpow2_ops
     from repro_torch.kernels.pow2_matmul import pow2 as kpow2
     from repro_torch.kernels.stream_conv import conv as kconv
     from repro_torch.kernels.stream_conv import ops as kconv_ops
@@ -384,19 +423,7 @@ def phase_5g(smi: str) -> dict:
           f"{cpu_err:.3e}")
     torch.cuda.synchronize()
 
-    plain = {"stream_conv_block_ref": 0, "stream_conv_pyramid_ref": 0, "pow2_matmul_ref": 0,
-             "pow2_matmul_int_ref": 0}
-    mods = {n_: kconv_ops if "conv" in n_ else kpow2_ops for n_ in plain}
-    plain_fns = {n_: getattr(mods[n_], n_) for n_ in plain}
-
-    def counted(name_):
-        def call(*args, **kwargs):
-            plain[name_] += 1
-            return plain_fns[name_](*args, **kwargs)
-        return call
-
-    for n_ in plain:
-        setattr(mods[n_], n_, counted(n_))
+    plain, restore_plain = count_plain_versions()
     kconv.reset_launch_counts()
     kpow2.reset_launch_counts()
     try:
@@ -505,8 +532,7 @@ def phase_5g(smi: str) -> dict:
               f"clean run's {c_s:.2f} s")
         torch.cuda.synchronize()
     finally:
-        for n_, fn_ in plain_fns.items():
-            setattr(mods[n_], n_, fn_)
+        restore_plain()
     launches = {**kconv.LAUNCHES, **kpow2.LAUNCHES}
     check(all(v == 0 for v in plain.values()), f"phase 5g called plain versions: {plain}")
     check(launches["stream_conv_pyramid"] > 0 and launches["pow2_matmul"] > 0,
@@ -594,6 +620,90 @@ def phase_5g(smi: str) -> dict:
     print(f"[5g] training path launches: { {k: v for k, v in launches.items() if v} }; plain "
           f"versions called 0 times; phase {elapsed:.1f} s ({t_checks:.1f} s of checks, "
           f"{elapsed - t_checks:.1f} s of timing)")
+    return launches
+
+
+def phase_5h(smi: str) -> dict:
+    """The static gate and the CNN examples on the card (phase 5h). Returns
+    the launches of the phase's window."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.analysis.cli import run_lint, run_verify
+    from repro_torch.core.dhm.pipeline import join_watchdogs
+    from repro_torch.kernels.pow2_matmul import pow2 as kpow2
+    from repro_torch.kernels.stream_conv import conv as kconv
+    from repro_torch.models.cnn import ALL_TOPOLOGIES
+    from repro_torch.paper import train_cnn
+
+    dev = torch.device("cuda")
+
+    def example(file, argv):
+        spec = importlib.util.spec_from_file_location(f"example_{file[:-3]}",
+                                                      os.path.join(ROOT, "examples", "torch", file))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            print(f"[5h] {file} | {line}")
+        check(lines[-1:] == ["OK"], f"5h examples/torch/{file} ended with {lines[-1:]}")
+        return secs
+
+    t_phase = time.perf_counter()
+    plain, restore_plain = count_plain_versions()
+    results_dir = train_cnn.RESULTS_DIR
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    kconv.reset_launch_counts()
+    kpow2.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        traces = []
+        findings = run_verify(ALL_TOPOLOGIES, device=dev, traces=traces)
+        torch.cuda.synchronize()
+        t_verify = time.perf_counter() - t0
+        errors = [f.render() for f in findings if f.is_error]
+        check(not errors, f"5h run_verify on the card: {errors}")
+        smem = [b for tr in traces for _, _, b in tr.phase_launches("features")]
+        check(len(traces) == 3 * len(ALL_TOPOLOGIES) and smem
+              and all(0 < b <= kconv.SMEM_LIMIT for b in smem),
+              f"5h V203 read {len(smem)} launches of {len(traces)} plans: {sorted(set(smem))}")
+        print(f"[5h] run_verify(5 topologies x fp32/quant/int8, scopes plan, structure, resource; "
+              f"pipelined probes, scope pipeline) on the card: {len(findings)} findings, 0 errors; "
+              f"V203 read the shared memory of {len(smem)} feature launches of {len(traces)} "
+              f"plans, {min(smem)}-{max(smem)} B (limit {kconv.SMEM_LIMIT} B); "
+              f"{t_verify:.2f} s ({smi})")
+        t0 = time.perf_counter()
+        lint = run_lint()
+        check(lint == [], f"5h run_lint: {[f.render() for f in lint]}")
+        print(f"[5h] run_lint() over src/repro_torch: no finding ({time.perf_counter() - t0:.2f} s)")
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as cache:
+            train_cnn.RESULTS_DIR = cache
+            ex_s = {f: example(f, []) for f in ("dhm_cnn.py", "serve_cnn.py")}
+    finally:
+        train_cnn.RESULTS_DIR = results_dir
+        restore_plain()
+    launches = {**kconv.LAUNCHES, **kpow2.LAUNCHES}
+    check(all(v == 0 for v in plain.values()), f"phase 5h called plain versions: {plain}")
+    check(all(launches[k] > 0 for k in ("stream_conv_pyramid", "stream_conv_fused",
+                                        "stream_conv_pyramid_int8", "stream_conv_fused_int8")),
+          f"phase 5h launches: {launches}")
+    check(join_watchdogs(30.0) == 0, "a watchdog thread is still running after phase 5h")
+    elapsed = time.perf_counter() - t_phase
+    check(elapsed < PHASE_5H_LIMIT_S, f"phase 5h took {elapsed:.1f} s")
+    print(f"[5h] examples at their default sizes on the card: "
+          + ", ".join(f"{f} {t:.2f} s" for f, t in ex_s.items())
+          + f"; launches { {k: v for k, v in launches.items() if v} }; plain versions called 0 "
+          f"times; phase {elapsed:.1f} s ({smi})")
     return launches
 
 
@@ -1583,6 +1693,9 @@ def main() -> None:
     # -- 5g. training on the card ------------------------------------------------
     train_launches = phase_5g(smi)
 
+    # -- 5h. the static gate and the CNN examples --------------------------------
+    static_launches = phase_5h(smi)
+
     # -- 6. timing at main-path shapes -------------------------------------------
     def time_ms(fn, iters=50, warmup=5):
         for _ in range(warmup):
@@ -2291,6 +2404,7 @@ def main() -> None:
     for rec in kernels:
         rec["launches_5f"] = pipe_launches.get(rec["name"], 0)
         rec["launches_5g"] = train_launches.get(rec["name"], 0)
+        rec["launches_5h"] = static_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
-"""The plan verifier of the port: the reference registry's ``plan``,
-``structure`` and ``pipeline`` invariants (``invariants.py``) over
-``CompiledDHM`` plans, run on the plan's own device (``verify.py``).
+"""Static analysis for DHM plans of the port: a plan verifier (the
+reference registry's invariants, ``invariants.py``, over ``CompiledDHM``
+plans run on their own device, ``verify.py``) and an AST linter (the
+reference's DHM0xx rules restated for PyTorch, ``ast_lint.py``).
 
-The counterpart of ``repro.analysis``. Its ``resource`` scope, the AST
-linter and the CLI are not ported yet; asking ``verify_plan`` for that
-scope raises.
+The counterpart of ``repro.analysis``. CLI: ``python -m
+repro_torch.analysis [verify|lint|all] --topology all``. The reference's
+jaxpr counters have no counterpart: the kernels' per-thread log
+(``repro_torch.kernels.probe``) stands in for them.
 
 Exports resolve lazily, as in the reference.
 """
@@ -19,6 +21,9 @@ _EXPORTS = {
     "make_pipeline_probe": "repro_torch.analysis.verify",
     "verify_plan": "repro_torch.analysis.verify",
     "check_plan": "repro_torch.analysis.verify",
+    "RULES": "repro_torch.analysis.ast_lint",
+    "lint_paths": "repro_torch.analysis.ast_lint",
+    "lint_source": "repro_torch.analysis.ast_lint",
 }
 
 __all__ = sorted(_EXPORTS)

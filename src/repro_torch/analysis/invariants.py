@@ -1,7 +1,7 @@
 """The named invariant registry the plan verifier enforces.
 
 The counterpart of ``repro.analysis.invariants``: the same IDs, names and
-scopes, for the two scopes the port has.
+scopes, for all four scopes.
 
 - ``plan`` (V3xx): serving-fitness checks — finite baked params,
   consistent stage IO geometry, stage bodies and head producing the
@@ -17,7 +17,17 @@ scopes, for the two scopes the port has.
   ``probe`` log, aten ops from a ``TorchDispatchMode``. An op that runs
   inside a kernel wrapper's dispatch is the kernel's own (on a CPU plan,
   the plain version's); the others are the glue between launches.
-
+- ``resource`` (V2xx): working-set fit. Each check keeps the reference's
+  host-side costing of the VMEM working sets (``fusion.py``), so both
+  packages give the same findings on the same plan (but for singleton
+  groups, which V202 and V204 do not re-cost), and adds a Hopper
+  part that runs only on a plan for the card: the shared memory each
+  group's launches request (``CompiledDHM.card_smem``, recorded by
+  ``compile_dhm``) against ``conv.SMEM_LIMIT``, the
+  232,448 B a Hopper block may use, and against what ``conv.py`` sizes
+  for the group today (``compiler.card_group_cost``). V203 reads the
+  bytes each launch really requested, which the launchers log
+  (``kernels/probe.py``).
 - ``pipeline`` (V1xx): the reference reads the ``ppermute``s of the traced
   pipelined closure. The port runs the pipelined runner once on zero
   µbatches (``verify.make_pipeline_probe``) and reads the edge transfers
@@ -26,11 +36,8 @@ scopes, for the two scopes the port has.
   transfers play the part of the reference's one ``ppermute`` per class.
   With no probe given, the scope finds nothing, as the reference's.
 
-The reference's ``resource`` (V2xx) scope is not ported yet: ``SCOPES``
-names it and ``verify_plan`` raises when asked for it.
-
 Invariants self-gate as in the reference: a check that only the kernel
-path has (V003, V007) returns no findings on a CPU plan, as the
+path has (V003, V007, V203) returns no findings on a CPU plan, as the
 reference's kernel-structure checks return none on a non-Pallas
 backend. V001 and V006 have no observable counterpart in PyTorch; they
 are registered, and their docstrings say why they find nothing.
@@ -44,8 +51,9 @@ from typing import Callable, Dict
 
 import torch
 
+from repro_torch.kernels.stream_conv.conv import MAX_PYRAMID_LAYERS, SMEM_LIMIT
+
 SCOPES = ("plan", "structure", "resource", "pipeline")
-PORTED_SCOPES = ("plan", "structure", "pipeline")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +70,8 @@ REGISTRY: Dict[str, Invariant] = {}
 
 def invariant(id: str, *, name: str, scope: str):
     """Register an invariant check under a stable ID."""
-    if scope not in PORTED_SCOPES:
-        raise ValueError(f"scope must be one of {PORTED_SCOPES}, got {scope!r}")
+    if scope not in SCOPES:
+        raise ValueError(f"scope must be one of {SCOPES}, got {scope!r}")
 
     def deco(fn):
         if id in REGISTRY:
@@ -76,12 +84,20 @@ def invariant(id: str, *, name: str, scope: str):
     return deco
 
 
-def _conv_dims(topo) -> list:
-    """(H, W, C) entering each conv layer of ``topo``."""
-    dims = [(*topo.input_shape, topo.input_channels)]
-    for spec in topo.conv_layers:
-        dims.append((*spec.out_hw(*dims[-1][:2]), spec.n_out))
-    return dims
+def by_scope(*scopes: str):
+    return [inv for inv in REGISTRY.values() if inv.scope in scopes]
+
+
+def card_cost(plan, g, elem_bytes=None) -> tuple:
+    """``compiler.card_group_cost`` of fusion group ``g`` of ``plan``:
+    (launches, shared-memory bytes per block, parts), at the plan's slab
+    width unless ``elem_bytes`` is given."""
+    from repro_torch.core.dhm.compiler import card_group_cost
+    from repro_torch.core.dhm.fusion import plan_elem_bytes
+
+    eb = plan_elem_bytes(plan.quant) if elem_bytes is None else elem_bytes
+    return card_group_cost(plan.topo, tuple(g.layers), g.block_rows, elem_bytes=eb,
+                           block_r=plan.block_r)
 
 
 def planned_launches(plan) -> int:
@@ -89,26 +105,7 @@ def planned_launches(plan) -> int:
     multi-layer fusion group (the pyramid kernel), and for each singleton
     the column strips times the channel slices the single-layer launcher
     plans for it (``conv.fused_plan`` over the SAME-padded frame)."""
-    from repro_torch.core.dhm.fusion import plan_elem_bytes
-    from repro_torch.kernels.stream_conv.conv import fused_plan
-    from repro_torch.kernels.stream_conv.halo import padded_frame
-
-    topo = plan.topo
-    dims = _conv_dims(topo)
-    elem_bytes = plan_elem_bytes(plan.quant)
-    n = 0
-    for g in plan.fusion_groups:
-        if len(g.layers) > 1:
-            n += 1
-            continue
-        sp = topo.conv_layers[g.layers[0]]
-        h, w, c = dims[g.layers[0]]
-        geo = fused_plan(*padded_frame(h, w, sp.kernel, sp.stride, sp.padding), c,
-                         k=sp.kernel, stride=sp.stride, pool=sp.pool,
-                         pool_stride=sp.pool_stride, block_r=plan.block_r,
-                         n_out=sp.n_out, elem_bytes=elem_bytes)
-        n += len(geo["strips"]) * len(geo["slices"])
-    return n
+    return sum(card_cost(plan, g)[0] for g in plan.fusion_groups)
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +418,241 @@ def _integer_conv_compute(ctx):
         for i, (_, name, _) in enumerate(convs)
         if not name.endswith("_int8")
     ]
+
+
+# ---------------------------------------------------------------------------
+# resource scope (V2xx)
+
+
+def _group(gi, g) -> str:
+    return f"fusion group {gi} (layers {tuple(g.layers)})"
+
+
+def _recorded_smem(plan) -> list:
+    """The shared memory a card plan records for each fusion group, in
+    execution order (0 where it records none)."""
+    n = len(plan.fusion_groups)
+    smem = list(getattr(plan, "card_smem", ()))[:n]
+    return smem + [0] * (n - len(smem))
+
+
+@invariant("V201", name="group-budget", scope="resource")
+def _group_budget(ctx):
+    """Every fusion group's costed working set fits the plan's VMEM
+    budget (skipped for budget-0 per-layer lowerings, whose single-layer
+    groups are emitted unconditionally). On a card plan, every group's
+    recorded shared memory per block (``CompiledDHM.card_smem``: the pyramid
+    kernel's ``conv.pyramid_smem_bytes`` for a multi-layer group, the
+    single-layer launcher's ``conv.fused_plan`` bytes for a singleton)
+    stays within ``conv.SMEM_LIMIT``, at any budget, and a multi-layer
+    group has at most ``conv.MAX_PYRAMID_LAYERS`` layers."""
+    plan = ctx.plan
+    out = []
+    if plan.vmem_budget > 0:
+        for gi, g in enumerate(plan.fusion_groups):
+            if g.working_set > plan.vmem_budget:
+                out.append(ctx.error(
+                    "V201",
+                    f"{_group(gi, g)} working set {g.working_set} B exceeds the "
+                    f"vmem budget {plan.vmem_budget} B",
+                ))
+    if not ctx.on_card:
+        return out
+    for gi, (g, smem) in enumerate(zip(plan.fusion_groups, _recorded_smem(plan))):
+        if smem > SMEM_LIMIT:
+            out.append(ctx.error(
+                "V201",
+                f"{_group(gi, g)} requests {smem} B of shared memory per block, "
+                f"above the {SMEM_LIMIT} B a Hopper block may use",
+            ))
+        if len(g.layers) > MAX_PYRAMID_LAYERS:
+            out.append(ctx.error(
+                "V201",
+                f"{_group(gi, g)} has {len(g.layers)} layers; the pyramid kernel "
+                f"takes at most {MAX_PYRAMID_LAYERS}",
+            ))
+    return out
+
+
+@invariant("V202", name="cost-model-consistent", scope="resource")
+def _cost_model_consistent(ctx):
+    """Each multi-layer group's recorded working set equals what
+    ``fusion.py`` / ``halo.py`` cost today for the same layers and
+    block_rows — a stale or hand-edited plan cannot smuggle in an
+    outdated cost. On a card plan, each group's recorded shared memory
+    equals what ``conv.py`` sizes for it today
+    (``compiler.card_group_cost``). A singleton's working set is not
+    re-costed: the planner emits it unconditionally and records 0, which
+    the reference's check reports as a mismatch on every per-layer plan;
+    on the card the Hopper part costs singletons too."""
+    from repro_torch.core.dhm.fusion import (
+        group_working_set,
+        group_working_set_breakdown,
+        plan_elem_bytes,
+    )
+
+    plan = ctx.plan
+    elem_bytes = plan_elem_bytes(plan.quant)
+    out = []
+    for gi, g in enumerate(plan.fusion_groups):
+        if len(g.layers) < 2:
+            continue
+        try:
+            want = group_working_set(
+                plan.topo, g.layers, block_rows=g.block_rows,
+                elem_bytes=elem_bytes,
+            )
+        except Exception as e:  # noqa: BLE001 — surfaced as a finding
+            out.append(ctx.error(
+                "V202", f"{_group(gi, g)} cannot be re-costed: {e}",
+            ))
+            continue
+        if want != g.working_set:
+            parts = group_working_set_breakdown(
+                plan.topo, g.layers, block_rows=g.block_rows,
+                elem_bytes=elem_bytes,
+            )
+            top = max(parts, key=parts.get)
+            out.append(ctx.error(
+                "V202",
+                f"{_group(gi, g)} records a working set of {g.working_set} B but "
+                f"the cost model says {want} B at {elem_bytes} B/elt (largest "
+                f"component: {top} = {parts[top]} B)",
+            ))
+    if not ctx.on_card:
+        return out
+    for gi, (g, smem) in enumerate(zip(plan.fusion_groups, _recorded_smem(plan))):
+        try:
+            _, want, parts = card_cost(plan, g)
+        except Exception as e:  # noqa: BLE001 — surfaced as a finding
+            out.append(ctx.error(
+                "V202", f"{_group(gi, g)} cannot be sized for the card: {e}",
+            ))
+            continue
+        if want != smem:
+            top = max(parts, key=parts.get)
+            out.append(ctx.error(
+                "V202",
+                f"{_group(gi, g)} records {smem} B of shared memory per block "
+                f"but conv.py sizes {want} B at {elem_bytes} B/elt (largest "
+                f"component: {top} = {parts[top]} B)",
+            ))
+    return out
+
+
+@invariant("V203", name="traced-working-set", scope="resource")
+def _traced_working_set(ctx):
+    """The reference reads each ``pallas_call``'s operand avals on its
+    interpret backend and bounds them by the group's costed working set.
+    On a card plan the port reads the dynamic shared memory each launch
+    of the features really requested, which the launchers log beside
+    the launch (``kernels/probe.py``): every launch must request some,
+    no more than its group's recorded card bytes and no more than
+    ``conv.SMEM_LIMIT`` — a planner under-estimate surfaces here, not
+    as a refused launch. A CPU plan launches nothing, so V203 finds
+    nothing there, as the reference's finds nothing on a non-interpret
+    backend."""
+    plan = ctx.plan
+    if not ctx.on_card:
+        return []
+    groups = plan.fusion_groups
+    try:
+        counts = [card_cost(plan, g)[0] for g in groups]
+    except Exception:  # noqa: BLE001 — V202 reports a group it cannot size
+        return []
+    launches = ctx.trace().phase_launches("features")
+    if len(launches) != sum(counts):
+        return []  # V002 reports the mismatch
+    out, i = [], 0
+    for gi, (g, n, costed) in enumerate(zip(groups, counts, _recorded_smem(plan))):
+        for _, name, smem in launches[i:i + n]:
+            if smem <= 0:
+                out.append(ctx.error(
+                    "V203",
+                    f"{_group(gi, g)}: a {name} launch logged no dynamic shared "
+                    "memory — its launcher did not report the bytes it requested",
+                ))
+            elif smem > costed or smem > SMEM_LIMIT:
+                out.append(ctx.error(
+                    "V203",
+                    f"{_group(gi, g)}: a {name} launch requested {smem} B of shared "
+                    f"memory, above the group's costed {costed} B or the {SMEM_LIMIT} B "
+                    "limit — the planner under-estimated",
+                ))
+        i += n
+    return out
+
+
+@invariant("V204", name="int8-slab-costing", scope="resource")
+def _int8_slab_costing(ctx):
+    """An int8 plan charges int8 slab bytes (1 B/elt for the resident
+    frame, feature slabs and weight codes; int32 accumulators stay 4 B)
+    against ``vmem_budget`` — the recorded working sets of multi-layer
+    groups must equal the int8 costing and be strictly below what the
+    same group costs at fp32. A plan that books fp32 bytes under an int8
+    contract wastes the budget headroom the 1-byte slabs buy. On a card
+    plan the same holds for the shared memory: every group's recorded
+    bytes equal its int8 layout (``conv.int8_pyramid_layout``, or
+    ``conv.fused_plan`` at 1 B/elt for a singleton), and a multi-layer
+    group's are strictly below the same group's fp32 pyramid. Singletons
+    are not re-costed against the working set (see V202)."""
+    from repro_torch.core.dhm.fusion import group_working_set, plan_elem_bytes
+
+    plan = ctx.plan
+    if plan_elem_bytes(plan.quant) != 1:
+        return []
+    out = []
+    for gi, g in enumerate(plan.fusion_groups):
+        if len(g.layers) < 2:
+            continue
+        try:
+            want_int8 = group_working_set(
+                plan.topo, g.layers, block_rows=g.block_rows, elem_bytes=1
+            )
+            want_fp32 = group_working_set(
+                plan.topo, g.layers, block_rows=g.block_rows, elem_bytes=4
+            )
+        except Exception as e:  # noqa: BLE001 — surfaced as a finding
+            out.append(ctx.error(
+                "V204", f"{_group(gi, g)} cannot be re-costed: {e}",
+            ))
+            continue
+        if g.working_set != want_int8:
+            out.append(ctx.error(
+                "V204",
+                f"{_group(gi, g)} records {g.working_set} B under an int8 plan; "
+                f"the int8 costing says {want_int8} B",
+            ))
+        elif g.working_set >= want_fp32:
+            out.append(ctx.error(
+                "V204",
+                f"{_group(gi, g)} int8 working set {g.working_set} B is not below "
+                f"the fp32 costing {want_fp32} B — int8 slabs bought no headroom",
+            ))
+    if not ctx.on_card:
+        return out
+    for gi, (g, smem) in enumerate(zip(plan.fusion_groups, _recorded_smem(plan))):
+        try:
+            want_int8 = card_cost(plan, g, 1)[1]
+            want_fp32 = card_cost(plan, g, 4)[1] if len(g.layers) > 1 else None
+        except Exception as e:  # noqa: BLE001 — surfaced as a finding
+            out.append(ctx.error(
+                "V204", f"{_group(gi, g)} cannot be sized for the card: {e}",
+            ))
+            continue
+        if smem != want_int8:
+            out.append(ctx.error(
+                "V204",
+                f"{_group(gi, g)} records {smem} B of shared memory under an int8 "
+                f"plan; its int8 layout takes {want_int8} B",
+            ))
+        elif want_fp32 is not None and smem >= want_fp32:
+            out.append(ctx.error(
+                "V204",
+                f"{_group(gi, g)} int8 block of {smem} B is not below the fp32 "
+                f"pyramid's {want_fp32} B — int8 slabs bought no shared memory",
+            ))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,9 @@ own device and at a tiny batch, and reads what happened:
 
 - the ``plan`` scope runs each stage body on one zero frame of its
   declared input, and the head on one of the last stage's output;
+- the ``resource`` scope costs the plan's fusion groups on the host, as
+  the reference does, and on a card plan reads the shared memory each
+  launch of the structure probe requested (V203);
 - the ``pipeline`` scope reads a :class:`PipelineProbe`: the plan's
   pipelined runner run once on zero µbatches on a stage mesh
   (:func:`make_pipeline_probe`), with the edge transfers it logged on the
@@ -17,9 +20,10 @@ own device and at a tiny batch, and reads what happened:
   ``TorchDispatchMode`` that logs every aten op (its name, the dtypes it
   made, whether it ran inside a kernel wrapper, whether it moved data to
   the host) and with the kernels' ``probe`` log open, which records each
-  kernel dispatch and each launch. Both logs belong to the probing
-  thread, so another thread's launches (a router serving other tenants
-  while it verifies a swap) never enter the counts.
+  kernel dispatch and each launch with the shared memory it requested.
+  Both logs belong to the probing thread, so another thread's launches
+  (a router serving other tenants while it verifies a swap) never enter
+  the counts.
 
 ``verify_plan`` returns findings; ``check_plan`` (what
 ``CompiledDHM.self_check`` delegates to) raises ``PlanCheckError``
@@ -37,7 +41,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.analysis.findings import Finding
-from repro_torch.analysis.invariants import PORTED_SCOPES, REGISTRY, SCOPES
+from repro_torch.analysis.invariants import REGISTRY, SCOPES
 from repro_torch.kernels import probe
 
 # Ops that hand a value to the host (a read of a device scalar).
@@ -63,7 +67,7 @@ class StructureTrace:
     logits_dtype: torch.dtype
     ops: list  # OpRecord per aten op
     dispatches: list  # (phase, kernel name, plain version?) per wrapper dispatch
-    launches: list  # (phase, kernel name) per kernel launch on the card
+    launches: list  # (phase, kernel name, shared-memory bytes) per launch on the card
 
     def phase_ops(self, phase: str) -> list:
         return [op for op in self.ops if op.phase == phase]
@@ -108,7 +112,7 @@ class PipelineProbe:
     holds the traced jaxpr; the port's holds what the run logged."""
 
     transfers: list  # (edge class, (src, dst) stages, buffer shape) per hand-off
-    launches: list  # (phase, kernel name) per kernel launch on the card
+    launches: list  # (phase, kernel name, shared-memory bytes) per launch on the card
     edge_plan: object
     cfg: object
     mb_local: int  # per-slot µbatch rows each transfer moves
@@ -190,18 +194,10 @@ class ProbeContext:
 
 
 def _resolve_scopes(scopes, ids) -> tuple:
-    if scopes is None:
-        scopes = PORTED_SCOPES
-    scopes = tuple(scopes)
+    scopes = SCOPES if scopes is None else tuple(scopes)
     unknown = set(scopes) - set(SCOPES)
     if unknown:
         raise ValueError(f"unknown scopes {sorted(unknown)}; have {SCOPES}")
-    unported = [s for s in scopes if s not in PORTED_SCOPES]
-    if unported:
-        raise NotImplementedError(
-            f"the port has no {', '.join(unported)} scope yet (the resource "
-            f"scope waits for a Hopper cost model); it verifies {PORTED_SCOPES}"
-        )
     if ids is not None:
         missing = sorted(set(ids) - set(REGISTRY))
         if missing:
@@ -220,16 +216,20 @@ def verify_plan(
     where: str = "",
     batch: int = 2,
     pipeline: Optional[PipelineProbe] = None,
+    traces: Optional[list] = None,
 ) -> list:
     """Run the invariant registry against one plan.
 
-    ``scopes`` restricts to registry scopes (default: every scope the
-    port has, ``plan``, ``structure`` and ``pipeline``; the last reads
-    ``pipeline``, a :class:`PipelineProbe`); asking for a scope or an ID
-    the port does not have raises ``NotImplementedError`` — it never
-    passes quietly. ``ids`` restricts to specific invariant IDs. Returns
-    the findings (possibly empty). Runs the plan on its device: the plan
-    scope on one frame, the structure scope on ``batch`` frames.
+    ``scopes`` restricts to registry scopes (default: all four, ``plan``,
+    ``structure``, ``resource`` and ``pipeline``; the last reads
+    ``pipeline``, a :class:`PipelineProbe`); asking for an unknown scope
+    raises ``ValueError``, for an ID the port does not have
+    ``NotImplementedError`` — it never passes quietly. ``ids`` restricts
+    to specific invariant IDs. Returns the findings (possibly empty).
+    Runs the plan on its device: the plan scope on one frame, the
+    structure probe (which V203 also reads) on ``batch`` frames. Where a
+    check ran the structure probe, its :class:`StructureTrace` is
+    appended to ``traces`` if a list is given.
     """
     scopes = _resolve_scopes(scopes, ids)
     ctx = ProbeContext(plan, where=where, batch=batch, pipeline=pipeline)
@@ -240,6 +240,8 @@ def verify_plan(
         if ids is not None and inv.id not in ids:
             continue
         findings.extend(inv.fn(ctx))
+    if traces is not None and ctx._trace is not None:
+        traces.append(ctx._trace)
     return findings
 
 

@@ -38,6 +38,7 @@ import torch
 from repro_torch.core.dhm.fusion import (
     DEFAULT_VMEM_BUDGET,
     FusionGroup,
+    _group_geom,
     group_working_set,
     plan_elem_bytes,
     plan_fusion_groups,
@@ -54,7 +55,12 @@ from repro_torch.core.quant.fixed_point import (
 from repro_torch.core.quant.pow2 import project_pow2, project_pow2_ste
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.kernels.pow2_matmul import pow2_matmul, quantize_weights
-from repro_torch.kernels.stream_conv.conv import card_groups, fused_plan
+from repro_torch.kernels.stream_conv.conv import (
+    card_groups,
+    fused_plan,
+    int8_pyramid_layout,
+    pyramid_layout,
+)
 from repro_torch.kernels.stream_conv.epilogue import (
     ACTS,
     Int8Scales,
@@ -240,6 +246,48 @@ def _cached_layout(topo, bits: int, n_stages: int) -> StageAssignment:
     return partition_stages(costs, n_stages)
 
 
+def _conv_dims(topo, last: int) -> list:
+    """(H, W, C) entering each conv layer of ``topo`` up to ``last``."""
+    dims = [(*topo.input_shape, topo.input_channels)]
+    for spec in topo.conv_layers[:last]:
+        dims.append((*spec.out_hw(*dims[-1][:2]), spec.n_out))
+    return dims
+
+
+@functools.lru_cache(maxsize=1024)
+def card_group_cost(topo, layers: tuple, block_rows: int, *, elem_bytes: int = 4,
+                    block_r: int = 8) -> tuple:
+    """What one fusion group costs on the card, as ``conv.py`` sizes it
+    today: ``(launches, shared-memory bytes per block, parts)``. A
+    multi-layer group is one launch of the pyramid kernel, whose block
+    holds ``conv.pyramid_smem_bytes`` (``pyramid_layout`` at 4 B/elt,
+    ``int8_pyramid_layout`` at 1) for the group's geometry at
+    ``block_rows``; a singleton is the single-layer launcher's
+    ``conv.fused_plan`` over the frame ``halo.padded_frame`` gives it, one
+    launch per column strip and channel slice, each requesting the same
+    bytes. ``parts`` splits the bytes into the slab buffers, the tap table
+    and the weight stages. Raises ``ValueError`` where the single-layer
+    launcher cannot serve the layer."""
+    layers = tuple(layers)
+    unit = 1 if elem_bytes == 1 else 4  # the layouts' offsets: bytes or 4-byte words
+    if len(layers) > 1:
+        geom = _group_geom(topo, layers, block_rows)
+        lay = int8_pyramid_layout(geom) if elem_bytes == 1 else pyramid_layout(geom)
+        n, smem, tap_off, wst_off = 1, lay.smem, lay.tap_off, lay.wst_off
+    else:
+        sp = topo.conv_layers[layers[0]]
+        h, w, c = _conv_dims(topo, layers[0])[layers[0]]
+        geo = fused_plan(*padded_frame(h, w, sp.kernel, sp.stride, sp.padding), c,
+                         k=sp.kernel, stride=sp.stride, pool=sp.pool,
+                         pool_stride=sp.pool_stride, block_r=block_r, n_out=sp.n_out,
+                         elem_bytes=elem_bytes)
+        n = len(geo["strips"]) * len(geo["slices"])
+        smem, tap_off, wst_off = geo["smem"], geo["tap_off"], geo["wst_off"]
+    parts = {"slab buffers": unit * tap_off, "tap table": unit * (wst_off - tap_off),
+             "weight stages": smem - unit * wst_off}
+    return n, smem, parts
+
+
 @functools.lru_cache(maxsize=256)
 def card_fusion_groups(topo, layer_indices: Sequence[int], groups: Sequence, *,
                        elem_bytes: int = 4, block_r: int = 8) -> tuple:
@@ -252,10 +300,7 @@ def card_fusion_groups(topo, layer_indices: Sequence[int], groups: Sequence, *,
     the frame ``halo.padded_frame`` gives the launcher: a layer it cannot
     serve raises now, not at the plan's first call."""
     idxs = tuple(layer_indices)
-    dims = [(*topo.input_shape, topo.input_channels)]
-    for spec in topo.conv_layers[: idxs[-1]]:
-        dims.append((*spec.out_hw(*dims[-1][:2]), spec.n_out))
-    dims = dims[idxs[0]:]
+    dims = _conv_dims(topo, idxs[-1])[idxs[0]:]
     specs = [topo.conv_layers[i] for i in idxs]
     local = card_groups(
         *dims[0], as_pyramid_layers(specs), tuple(sp.kernel for sp in specs),
@@ -266,19 +311,13 @@ def card_fusion_groups(topo, layer_indices: Sequence[int], groups: Sequence, *,
     out = []
     for g, block_rows in local:
         layers = tuple(idxs[0] + li for li in g)
-        if len(g) > 1:
-            out.append(FusionGroup(layers=layers, block_rows=block_rows, working_set=group_working_set(
-                topo, layers, block_rows=block_rows, elem_bytes=elem_bytes)))
-            continue
-        sp = specs[g[0]]
-        h, w, c = dims[g[0]]
         try:
-            fused_plan(*padded_frame(h, w, sp.kernel, sp.stride, sp.padding), c, k=sp.kernel,
-                       stride=sp.stride, pool=sp.pool, pool_stride=sp.pool_stride,
-                       block_r=block_r, n_out=sp.n_out, elem_bytes=elem_bytes)
+            card_group_cost(topo, layers, block_rows, elem_bytes=elem_bytes, block_r=block_r)
         except ValueError as e:
             raise ValueError(f"{topo.name} conv layer {layers[0]} cannot run on the card: {e}") from e
-        out.append(FusionGroup(layers=layers, block_rows=0, working_set=0))
+        ws = group_working_set(topo, layers, block_rows=block_rows,
+                               elem_bytes=elem_bytes) if len(g) > 1 else 0
+        out.append(FusionGroup(layers=layers, block_rows=block_rows, working_set=ws))
     return tuple(out)
 
 
@@ -517,6 +556,10 @@ class CompiledStage:
     cost_flops: float  # summed actor payloads (the mapper's stage cost)
     groups: tuple = ()  # FusionGroup per kernel launch in this stage
     io: Optional[StageIOSpec] = None  # (H, W, C) activation edge geometry
+    # A card plan's shared memory per block of each group's launches, in
+    # group order (``card_group_cost``, which the verifier's resource scope
+    # holds against SMEM_LIMIT); () on a CPU plan.
+    card_smem: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -560,6 +603,12 @@ class CompiledDHM:
     def fusion_groups(self) -> tuple:
         """Every FusionGroup of the plan, in execution order."""
         return tuple(g for st in self.stages for g in st.groups)
+
+    @property
+    def card_smem(self) -> tuple:
+        """The shared memory each fusion group's launches request on the
+        card, in execution order (() on a CPU plan)."""
+        return tuple(b for st in self.stages for b in st.card_smem)
 
     def stage_params(self, stage: int) -> list:
         return [self.conv_params[i] for i in self.stages[stage].conv_layers]
@@ -719,9 +768,15 @@ def compile_dhm(
         groups = plan_fusion_groups(
             topo, idxs, vmem_budget=budget, elem_bytes=elem_bytes
         )
+        card_smem = ()
         if dev.type == "cuda":
             groups = card_fusion_groups(
                 topo, idxs, groups, elem_bytes=elem_bytes, block_r=block_r
+            )
+            card_smem = tuple(
+                card_group_cost(topo, g.layers, g.block_rows, elem_bytes=elem_bytes,
+                                block_r=block_r)[1]
+                for g in groups
             )
         local_groups = tuple(
             (tuple(li - idxs[0] for li in g.layers), g.block_rows)
@@ -750,6 +805,7 @@ def compile_dhm(
                 cost_flops=assignment.stage_costs[s],
                 groups=groups,
                 io=StageIOSpec(in_shape=in_shape, out_shape=(h, w, c)),
+                card_smem=card_smem,
             )
         )
 

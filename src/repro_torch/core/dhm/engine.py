@@ -252,6 +252,15 @@ def _percentile_ms(samples, q: float) -> float:
     return xs[idx] * 1e3
 
 
+def _pack_logits(outs: list, n: int) -> torch.Tensor:
+    """The first ``n`` rows of the micro-batches' host logits, packed with
+    numpy as the reference packs them (one micro-batch is sliced, not
+    copied)."""
+    if len(outs) == 1:
+        return outs[0][:n]
+    return torch.from_numpy(np.concatenate([o.numpy() for o in outs], axis=0)[:n])
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineStats:
     """Aggregate serving statistics since construction (or the last
@@ -864,7 +873,7 @@ class Engine:
                 self._run_group(frames[start : start + self.group])
                 for start in range(0, frames.shape[0], self.group)
             ]
-            logits = torch.cat(outs, dim=0)[:n]
+            logits = _pack_logits(outs, n)
         except _PoisonedBatch:
             self._isolate(live)
             with self._lock:
@@ -919,7 +928,7 @@ class Engine:
                     f"request {req.index}: isolated rerun failed — {e}"
                 ))
                 continue
-            self._complete(req, torch.cat(outs)[: req.n_frames], time.perf_counter())
+            self._complete(req, _pack_logits(outs, req.n_frames), time.perf_counter())
 
     # -- background flush loop ------------------------------------------------
 

@@ -2,9 +2,10 @@
 
 A copy of ``repro.core.dhm.fusion`` with the reference's planner and its
 budget kept as they are, so the port's plans have the same fusion groups
-and ``block_rows`` as the reference's. (A Hopper cost model, against the
-232,448 B of shared memory a block may use, is later work; the pyramid
-kernel raises on a group whose slabs exceed it.)
+and ``block_rows`` as the reference's. A plan for the card splits them
+where a Hopper block's 232,448 B of shared memory cannot take them
+(``compiler.card_fusion_groups``) and records each group's bytes on its
+stage (``CompiledStage.card_smem``).
 
 The source paper's direct-hardware-mapping premise is that the whole CNN
 graph executes as one on-chip dataflow pipeline — intermediate feature

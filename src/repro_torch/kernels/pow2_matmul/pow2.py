@@ -61,7 +61,9 @@ def p2_plan(m: int, k: int, n: int, n_sms: int) -> dict:
     portable cluster size that keeps the CTAs within one wave (tiles x
     split <= CTAS_PER_SM x n_sms) and gives every CTA at least two slices,
     so that the copy of its next slice overlaps the current one; 1 where K
-    is small or the tiles fill the card alone."""
+    is small or the tiles fill the card alone. ``recv_bytes`` is the
+    dynamic shared memory a launch requests, rank 0's receive slots as the
+    source sizes them (one 4-byte tile per peer)."""
     slices = -(-k // BLOCK_K)
     tiles = -(-m // BLOCK_M) * -(-n // BLOCK_N)
     wave = CTAS_PER_SM * n_sms
@@ -69,7 +71,8 @@ def p2_plan(m: int, k: int, n: int, n_sms: int) -> dict:
     bounds = [r * slices // split for r in range(split + 1)]
     k_ranges = [(bounds[r] * BLOCK_K, min(k, bounds[r + 1] * BLOCK_K)) for r in range(split)]
     return dict(bm=BLOCK_M, bn=BLOCK_N, bk=BLOCK_K, split=split, slices=slices, tiles=tiles,
-                ctas=tiles * split, k_ranges=k_ranges)
+                ctas=tiles * split, k_ranges=k_ranges,
+                recv_bytes=(split - 1) * BLOCK_M * BLOCK_N * 4)
 
 
 def _library() -> ctypes.CDLL:
@@ -139,5 +142,5 @@ def pow2_matmul_cuda(
         raise RuntimeError(f"pow2_matmul launch failed: CUDA error {err}")
     name = "pow2_matmul_int" if int_mode else "pow2_matmul"
     LAUNCHES[name] += 1
-    probe.launched(name)
+    probe.launched(name, plan["recv_bytes"])
     return out

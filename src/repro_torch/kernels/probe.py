@@ -13,9 +13,10 @@ Three kinds of entries: a **dispatch** is one call of a kernel wrapper
 to its kernel or its plain version (``ops.py``), and marks the ops run
 inside it as the kernel's own (``DispatchLog.depth``); a **launch** is
 one kernel launch on the card (a single-layer call over column strips
-launches several); a **transfer** is one hand-off of an activation over
-an interior edge of the spatial pipeline (``core/dhm/pipeline.py``),
-which the verifier's pipeline scope reads.
+launches several), with the dynamic shared memory it requested, which
+the verifier's resource scope reads; a **transfer** is one hand-off of
+an activation over an interior edge of the spatial pipeline
+(``core/dhm/pipeline.py``), which the verifier's pipeline scope reads.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ class DispatchLog:
         self.phase = ""
         self.depth = 0
         self.dispatches: list = []  # (phase, kernel name, plain version?)
-        self.launches: list = []  # (phase, kernel name)
+        self.launches: list = []  # (phase, kernel name, dynamic shared-memory bytes)
         self.transfers: list = []  # (edge class, (src stage, dst stage), buffer shape)
 
 
@@ -76,11 +77,12 @@ class dispatch:
             self.log.depth -= 1
 
 
-def launched(name: str) -> None:
-    """Log one launch of kernel ``name`` (beside its ``LAUNCHES`` count)."""
+def launched(name: str, smem: int) -> None:
+    """Log one launch of kernel ``name`` (beside its ``LAUNCHES`` count)
+    and the dynamic shared memory, in bytes, its launcher requested."""
     log = active()
     if log is not None:
-        log.launches.append((log.phase, name))
+        log.launches.append((log.phase, name, int(smem)))
 
 
 def transferred(edge_class: int, pair: tuple, shape: tuple) -> None:

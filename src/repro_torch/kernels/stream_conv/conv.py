@@ -723,7 +723,7 @@ def stream_conv_fused_cuda(
                 )
                 _raise_on(launch(ctypes.addressof(desc), g["smem"], stream), name)
                 LAUNCHES[name] += 1
-                probe.launched(name)
+                probe.launched(name, g["smem"])
     return out
 
 
@@ -989,5 +989,5 @@ def stream_conv_pyramid_cuda(
         err = launch(ctypes.addressof(desc), smem, stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1
-    probe.launched(name)
+    probe.launched(name, smem)
     return out

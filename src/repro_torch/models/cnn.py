@@ -35,6 +35,7 @@ from repro_torch.core.quant.fixed_point import (
 from repro_torch.core.quant.pow2 import project_pow2_ste
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.kernels.stream_conv.halo import same_pads
+from repro_torch.tree_util import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +146,10 @@ class CNNTopology:
     def feature_extractor_ops(self) -> int:
         """Ops (1 MAC = 2 ops) — the paper's 'Workload' column in Table 4."""
         return 2 * self.feature_extractor_macs()
+
+    def n_multipliers(self) -> int:
+        """Multipliers a full DHM instantiation needs: N*C*K*K per layer."""
+        return sum(c * n * k * k for (c, n, k, _, _) in self.conv_shapes())
 
 
 LENET5 = CNNTopology(
@@ -257,6 +262,12 @@ def quantize_cnn_params(params: dict, bits: int) -> dict:
         ]
         for group, layers in params.items()
     }
+
+
+def export_cnn_specs(params: dict, bits: int) -> dict:
+    """Static per-tensor FixedPointSpec tree for a *trained* model (the
+    offline Q-format the paper's synthesis flow consumes)."""
+    return tree_map(lambda p: FixedPointSpec.for_tensor(p, bits), params)
 
 
 def cnn_apply(

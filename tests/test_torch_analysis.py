@@ -1,8 +1,8 @@
 """The port's plan verifier on the CPU, held against the reference's
-(``tests/test_analysis.py``, its plan and structure scopes).
+(``tests/test_analysis.py``).
 
 - the registry: the port's IDs, names and scopes are the reference's,
-  for every invariant of the two scopes it has;
+  for every invariant, and ``by_scope`` gives the same IDs per scope;
 - seeded plan defects that have a counterpart in the port (non-finite
   params, a broken IO chain, dtype drift, a host round-trip, float
   kernels under an int8 contract, a stage that splits its fusion group)
@@ -18,7 +18,15 @@
   IDs; the probe reads only its own thread's transfers. The reference's
   own pipeline-scope tests need two devices and skip in a plain run; the
   port's probe runs on a CPU mesh;
-- asking for a scope or an ID the port does not have raises.
+- the resource scope (V201-V204): the reference test's seeded defects
+  (an inflated working set, fp32 bytes under an int8 contract) give the
+  same IDs in both packages; a per-layer plan's singletons, which the
+  reference's V202 reports, are not re-costed; the Hopper parts pass on
+  the card groups of all five topologies (built by
+  ``card_fusion_groups`` on the CPU, in a plan marked for the card that
+  nothing runs) and find inflated, stale and fp32-costed card bytes, and
+  V203 holds a hand-made launch log against the costed bytes;
+- asking for an unknown scope or an ID the port does not have raises.
 """
 import pytest
 
@@ -100,14 +108,20 @@ def _tplan(name=NAME, **kw):
 
 class TestRegistry:
     def test_ids_names_and_scopes_are_the_references(self):
-        want = {i: (inv.name, inv.scope) for i, inv in jinvariants.REGISTRY.items()
-                if inv.scope in tinvariants.PORTED_SCOPES}
+        want = {i: (inv.name, inv.scope) for i, inv in jinvariants.REGISTRY.items()}
         got = {i: (inv.name, inv.scope) for i, inv in tinvariants.REGISTRY.items()}
         assert got == want
         assert tinvariants.SCOPES == jinvariants.SCOPES
-        assert set(tinvariants.PORTED_SCOPES) == {"plan", "structure", "pipeline"}
         assert {inv.id for inv in tinvariants.REGISTRY.values() if inv.scope == "pipeline"} == \
             {"V101", "V102", "V103"}
+        assert {inv.id for inv in tinvariants.REGISTRY.values() if inv.scope == "resource"} == \
+            {"V201", "V202", "V203", "V204"}
+
+    @pytest.mark.parametrize("scopes", [(s,) for s in jinvariants.SCOPES]
+                             + [("plan", "resource"), tuple(jinvariants.SCOPES)])
+    def test_by_scope_gives_the_references_ids(self, scopes):
+        assert [inv.id for inv in tinvariants.by_scope(*scopes)] == [
+            inv.id for inv in jinvariants.by_scope(*scopes)]
 
     def test_every_invariant_says_what_it_checks(self):
         for inv in tinvariants.REGISTRY.values():
@@ -122,12 +136,15 @@ class TestRegistry:
 
 class TestUnportedScopes:
     def test_unported_scope_or_id_raises(self):
+        """Every scope is ported: asking for the resource scope, the last
+        one ported, verifies; an ID or a scope the registry does not have
+        still raises."""
         plan = _tplan()
         for scopes in (("resource",), ("plan", "resource")):
-            with pytest.raises(NotImplementedError, match="no .* scope"):
-                verify_plan(plan, scopes=scopes)
-        with pytest.raises(NotImplementedError, match="no invariant V201"):
-            verify_plan(plan, ids=("V201",))
+            assert verify_plan(plan, scopes=scopes) == []
+        assert verify_plan(plan, ids=("V201",)) == []
+        with pytest.raises(NotImplementedError, match="no invariant V299"):
+            verify_plan(plan, ids=("V299",))
         with pytest.raises(ValueError, match="unknown scopes"):
             verify_plan(plan, scopes=("nope",))
 
@@ -410,3 +427,170 @@ class TestPipelineScope:
             stop.set()
             t.join(timeout=30.0)
         assert not t.is_alive() and len(busy) > 1
+
+
+# ---------------------------------------------------------------------------
+# the resource scope (V2xx)
+
+
+def _replace_group(plan, gi, **changes):
+    """A copy of ``plan`` with fusion group ``gi`` mutated (the reference
+    test's helper)."""
+    flat = list(plan.fusion_groups)
+    flat[gi] = dataclasses.replace(flat[gi], **changes)
+    stages, k = [], 0
+    for st in plan.stages:
+        n = len(st.groups)
+        stages.append(dataclasses.replace(st, groups=tuple(flat[k:k + n])))
+        k += n
+    return dataclasses.replace(plan, stages=tuple(stages))
+
+
+def _card_plan(name=NAME, **kw):
+    """The port's CPU plan of ``name`` with the groups a plan for the card
+    runs (``card_fusion_groups``) and the bytes ``compile_dhm`` records for
+    them on the card (``card_group_cost``), marked for the card. Nothing
+    runs it: only the host-side checks (V201, V202, V204) read it, and
+    V203 a hand-made launch log."""
+    from repro_torch.core.dhm.compiler import card_fusion_groups, card_group_cost
+    from repro_torch.core.dhm.fusion import plan_elem_bytes
+
+    plan = _tplan(name, **kw)
+    eb = plan_elem_bytes(plan.quant)
+    stages = []
+    for st in plan.stages:
+        groups = card_fusion_groups(plan.topo, st.conv_layers, st.groups, elem_bytes=eb,
+                                    block_r=plan.block_r)
+        stages.append(dataclasses.replace(st, groups=groups, card_smem=tuple(
+            card_group_cost(plan.topo, g.layers, g.block_rows, elem_bytes=eb,
+                            block_r=plan.block_r)[1] for g in groups)))
+    return dataclasses.replace(plan, stages=tuple(stages), device=torch.device("cuda"))
+
+
+def _replace_smem(plan, gi, smem):
+    """A copy of a card plan with fusion group ``gi``'s recorded bytes
+    replaced."""
+    flat = list(plan.card_smem)
+    flat[gi] = smem
+    stages, k = [], 0
+    for st in plan.stages:
+        n = len(st.groups)
+        stages.append(dataclasses.replace(st, card_smem=tuple(flat[k:k + n])))
+        k += n
+    return dataclasses.replace(plan, stages=tuple(stages))
+
+
+_HOST_IDS = ("V201", "V202", "V204")
+_INT8 = dict(weight_bits=8, act_bits=8, int8_compute=True)
+
+
+def _launch_log(plan, smem_of=lambda g, smem: smem):
+    """A structure trace whose features launched what ``plan`` plans, each
+    launch requesting ``smem_of(group, costed bytes)``."""
+    from repro_torch.analysis.verify import StructureTrace
+
+    launches = []
+    for g in plan.fusion_groups:
+        n, smem, _ = tinvariants.card_cost(plan, g)
+        name = "stream_conv_pyramid" if len(g.layers) > 1 else "stream_conv_fused"
+        launches += [("features", name, smem_of(g, smem))] * n
+    return StructureTrace(stage_dtypes=[], logits_dtype=torch.float32, ops=[],
+                          dispatches=[], launches=launches)
+
+
+def _v203(plan, trace):
+    ctx = ProbeContext(plan)
+    ctx._trace = trace
+    return tinvariants.REGISTRY["V203"].fn(ctx)
+
+
+class TestResourceScope:
+    def test_inflated_working_set_is_V201_V202(self):
+        jplan, tplan = _plans()
+        jbad = _replace_group(jplan, 0, working_set=10**9)
+        tbad = _replace_group(tplan, 0, working_set=10**9)
+        assert _both_ids(jbad, tbad, scopes=("resource",)) == ["V201", "V202"]
+        msgs = [f.message for f in verify_plan(tbad, scopes=("resource",)) if f.rule == "V202"]
+        assert any("largest component" in m for m in msgs)
+
+    def test_fp32_bytes_under_int8_contract_is_V204(self):
+        from repro_torch.core.dhm.fusion import group_working_set
+
+        jplan, tplan = _plans(quant=_INT8)
+        g = tplan.fusion_groups[0]
+        fp32 = group_working_set(tplan.topo, g.layers, block_rows=g.block_rows, elem_bytes=4)
+        jbad, tbad = (_replace_group(p, 0, working_set=fp32) for p in (jplan, tplan))
+        assert _both_ids(jbad, tbad, ids=("V204",)) == ["V204"]
+        assert _both_ids(jplan, tplan, ids=("V204",)) == []
+
+    @pytest.mark.parametrize("quant", [{}, _INT8], ids=["fp32", "int8"])
+    def test_clean_plans_and_the_traced_check_agree_with_the_reference(self, quant):
+        """Both packages find nothing on a good plan; V203 finds nothing on
+        a plan that launches no kernel (the reference's off its interpret
+        backend, the port's on the CPU), even with an understated cost."""
+        jplan, tplan = _plans(quant=quant)
+        assert _both_ids(jplan, tplan, scopes=("resource",)) == []
+        jbad, tbad = (_replace_group(p, 0, working_set=1) for p in (jplan, tplan))
+        assert _both_ids(jbad, tbad, ids=("V203",)) == []
+        assert "V202" in _both_ids(jbad, tbad, scopes=("resource",))
+
+    def test_per_layer_singletons_are_not_re_costed(self):
+        """The reference's V202 (and V204 on an int8 plan) re-costs the
+        singletons of a per-layer plan, which its planner records at 0 B,
+        and reports each; the port re-costs only fused groups."""
+        for quant, rule in (({}, "V202"), (_INT8, "V204")):
+            jplan, tplan = _plans(quant=quant, vmem_budget=0)
+            assert rule in _ids(jverify_plan(jplan, scopes=("resource",)))
+            assert verify_plan(tplan, scopes=("resource",)) == []
+
+    @pytest.mark.parametrize("name", sorted(ALL_TOPOLOGIES))
+    def test_card_groups_pass_the_hopper_parts(self, name):
+        for quant in ({}, dict(weight_bits=6, act_bits=6), _INT8):
+            for budget in (None, 0):
+                plan = _card_plan(name, quant=quant, vmem_budget=budget)
+                assert len(plan.card_smem) == len(plan.fusion_groups)
+                assert all(0 < b <= 232_448 for b in plan.card_smem)
+                assert verify_plan(plan, ids=_HOST_IDS) == [], f"{name}/{quant}/{budget}"
+                assert _v203(plan, _launch_log(plan)) == []
+
+    def test_card_bytes_past_the_block_limit_are_V201(self):
+        plan = _card_plan("cifar10")
+        bad = _replace_smem(plan, 0, 232_448 + 16)
+        findings = verify_plan(bad, ids=_HOST_IDS)
+        assert _ids(findings) == ["V201", "V202"]
+        assert any("232448" in f.message for f in findings if f.rule == "V201")
+        # the same group on a CPU plan has no card part to break
+        assert verify_plan(dataclasses.replace(bad, device=torch.device("cpu")),
+                           ids=_HOST_IDS) == []
+
+    def test_stale_card_bytes_are_V202(self):
+        plan = _card_plan("cifar10", vmem_budget=0)
+        bad = _replace_smem(plan, 1, plan.card_smem[1] - 16)
+        findings = verify_plan(bad, ids=_HOST_IDS)
+        assert _ids(findings) == ["V202"]
+        assert "largest component" in findings[0].message
+        # a card plan that records no bytes at all; a CPU plan records none
+        unrecorded = dataclasses.replace(plan, stages=tuple(
+            dataclasses.replace(st, card_smem=()) for st in plan.stages))
+        assert _ids(verify_plan(unrecorded, ids=_HOST_IDS)) == ["V202"]
+        assert _tplan("cifar10").card_smem == ()
+
+    def test_fp32_card_bytes_under_int8_contract_are_V204(self):
+        plan = _card_plan("lenet5", quant=_INT8)
+        fp32 = tinvariants.card_cost(plan, plan.fusion_groups[0], 4)[1]
+        assert plan.card_smem[0] < fp32
+        bad = _replace_smem(plan, 0, fp32)
+        assert _ids(verify_plan(bad, ids=("V204",))) == ["V204"]
+
+    def test_launch_log_over_the_costed_bytes_is_V203(self):
+        for name, budget in (("lenet5", None), ("cifar10", 0)):
+            plan = _card_plan(name, vmem_budget=budget)
+            over = _v203(plan, _launch_log(plan, lambda g, smem: smem + 16))
+            assert _ids(over) == ["V203"] and len(over) == len(plan.fusion_groups)
+            assert "under-estimated" in over[0].message
+            silent = _v203(plan, _launch_log(plan, lambda g, smem: 0))
+            assert _ids(silent) == ["V203"] and "no dynamic shared memory" in silent[0].message
+            # a launch log that does not match the plan is V002's finding
+            short = _launch_log(plan, lambda g, smem: smem + 16)
+            short.launches.pop()
+            assert _v203(plan, short) == []

@@ -56,6 +56,9 @@ def test_no_port_source_imports_jax_or_the_reference():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     assert files
     files += [SRC.parent / "chip_smoke.py", SRC.parent / "chip_phases.py"]
+    examples = sorted((SRC.parent / "examples" / "torch").glob("*.py"))
+    assert [p.name for p in examples] == ["dhm_cnn.py", "serve_cnn.py"]
+    files += examples
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
