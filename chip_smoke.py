@@ -97,6 +97,22 @@ Phases (each asserts or exits non-zero):
      serve_cnn.py run at their default sizes and print OK; the pyramid
      and single-layer kernels, fp32 and int8, launch, no plain version
      is called, the phase takes under 120 s;
+  5i. the other nine LM families at full width (FAMILIES): an fp32 gate
+     per config, drawn on the card from seed 0 at one pattern unit's depth
+     (two layers where the pattern is one layer; whisper-base whole),
+     B=2, S=64 (recurrentgemma-9b S=2085, so its 2048-slot rings wrap;
+     internvl2-2b with 256 prefix embeddings, whisper-base with
+     (2, 1500, 512) encoder frames; the MoE configs at their capacity
+     factor 1.25, so experts drop tokens, and the full forward's MoE
+     routed in the groups serving routes: the prompt, then the new token
+     alone): prefill of S-1 tokens and one decode_step against the full
+     forward's last two rows within the logits' tolerance; then bf16
+     serving, prefill of 4 x 512 tokens and 32 greedy decode steps, at
+     full depth where the weights fit (recurrentgemma-9b, qwen2.5-3b,
+     stablelm-12b, internvl2-2b, whisper-base) and 2-4 layers otherwise,
+     finite and shaped logits, with prefill ms, tokens/s, decode ms per
+     step and peak memory; each config freed before the next; no port
+     kernel launches (these architectures run none), under 180 s;
   6. time each kernel, its plain version and the library call with CUDA
      events at main-path shapes, beside the card's bound; the fp32 and
      int8 conv kernels, pow2_matmul, the seed conv and their library calls
@@ -109,7 +125,8 @@ Phases (each asserts or exits non-zero):
      split (submit, packing, watchdog, _stage, enqueue, _sync); the selective scan by
      its device time at the prefill, decode and one-sequence shapes, with
      the lanes its plan takes; then the LM's prefill and
-     decode step, with their device time by kernel; then the pipeline
+     decode step, with their device time by kernel, and the same for
+     recurrentgemma-9b and qwen2.5-3b in bf16 at full depth; then the pipeline
      sweep: the 3-stage fp32 plan on the stage mesh over M in {1, 2, 4, 8}
      x µbatch in {16, 32, 64, 128, 256} x overlap, in frames/s, beside the 1-stage
      fused plan and the stages run in sequence, with the profiler's union
@@ -127,8 +144,9 @@ phase 5d and read just after it, zeroed just before phase 5e's
 traffic and read just after it, and zeroed just before phase 5f's
 pipelined runs and read just after them (``launches_5f`` in the record),
 and zeroed just before phase 5g's training runs and read just after them
-(``launches_5g``), and zeroed just before phase 5h's verification and
-examples and read just after them (``launches_5h``):
+(``launches_5g``), zeroed just before phase 5h's verification and
+examples and read just after them (``launches_5h``), and zeroed just
+before phase 5i and read just after it (``launches_5i``, all 0):
 they show that each path went through its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
 before a path's counts are zeroed.
 Imports nothing of JAX and nothing of the reference package.
@@ -222,6 +240,24 @@ PHASE_5G_LIMIT_S = 60.0
 # Phase 5h: the static gate's matrix and the two CNN examples, and its
 # time limit.
 PHASE_5H_LIMIT_S = 120.0
+# Phase 5i, the other nine LM families at full width: (config, the fp32
+# gate's depth and prompt, the bf16 serving depth). The gate's depth is
+# one pattern unit where the pattern is longer than one layer, and
+# recurrentgemma's prompt of 2085 tokens is longer than its 2048-token
+# window and not a multiple of it, so its local layers' rings wrap. The
+# serving depths are the full ones where the bf16 weights fit one card
+# beside the rest of the script (granite-34b needs 94.5 GB, llama4-scout
+# 215.5 GB, qwen3-moe 470.3 GB), and command-r-35b's is cut for time.
+FAMILIES = (("recurrentgemma-9b", 3, 2085, 38), ("qwen2.5-3b", 2, 64, 36),
+            ("stablelm-12b", 2, 64, 40), ("internvl2-2b", 2, 64, 24),
+            ("whisper-base", 6, 64, 6), ("command-r-35b", 2, 64, 4),
+            ("granite-34b", 2, 64, 4), ("llama4-scout-17b-a16e", 4, 64, 4),
+            ("qwen3-moe-235b-a22b", 2, 64, 2))
+FAM_GATE_BATCH = 2
+FAM_BATCH, FAM_PROMPT, FAM_NEW = 4, 512, 32  # bf16 serving
+PHASE_5I_LIMIT_S = 180.0
+# Phase 6: the families whose prefill and decode are timed and profiled.
+FAM_TIMED = ("recurrentgemma-9b", "qwen2.5-3b")
 # 8-bit QAT gradients against another device's or another order's sums:
 # each tensor within this relative L2 error, the features equal but for
 # at most QUANT_MAX_STEP_SHARE elements one quant step apart (a float64
@@ -704,6 +740,167 @@ def phase_5h(smi: str) -> dict:
           + ", ".join(f"{f} {t:.2f} s" for f, t in ex_s.items())
           + f"; launches { {k: v for k, v in launches.items() if v} }; plain versions called 0 "
           f"times; phase {elapsed:.1f} s ({smi})")
+    return launches
+
+
+def family_inputs(cfg, batch, seq, gen, dev) -> tuple:
+    """Tokens (batch, seq) and the VLM prefix embeddings or enc-dec frames
+    (normal x 0.1, as the reference's tests draw them), drawn from the CPU
+    generator ``gen``, on ``dev``; and the prefix length."""
+    import torch
+
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen).to(dev)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["prefix_embeds"] = (torch.randn((batch, cfg.n_prefix_tokens, cfg.d_model),
+                                           generator=gen) * 0.1).to(dev)
+    if cfg.family == "encdec":
+        kw["encoder_frames"] = (torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                            generator=gen) * 0.1).to(dev)
+    return toks, kw, (cfg.n_prefix_tokens if cfg.family == "vlm" else 0)
+
+
+def moe_drops(x, p, spec) -> tuple:
+    """(dropped, routed) (token, slot) pairs of one MoE layer's routing of
+    ``x`` (B, T, d): the cumsum of ``moe._route_group``, counted."""
+    import torch
+
+    from repro_torch.models.moe import _expert_positions, _top_k
+
+    probs = torch.softmax(torch.matmul(x.float(), p["router"].float()), dim=-1)
+    ids = _top_k(probs, spec.top_k)[1].reshape(x.shape[0], -1)
+    pos = _expert_positions(ids, spec.n_experts)
+    return int((pos >= spec.capacity(x.shape[1])).sum()), ids.numel()
+
+
+def phase_5i(smi: str) -> dict:
+    """The other nine LM families on the card (phase 5i). Returns the
+    launches of the phase's window (every kernel: 0)."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.pow2_matmul import pow2 as kpow2
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.kernels.stream_conv import conv as kconv
+    from repro_torch.kernels.stream_conv import legacy as klegacy
+    from repro_torch.models import moe as mmoe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.accounting import param_bytes, param_count
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    mods = (kconv, kpow2, kscan, klegacy)
+
+    @contextlib.contextmanager
+    def served_groups():
+        """The MoE of a full forward routed as serving routes it: the
+        prompt's tokens as one group, the last token alone (decode routes
+        one token, whose k slots never overflow); and the drops counted."""
+        plain, drops = T.moe_apply, [0, 0]
+
+        def split(p, spec, x):
+            d, n = moe_drops(x[:, :-1], p, spec)
+            drops[0] += d
+            drops[1] += n
+            y0, a0 = plain(p, spec, x[:, :-1])
+            y1, _ = plain(p, spec, x[:, -1:])
+            return torch.cat([y0, y1], dim=1), a0
+
+        T.moe_apply = split
+        try:
+            yield drops
+        finally:
+            T.moe_apply = plain
+
+    t_phase = time.perf_counter()
+    for m in mods:
+        m.reset_launch_counts()
+    base_mem = torch.cuda.memory_allocated()
+    for name, gate_depth, gate_len, serve_depth in FAMILIES:
+        # (a) the fp32 gate at full width.
+        t0 = time.perf_counter()
+        arch = get_arch(name)
+        cfg32 = dataclasses.replace(arch, n_layers=gate_depth, dtype="float32")
+        params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg32)
+        toks, kw, n_pre = family_inputs(cfg32, FAM_GATE_BATCH, gate_len, gen, dev)
+        moe = contextlib.nullcontext([0, 0])
+        if cfg32.n_experts:
+            moe = served_groups()
+        with moe as drops:
+            h, _, _ = T.forward_hidden(params, cfg32, toks, **kw)
+        full = T.unembed(params, cfg32, h[:, -2:])
+        del h
+        pre, cache = T.prefill(params, cfg32, toks[:, :-1], max_len=n_pre + gate_len, **kw)
+        dec, _ = T.decode_step(params, cfg32, toks[:, -1:], cache, n_pre + gate_len - 1)
+        torch.cuda.synchronize()
+        errs = []
+        for what, got, want in (("prefill", pre, full[:, 0]), ("decode", dec, full[:, 1])):
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"5i {name} fp32 {what}: {tuple(got.shape)} vs {tuple(want.shape)} or not finite")
+            err = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=LOGITS_RTOL, atol=LOGITS_ATOL),
+                  f"5i {name} fp32 {what} against the full forward: max |delta| {err}")
+            errs.append(err)
+        ring = ""
+        if cfg32.window and gate_len - 1 > cfg32.window:
+            ring = (f"; the local layers' {cfg32.window}-slot rings wrapped "
+                    f"({gate_len - 1} prompt tokens)")
+        moe_note = (f"; MoE at capacity factor {cfg32.capacity_factor} dropped {drops[0]} of "
+                    f"{drops[1]} (token, slot) pairs of the prompt over its MoE layers" if cfg32.n_experts else "")
+        print(f"[5i] {name} fp32 gate: {gate_depth} layers at full width "
+              f"({param_count(cfg32):,} params, {param_bytes(cfg32) / 1e9:.1f} GB), "
+              f"B={FAM_GATE_BATCH}, S={gate_len}{f' + {n_pre} prefix' if n_pre else ''}: "
+              f"prefill(S-1) max |delta| {errs[0]:.3e}, decode_step {errs[1]:.3e} against the "
+              f"full forward's last two rows (max |logit| {float(full.abs().max()):.3f})"
+              f"{ring}{moe_note}; {time.perf_counter() - t0:.1f} s")
+        del params, cache, full, pre, dec, toks, kw
+        torch.cuda.empty_cache()
+
+        # (b) bf16 serving at the config's dtype.
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(arch, n_layers=serve_depth)
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+        toks, kw, n_pre = family_inputs(cfg, FAM_BATCH, FAM_PROMPT, gen, dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        max_len = n_pre + FAM_PROMPT + FAM_NEW
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, toks, max_len=max_len, **kw)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        check(logits.shape == (FAM_BATCH, cfg.vocab_size) and logits.dtype == torch.bfloat16
+              and bool(torch.isfinite(logits).all()), f"5i {name} bf16 prefill logits")
+        tok = logits.argmax(-1, keepdim=True)
+        t0 = time.perf_counter()
+        for i in range(FAM_NEW):
+            logits, cache = T.decode_step(params, cfg, tok, cache, n_pre + FAM_PROMPT + i)
+            tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        check(logits.shape == (FAM_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), f"5i {name} bf16 decode logits")
+        peak = torch.cuda.max_memory_allocated()
+        n_tok = FAM_BATCH * (n_pre + FAM_PROMPT)
+        print(f"[5i] {name} bf16 serving, {serve_depth} of {arch.n_layers} layers "
+              f"({param_bytes(cfg) / 1e9:.1f} GB of weights, drawn in {t_init:.1f} s): prefill "
+              f"{FAM_BATCH}x{FAM_PROMPT}{f' + {n_pre} prefix' if n_pre else ''} "
+              f"{t_pre * 1e3:.1f} ms (first call, host clock), {n_tok / t_pre:.0f} tokens/s; "
+              f"{FAM_NEW} greedy decode steps {t_dec / FAM_NEW * 1e3:.2f} ms per step; peak "
+              f"allocated {peak / 1e9:.2f} GB ({(peak - base_mem) / 1e9:.2f} GB above the "
+              f"phase's start) ({smi})")
+        del params, cache, logits, tok, toks, kw
+        torch.cuda.empty_cache()
+    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    check(all(v == 0 for v in launches.values()), f"phase 5i launched kernels: {launches}")
+    elapsed = time.perf_counter() - t_phase
+    check(elapsed < PHASE_5I_LIMIT_S, f"phase 5i took {elapsed:.1f} s")
+    print(f"[5i] nine LM families: every fp32 gate within rtol {LOGITS_RTOL}, atol "
+          f"{LOGITS_ATOL}; bf16 logits finite and shaped; launches {launches} (these "
+          f"architectures run no port kernel); phase {elapsed:.1f} s ({smi})")
     return launches
 
 
@@ -1696,6 +1893,9 @@ def main() -> None:
     # -- 5h. the static gate and the CNN examples --------------------------------
     static_launches = phase_5h(smi)
 
+    # -- 5i. the other nine LM families --------------------------------------------
+    family_launches = phase_5i(smi)
+
     # -- 6. timing at main-path shapes -------------------------------------------
     def time_ms(fn, iters=50, warmup=5):
         for _ in range(warmup):
@@ -2256,6 +2456,38 @@ def main() -> None:
                      lambda: T.prefill(params16, lm_cfg, prompts, max_len=LM_PROMPT + LM_NEW), 1)
     device_breakdown("decode step", lambda: T.decode_step(*dec_args), 2)
 
+    # Two of phase 5i's families at full depth in bf16: prefill of 4 x 512
+    # tokens and a decode step on CUDA events, and where their device time
+    # goes (profiler). Each model is drawn again and freed after.
+    for name in FAM_TIMED:
+        arch = get_arch(name)
+        fam_params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), arch)
+        fam_toks, _, _ = family_inputs(arch, FAM_BATCH, FAM_PROMPT, gen, dev)
+        max_len = FAM_PROMPT + FAM_NEW
+
+        def fam_prefill():
+            return T.prefill(fam_params, arch, fam_toks, max_len=max_len)
+
+        fam_logits, fam_cache = fam_prefill()
+        fam_tok = fam_logits.argmax(-1, keepdim=True)
+        fam_pf = time_ms(fam_prefill, iters=5, warmup=1)
+        fam_flops = model_flops(arch, ShapeConfig("prefill", FAM_PROMPT, FAM_BATCH, "prefill"))
+
+        def fam_decode():
+            return T.decode_step(fam_params, arch, fam_tok, fam_cache, FAM_PROMPT)
+
+        fam_dec = time_ms(fam_decode, iters=10, warmup=2)
+        print(f"[6] {name} bf16, {arch.n_layers} layers ({param_bytes(arch) / 1e9:.1f} GB): "
+              f"prefill {FAM_BATCH}x{FAM_PROMPT} {fam_pf:.3f} ms (CUDA events), "
+              f"{FAM_BATCH * FAM_PROMPT / fam_pf * 1e3:.0f} tokens/s, "
+              f"{fam_flops / fam_pf / 1e9:.1f} TFLOP/s of model FLOPs; decode step B={FAM_BATCH} "
+              f"{fam_dec:.3f} ms, {FAM_BATCH / fam_dec * 1e3:.0f} tokens/s, weight-read bound "
+              f"{param_bytes(arch) / PEAK_BYTES_S * 1e3:.3f} ms ({smi})")
+        device_breakdown(f"{name} prefill {FAM_BATCH}x{FAM_PROMPT}", fam_prefill, 1)
+        device_breakdown(f"{name} decode step", fam_decode, 2)
+        del fam_params, fam_cache, fam_logits, fam_tok, fam_toks
+        torch.cuda.empty_cache()
+
     # The seed conv beside the single-layer kernel (the same bare conv on the
     # same padded frame) and cuDNN, at the kernel bench's shape and at B=256:
     # CUDA events, device time on the profiler's clock (the seed kernel
@@ -2405,6 +2637,7 @@ def main() -> None:
         rec["launches_5f"] = pipe_launches.get(rec["name"], 0)
         rec["launches_5g"] = train_launches.get(rec["name"], 0)
         rec["launches_5h"] = static_launches.get(rec["name"], 0)
+        rec["launches_5i"] = family_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

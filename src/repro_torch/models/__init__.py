@@ -1,1 +1,1 @@
-"""Model definitions of the port (the CNN topologies)."""
+"""Model definitions of the port: the CNN topologies and the LM stacks."""

@@ -8,7 +8,7 @@ MODEL_FLOPS conventions (as the reference's):
 
 ``param_count`` builds the real parameter tree on the ``meta`` device
 (shapes only, nothing drawn or allocated) where the reference runs
-``jax.eval_shape``; it covers the stacks the port builds (Mamba).
+``jax.eval_shape``; it counts every configuration of ``configs/``.
 """
 from __future__ import annotations
 

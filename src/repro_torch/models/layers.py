@@ -12,8 +12,6 @@ from the reference's ``jax.random`` streams, so the tests carry the
 reference's params across with ``convert.lm_params_from_numpy``. A
 ``meta`` device draws nothing: it builds the tree's shapes only
 (``accounting.param_count``).
-
-``pack_linear_pow2`` and ``pack_params_pow2`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,8 +20,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.quant.packing import unpack_codes_u4
-from repro_torch.core.quant.pow2 import decode_pow2, project_pow2_ste
+from repro_torch.core.quant.packing import pack_codes_u4, unpack_codes_u4
+from repro_torch.core.quant.pow2 import decode_pow2, pow2_codes, project_pow2_ste
 from repro_torch.kernels.backends import resolve_device
 
 # ---------------------------------------------------------------------------
@@ -44,7 +42,7 @@ def _normal(generator: torch.Generator, shape, std: float, dtype, device) -> tor
         return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32)
-    return (w * std).to(device=device, dtype=dtype)
+    return w.mul_(std).to(device=device, dtype=dtype)
 
 
 def he_init(generator, shape, dtype, fan_in=None, *, device=None):
@@ -122,6 +120,11 @@ def linear(x: torch.Tensor, p: dict, *, quant=None) -> torch.Tensor:
         w = project_pow2_ste(p["w"])
     else:
         w = p["w"]
+    if x.dtype != w.dtype:
+        # Mixed operands promote, as the reference's einsum promotes them
+        # (float32 frames into a bf16 encoder compute in float32).
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     out = torch.matmul(x, w)
     if "b" in p:
         out = out + p["b"]
@@ -135,6 +138,53 @@ def init_linear(generator, d_in: int, d_out: int, *, bias: bool = False,
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return p
+
+
+def pack_linear_pow2(p: dict) -> dict:
+    """Convert a dense linear param dict to packed pow2 serving format.
+
+    Odd output widths are packed with a zero pad column (zero codes decode
+    to 0.0); the stored scale keeps the true width so ``linear`` can slice
+    the decoded weights back.
+
+    Stacked (scan-layer) weights of shape ``(*lead, K, N)`` are packed
+    per layer, so every layer keeps its own per-channel scales; the
+    stored scale then has shape ``(*lead, 1, N)`` so a per-layer slice
+    broadcasts as ``(1, N)``.
+    """
+    w = p["w"]
+    n = w.shape[-1]
+    if n % 2:
+        w = F.pad(w, (0, 1))
+    if w.ndim == 2:
+        codes, scale = pow2_codes(w, channel_axis=1)
+        out = {"codes": pack_codes_u4(codes), "scale": scale.reshape(-1)[:n]}
+    else:
+        lead = tuple(w.shape[:-2])
+        per_layer = [pow2_codes(wi, channel_axis=1)
+                     for wi in w.reshape((-1,) + tuple(w.shape[-2:]))]
+        codes = torch.stack([c for c, _ in per_layer])
+        scale = torch.stack([sc for _, sc in per_layer])  # (L, 1, N')
+        out = {
+            "codes": pack_codes_u4(codes).reshape(lead + (w.shape[-2], w.shape[-1] // 2)),
+            "scale": scale[..., :n].reshape(lead + (1, n)),
+        }
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def pack_params_pow2(params):
+    """Walk a param tree and pack every linear (any dict with a >= 2D
+    ``w``) to the pow2 serving format — the whole-stack constant
+    specialization the paper's tactic becomes at serving time."""
+    if isinstance(params, dict):
+        if "w" in params and getattr(params["w"], "ndim", 0) >= 2:
+            return pack_linear_pow2(params)
+        return {k: pack_params_pow2(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [pack_params_pow2(v) for v in params]
+    return params
 
 
 # ---------------------------------------------------------------------------

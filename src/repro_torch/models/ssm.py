@@ -1,4 +1,5 @@
-"""The Mamba-1 mixer (falcon-mamba) in PyTorch — the counterpart of
+"""State-space / linear-recurrence mixers in PyTorch — the Mamba-1 mixer
+(falcon-mamba) and RG-LRU (recurrentgemma / Griffin), the counterpart of
 ``repro.models.ssm``.
 
 The reference runs the recurrence as a chunked associative scan over the
@@ -9,7 +10,13 @@ keeps the states in registers, on the CPU its plain step loop. Both give
 the same ``y`` and final state; neither forms the (B, S, d_inner, N)
 tensors.
 
-RG-LRU and ``chunked_linear_recurrence`` are not ported yet.
+RG-LRU runs the reference's ``chunked_linear_recurrence``: inside a
+chunk, ``_associative_scan`` combines elements in the order
+``jax.lax.associative_scan`` does (pairs, then the odd half recursively,
+then the even elements), so the f32 states take the reference's sums
+(they may differ in the last bits where XLA contracts a multiply-add);
+chunks follow in a Python loop carrying the boundary state. Decode is the same
+recurrence on one step.
 """
 from __future__ import annotations
 
@@ -20,7 +27,76 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ssm_scan
-from repro_torch.models.layers import _normal, _init_device, init_linear, linear
+from repro_torch.models.layers import _gelu, _init_device, _normal, init_linear, linear
+
+# ---------------------------------------------------------------------------
+# Chunked diagonal linear recurrence
+
+
+def _combine(left, right):
+    a1, b1 = left
+    a2, b2 = right
+    return a1 * a2, a2 * b1 + b2
+
+
+def _associative_scan(fn, elems, dim: int):
+    """Inclusive scan of the tuple of tensors ``elems`` along ``dim`` under
+    the associative ``fn``, combining in ``jax.lax.associative_scan``'s
+    order: adjacent pairs, the scan of those recursively (the odd
+    results), then each odd result with the next element (the even
+    results)."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def sl(t, start, stop=None, step=1):
+        return t[(slice(None),) * dim + (slice(start, stop, step),)]
+
+    reduced = fn(tuple(sl(e, 0, n - 1, 2) for e in elems),
+                 tuple(sl(e, 1, None, 2) for e in elems))
+    odd = _associative_scan(fn, reduced, dim)
+    if n % 2 == 0:
+        even = fn(tuple(sl(e, 0, e.shape[dim] - 1) for e in odd),
+                  tuple(sl(e, 2, None, 2) for e in elems))
+    else:
+        even = fn(odd, tuple(sl(e, 2, None, 2) for e in elems))
+    even = [torch.cat([sl(e, 0, 1), r], dim=dim) for e, r in zip(elems, even)]
+    out = []
+    for ev, od in zip(even, odd):
+        t = ev.new_empty(ev.shape[:dim] + (n,) + ev.shape[dim + 1:])
+        t[(slice(None),) * dim + (slice(0, None, 2),)] = ev
+        t[(slice(None),) * dim + (slice(1, None, 2),)] = od
+        out.append(t)
+    return tuple(out)
+
+
+def chunked_linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
+                              chunk: int = 256):
+    """h_t = a_t * h_{t-1} + b_t along axis 1.
+
+    a, b: (B, S, ...); h0: (B, ...). Returns (all h (B, S, ...), final h).
+    The sequence is padded to a whole number of chunks with a = 1, b = 0,
+    which carries the state through unchanged."""
+    bsz, s = a.shape[0], a.shape[1]
+    c = min(chunk, s)
+    pad = (-s) % c
+    if pad:
+        tail = (0, 0) * (a.ndim - 2) + (0, pad)
+        a = F.pad(a, tail, value=1.0)
+        b = F.pad(b, tail)
+    n_chunks = a.shape[1] // c
+    h = h0
+    outs = []
+    for i in range(n_chunks):
+        a_blk = a[:, i * c:(i + 1) * c]
+        b_blk = b[:, i * c:(i + 1) * c]
+        # Fold the carry into the first element: b'_0 = b_0 + a_0 * h.
+        b_blk = torch.cat([(b_blk[:, 0] + a_blk[:, 0] * h)[:, None], b_blk[:, 1:]], dim=1)
+        _, cum_b = _associative_scan(_combine, (a_blk, b_blk), 1)
+        h = cum_b[:, -1]
+        outs.append(cum_b)
+    h_all = torch.cat(outs, dim=1) if n_chunks > 1 else outs[0]
+    return h_all[:, :s], h
 
 # ---------------------------------------------------------------------------
 # Causal depthwise conv1d (the mixer's short 'smear' conv)
@@ -124,3 +200,80 @@ def mamba_apply(
     y, h_last = ssm_scan(xin, dt, b_in, c_in, a, p["d_skip"], ssm_state)
     y = y * F.silu(z.float())
     return linear(y.to(x.dtype), p["out_proj"]), h_last, new_conv
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / recurrentgemma recurrent block)
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUSpec:
+    d_model: int
+    lru_width: int
+    d_conv: int = 4
+    c: float = 8.0  # recurrence sharpness constant
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` written as JAX writes it
+    (torch's ``softplus`` returns x itself above 20)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _uniform(generator, shape, low: float, high: float, device) -> torch.Tensor:
+    """float32 uniform draws in [low, high) on ``device`` (``meta``: shapes
+    only)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    return (low + (high - low) * u).to(device)
+
+
+def init_rglru(generator, spec: RGLRUSpec, dtype=torch.float32, *, device=None) -> dict:
+    """The reference's RG-LRU parameter tree on ``device`` (the card unless
+    ``device="cpu"``)."""
+    w = spec.lru_width
+    device = _init_device(device)
+    kw = dict(dtype=dtype, device=device)
+    # Lambda init so a^c in [0.9, 0.999] (Griffin appendix).
+    u = _uniform(generator, (w,), 0.9, 0.999, device)
+    lam = torch.log(torch.expm1(-torch.log(u) / spec.c))  # softplus^-1
+    return {
+        "in_x": init_linear(generator, spec.d_model, w, **kw),
+        "in_gate": init_linear(generator, spec.d_model, w, **kw),
+        "conv_w": _normal(generator, (spec.d_conv, w), 0.2, dtype, device),
+        "w_r": init_linear(generator, w, w, **kw),
+        "w_i": init_linear(generator, w, w, **kw),
+        "lam": lam,  # kept f32
+        "out": init_linear(generator, w, spec.d_model, **kw),
+    }
+
+
+def rglru_apply(
+    p: dict,
+    spec: RGLRUSpec,
+    x: torch.Tensor,  # (B, S, d_model)
+    *,
+    h_state: Optional[torch.Tensor] = None,  # (B, lru_width) f32
+    conv_state: Optional[torch.Tensor] = None,  # (B, d_conv-1, lru_width)
+    chunk: int = 256,
+):
+    """Griffin recurrent block: gate branch (GeLU) ⊙ (conv → RG-LRU).
+    Returns (y, new_h_state, new_conv_state). The gate, the recurrence
+    and the output follow the reference op for op: the tanh GeLU, the
+    sigmoid gates and ``a``, ``b`` in float32, ``h`` cast back to ``x``'s
+    dtype before the gate."""
+    gate = _gelu(linear(x, p["in_gate"]))
+    u, new_conv = causal_conv1d(linear(x, p["in_x"]), p["conv_w"], state=conv_state)
+
+    r = torch.sigmoid(linear(u, p["w_r"]).float())
+    i = torch.sigmoid(linear(u, p["w_i"]).float())
+    log_a = -spec.c * _softplus(p["lam"]) * r  # (B, S, W)
+    a = torch.exp(log_a)
+    gated_x = i * u.float()
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * gated_x
+    h0 = (h_state if h_state is not None
+          else torch.zeros((x.shape[0], spec.lru_width), dtype=torch.float32, device=x.device))
+    h_all, h_last = chunked_linear_recurrence(a, b, h0, chunk=chunk)
+    y = h_all.to(x.dtype) * gate
+    return linear(y, p["out"]), h_last, new_conv

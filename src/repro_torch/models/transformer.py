@@ -1,6 +1,7 @@
-"""LM assembly in PyTorch — the counterpart of ``repro.models.transformer``,
-for stacks of Mamba blocks (falcon-mamba): init, prefill and single-token
-decode.
+"""LM assembly in PyTorch — the counterpart of ``repro.models.transformer``:
+heterogeneous block stacks (attention / Mamba / RG-LRU / MoE), the
+encoder of encoder-decoder models, prefix embeddings and learned
+positions, prefill and single-token decode.
 
 Layer stacking follows the reference so that parameters carry across one
 to one: ``block_pattern`` repeats down the stack; with ``scan_layers`` the
@@ -8,23 +9,53 @@ parameters of pattern position i are stacked across units into one leaf
 with a leading ``n_units`` axis, and ``n_layers mod len(pattern)`` tail
 layers are kept apart. ``apply_stack`` loops over the units in Python
 where the reference runs ``lax.scan``; a unit's parameters are views
-into the stacked leaves. Decode caches mirror the parameter tree: a Mamba
-layer holds its (B, d_inner, N) f32 state and its (B, d_conv-1, d_inner)
-conv window.
+into the stacked leaves.
 
-Not ported yet, and raising ``ValueError``: attention and RG-LRU
-blocks, MoE, the encoder (enc-dec), prefix embeddings (VLM), learned
-positions and the reference's ``opt_bf16_ssm`` mode. The training loss
-is not ported either.
+Decode caches mirror the parameter tree: attention layers hold
+ring-buffer KV caches sized to their visibility window (full causal ->
+``max_len``; local -> ``window``; chunked -> ``chunk``) and, in
+encoder-decoder models, the cross-attention KV computed at prefill; a
+Mamba layer holds its (B, d_inner, N) f32 state and its conv window, an
+RG-LRU layer its (B, lru_width) f32 state and its conv window.
+
+Prefill writes a prompt's KV tail into the ring at slot ``pos mod S``
+for each of its last ``min(s, S)`` positions, so decode reads every
+position where ``decode_attention`` expects it. The reference writes the
+tail at slots ``0 .. take-1``, which agrees only when ``s <= S`` or S
+divides s (``ROADMAP.md``, Queue 3).
+
+``decode_step`` takes the position as a host int (a tensor is read
+once per step): every attention layer derives its ring slot from it on
+the host.
+
+Not ported: the reference's ``opt_bf16_ssm`` mode (raises
+``ValueError``) and the training loss (``train_loss``,
+``chunked_softmax_ce``).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.ssm import MambaSpec, init_mamba, mamba_apply
+from repro_torch.models.attention import (
+    AttnSpec,
+    blockwise_attention,
+    decode_attention,
+    update_kv_cache,
+)
+from repro_torch.models.moe import MoESpec, init_moe, moe_apply
+from repro_torch.models.ssm import (
+    MambaSpec,
+    RGLRUSpec,
+    init_mamba,
+    init_rglru,
+    mamba_apply,
+    rglru_apply,
+)
 
 # ---------------------------------------------------------------------------
 # Config-derived specs
@@ -32,6 +63,14 @@ from repro_torch.models.ssm import MambaSpec, init_mamba, mamba_apply
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _attn_spec(cfg: ArchConfig, kind: str) -> AttnSpec:
+    if kind == "local":
+        return AttnSpec("local", window=cfg.window)
+    if kind == "chunked":
+        return AttnSpec("chunked", chunk=cfg.chunk)
+    return AttnSpec(kind)
 
 
 def _mamba_spec(cfg: ArchConfig) -> MambaSpec:
@@ -43,76 +82,281 @@ def _mamba_spec(cfg: ArchConfig) -> MambaSpec:
     )
 
 
+def _rglru_spec(cfg: ArchConfig) -> RGLRUSpec:
+    return RGLRUSpec(d_model=cfg.d_model, lru_width=cfg.lru_width, d_conv=cfg.ssm_conv)
+
+
+def _moe_spec(cfg: ArchConfig) -> MoESpec:
+    return MoESpec(
+        d_model=cfg.d_model,
+        n_experts=cfg.n_experts,
+        top_k=cfg.top_k,
+        d_ff=cfg.moe_d_ff,
+        capacity_factor=cfg.capacity_factor,
+        shared_d_ff=cfg.shared_expert_d_ff,
+    )
+
+
+def _use_rope(cfg: ArchConfig, attn_kind: str) -> bool:
+    if cfg.pos_embedding != "rope":
+        return False
+    # llama4 iRoPE: the periodic full-attention layers carry no positional
+    # encoding (NoPE); only chunked layers are rotary.
+    if cfg.chunk > 0 and attn_kind == "causal":
+        return False
+    return True
+
+
 _BF16_SSM = (
     "opt_bf16_ssm=True rounds the discretized SSM tensors to bf16, which "
     "the fused scan never forms: the port runs the f32 recurrence only"
 )
 
 
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not yet ported to repro_torch (only Mamba stacks are)")
-
-
 def _check_ported(cfg: ArchConfig) -> None:
-    for kind in cfg.block_pattern:
-        if kind != "mamba":
-            raise _not_ported(f"block kind {kind!r}")
-    if cfg.n_experts:
-        raise _not_ported("MoE")
-    if cfg.n_encoder_layers:
-        raise _not_ported("the encoder")
-    if cfg.pos_embedding == "learned":
-        raise _not_ported("the learned position table")
     if cfg.opt_bf16_ssm:
         raise ValueError(_BF16_SSM)
 
 
 # ---------------------------------------------------------------------------
-# Blocks
+# Block init
 
 
-def init_block(generator, cfg: ArchConfig, kind: str, *, device=None) -> dict:
-    if kind != "mamba":
-        raise _not_ported(f"block kind {kind!r}")
+def _init_attn(generator, cfg: ArchConfig, *, cross: bool = False, device=None) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
     dt, device = _dtype(cfg), L._init_device(device)
-    return {
-        "ln1": L.init_norm(cfg.d_model, cfg.norm, dt, device=device),
-        "mamba": init_mamba(generator, _mamba_spec(cfg), dtype=dt, device=device),
+    kw = dict(bias=cfg.qkv_bias, dtype=dt, device=device)
+    p = {
+        "wq": L.init_linear(generator, d, nq * hd, **kw),
+        "wk": L.init_linear(generator, d, nkv * hd, **kw),
+        "wv": L.init_linear(generator, d, nkv * hd, **kw),
+        "wo": L.init_linear(generator, nq * hd, d, dtype=dt, device=device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": torch.zeros((hd,), dtype=dt, device=device)}
+        p["k_norm"] = {"scale": torch.zeros((hd,), dtype=dt, device=device)}
+    return p
+
+
+def _init_ffn(generator, cfg: ArchConfig, *, device=None) -> dict:
+    if cfg.n_experts:
+        return init_moe(generator, _moe_spec(cfg), dtype=_dtype(cfg), device=device)
+    return L.init_mlp(generator, cfg.d_model, cfg.d_ff, act=cfg.mlp_act, dtype=_dtype(cfg),
+                      device=device)
+
+
+def init_block(generator, cfg: ArchConfig, kind: str, *, cross_attn: bool = False,
+               device=None) -> dict:
+    dt, device = _dtype(cfg), L._init_device(device)
+    d = cfg.d_model
+
+    def norm():
+        return L.init_norm(d, cfg.norm, dt, device=device)
+
+    if kind == "attn":
+        if cfg.parallel_block:
+            p = {"ln": norm(), "attn": _init_attn(generator, cfg, device=device),
+                 "ffn": _init_ffn(generator, cfg, device=device)}
+        else:
+            p = {"ln1": norm(), "attn": _init_attn(generator, cfg, device=device),
+                 "ln2": norm(), "ffn": _init_ffn(generator, cfg, device=device)}
+        if cross_attn:
+            p["ln_x"] = norm()
+            p["xattn"] = _init_attn(generator, cfg, cross=True, device=device)
+        return p
+    if kind == "mamba":
+        return {"ln1": norm(),
+                "mamba": init_mamba(generator, _mamba_spec(cfg), dtype=dt, device=device)}
+    if kind == "rglru":
+        return {"ln1": norm(),
+                "rglru": init_rglru(generator, _rglru_spec(cfg), dtype=dt, device=device),
+                "ln2": norm(), "ffn": _init_ffn(generator, cfg, device=device)}
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Block caches (decode)
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, attn_kind: str, batch: int,
                      max_len: int, *, device=None) -> dict:
-    if kind != "mamba":
-        raise _not_ported(f"block kind {kind!r}")
-    spec, device = _mamba_spec(cfg), L._init_device(device)
-    return {
-        "ssm": torch.zeros((batch, spec.d_inner, spec.d_state), dtype=torch.float32,
-                           device=device),
-        "conv": torch.zeros((batch, spec.d_conv - 1, spec.d_inner), dtype=_dtype(cfg),
-                            device=device),
-    }
+    dt, device = _dtype(cfg), L._init_device(device)
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if kind == "attn":
+        if attn_kind == "local":
+            s = min(max_len, cfg.window)
+        elif attn_kind == "chunked":
+            s = min(max_len, cfg.chunk)
+        else:
+            s = max_len
+        cache = {"k": zeros((batch, s, cfg.n_kv_heads, cfg.hd)),
+                 "v": zeros((batch, s, cfg.n_kv_heads, cfg.hd))}
+        if cfg.n_encoder_layers:  # cross-attention KV (filled at prefill)
+            cache["xk"] = zeros((batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd))
+            cache["xv"] = zeros((batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd))
+        return cache
+    if kind == "mamba":
+        spec = _mamba_spec(cfg)
+        return {"ssm": zeros((batch, spec.d_inner, spec.d_state), torch.float32),
+                "conv": zeros((batch, spec.d_conv - 1, spec.d_inner))}
+    if kind == "rglru":
+        spec = _rglru_spec(cfg)
+        return {"h": zeros((batch, spec.lru_width), torch.float32),
+                "conv": zeros((batch, spec.d_conv - 1, spec.lru_width))}
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Block apply
+
+
+def _split_heads(x, n_heads, hd):
+    return x.reshape(x.shape[:-1] + (n_heads, hd))
+
+
+def _prefill_ring(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``buf`` (B, S, ...) with the last ``min(s, S)`` of the prompt's ``s``
+    rows of ``new`` written at ring slots ``pos mod S``, as a new tensor."""
+    s, s_cache = new.shape[1], buf.shape[1]
+    if s >= s_cache:
+        return torch.roll(new[:, s - s_cache:], shifts=s % s_cache, dims=1).to(buf.dtype)
+    out = buf.clone()
+    out[:, :s] = new
+    return out
+
+
+def _attn_apply(
+    p: dict,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # (B, S, d)
+    attn_kind: str,
+    positions,  # (S,) or (B, S)
+    *,
+    cache=None,
+    decode_index=None,
+    is_cross: bool = False,
+    kv_source=None,  # cross-attention source
+    cache_keys=("k", "v"),
+):
+    b, s, _ = x.shape
+    hkv, g, hd = cfg.n_kv_heads, cfg.q_groups, cfg.hd
+    spec = _attn_spec(cfg, attn_kind)
+    q = _split_heads(L.linear(x, p["wq"]), cfg.n_heads, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"]["scale"])
+    use_rope = _use_rope(cfg, attn_kind) and not is_cross
+
+    if is_cross:
+        # Cross attention: KV from encoder states. At prefill they are
+        # computed from ``kv_source`` and written into the cache; at decode
+        # they are read back (encoder states are static across steps).
+        new_cache = cache
+        if decode_index is not None:
+            k, v = cache[cache_keys[0]], cache[cache_keys[1]]
+        else:
+            k = _split_heads(L.linear(kv_source, p["wk"]), hkv, hd)
+            v = _split_heads(L.linear(kv_source, p["wv"]), hkv, hd)
+            if cache is not None:
+                new_cache = dict(cache)
+                new_cache[cache_keys[0]] = k
+                new_cache[cache_keys[1]] = v
+        q5 = q.reshape(b, s, hkv, g, hd)
+        out = blockwise_attention(q5, k, v, AttnSpec("full"))
+    else:
+        k = _split_heads(L.linear(x, p["wk"]), hkv, hd)
+        v = _split_heads(L.linear(x, p["wv"]), hkv, hd)
+        if cfg.qk_norm:
+            k = L.rms_norm(k, p["k_norm"]["scale"])
+        if use_rope:
+            q = L.apply_rope(q, positions, theta=cfg.rope_theta)
+            k = L.apply_rope(k, positions, theta=cfg.rope_theta)
+        q5 = q.reshape(b, s, hkv, g, hd)
+        exact_f32 = not cfg.opt_no_f32_cast_attn
+        if decode_index is not None:
+            # Single-token decode against the ring-buffer cache.
+            new_cache = {**cache, **update_kv_cache(cache, k, v, decode_index)}
+            out = decode_attention(q5, new_cache["k"], new_cache["v"], decode_index, spec,
+                                   exact_f32=exact_f32)
+        else:
+            out = blockwise_attention(q5, k, v, spec, exact_f32=exact_f32,
+                                      pin_batch=cfg.opt_shard_attn_batch)
+            new_cache = cache
+            if cache is not None:
+                # Prefill: write the (windowed) KV tail into the ring.
+                new_cache = dict(cache)
+                new_cache["k"] = _prefill_ring(cache["k"], k)
+                new_cache["v"] = _prefill_ring(cache["v"], v)
+    out = out.reshape(b, s, cfg.n_heads * hd)
+    return L.linear(out, p["wo"]), new_cache
+
+
+def _ffn_apply(p: dict, cfg: ArchConfig, x: torch.Tensor):
+    if cfg.n_experts:
+        return moe_apply(p, _moe_spec(cfg), x)
+    return L.mlp(x, p, act=cfg.mlp_act), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def apply_block(p: dict, cfg: ArchConfig, kind: str, attn_kind: str, x, positions, *,
                 cache=None, decode_index=None, encoder_out=None):
     """Returns (x, new_cache, aux_loss)."""
-    if kind != "mamba":
-        raise _not_ported(f"block kind {kind!r}")
-    if cfg.opt_bf16_ssm:
-        raise ValueError(_BF16_SSM)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = L.apply_norm(x, p["ln1"], cfg.norm)
-    if decode_index is not None or cache is not None:
-        y, ssm_new, conv_new = mamba_apply(
-            p["mamba"], _mamba_spec(cfg), h,
-            ssm_state=cache["ssm"], conv_state=cache["conv"],
-        )
-        new_cache = {"ssm": ssm_new, "conv": conv_new}
-    else:
-        y, _, _ = mamba_apply(p["mamba"], _mamba_spec(cfg), h)
-        new_cache = None
-    return x + y, new_cache, aux
+    if kind == "attn":
+        if cfg.parallel_block:
+            h = L.apply_norm(x, p["ln"], cfg.norm)
+            a, new_cache = _attn_apply(p["attn"], cfg, h, attn_kind, positions,
+                                       cache=cache, decode_index=decode_index)
+            f, aux = _ffn_apply(p["ffn"], cfg, h)
+            return x + a + f, new_cache, aux
+        h = L.apply_norm(x, p["ln1"], cfg.norm)
+        a, new_cache = _attn_apply(p["attn"], cfg, h, attn_kind, positions,
+                                   cache=cache, decode_index=decode_index)
+        x = x + a
+        if "xattn" in p:
+            hx = L.apply_norm(x, p["ln_x"], cfg.norm)
+            ax, new_cache2 = _attn_apply(
+                p["xattn"], cfg, hx, "full", positions,
+                cache=new_cache, decode_index=decode_index,
+                is_cross=True, kv_source=encoder_out, cache_keys=("xk", "xv"),
+            )
+            new_cache = new_cache2 if new_cache2 is not None else new_cache
+            x = x + ax
+        h2 = L.apply_norm(x, p["ln2"], cfg.norm)
+        f, aux = _ffn_apply(p["ffn"], cfg, h2)
+        return x + f, new_cache, aux
+    if kind == "mamba":
+        if cfg.opt_bf16_ssm:
+            raise ValueError(_BF16_SSM)
+        h = L.apply_norm(x, p["ln1"], cfg.norm)
+        if decode_index is not None or cache is not None:
+            y, ssm_new, conv_new = mamba_apply(
+                p["mamba"], _mamba_spec(cfg), h,
+                ssm_state=cache["ssm"], conv_state=cache["conv"],
+            )
+            new_cache = {"ssm": ssm_new, "conv": conv_new}
+        else:
+            y, _, _ = mamba_apply(p["mamba"], _mamba_spec(cfg), h)
+            new_cache = None
+        return x + y, new_cache, aux
+    if kind == "rglru":
+        h = L.apply_norm(x, p["ln1"], cfg.norm)
+        if decode_index is not None or cache is not None:
+            y, h_new, conv_new = rglru_apply(
+                p["rglru"], _rglru_spec(cfg), h,
+                h_state=cache["h"], conv_state=cache["conv"],
+            )
+            new_cache = {"h": h_new, "conv": conv_new}
+        else:
+            y, _, _ = rglru_apply(p["rglru"], _rglru_spec(cfg), h)
+            new_cache = None
+        x = x + y
+        h2 = L.apply_norm(x, p["ln2"], cfg.norm)
+        f, aux = _ffn_apply(p["ffn"], cfg, h2)
+        return x + f, new_cache, aux
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +386,8 @@ def _stacked(make_one, n_units: int):
     """Leaves with a leading ``n_units`` axis, filled one unit at a time so
     only one unit's tensors exist beside the stacked ones."""
     first = make_one(0)
+    if n_units == 1:
+        return _tree_map(lambda t: t.unsqueeze(0), first)
     out = _tree_map(lambda t: t.new_empty((n_units,) + tuple(t.shape)), first)
     for u in range(n_units):
         one = first if u == 0 else make_one(u)
@@ -160,18 +406,21 @@ def _leaves(tree):
         yield tree
 
 
-def init_stack(generator, cfg: ArchConfig, n_layers: int, *, device=None) -> dict:
+def init_stack(generator, cfg: ArchConfig, n_layers: int, *, cross_attn: bool = False,
+               device=None) -> dict:
     pat, n_units, tail = _pattern_layout(cfg, n_layers)
     device = L._init_device(device)
     params: dict = {"units": None, "tail": []}
     if n_units:
         params["units"] = [
-            _stacked(lambda u, kind=kind: init_block(generator, cfg, kind, device=device),
+            _stacked(lambda u, kind=kind: init_block(generator, cfg, kind,
+                                                     cross_attn=cross_attn, device=device),
                      n_units)
             for kind in pat
         ]
     for t in range(tail):
-        params["tail"].append(init_block(generator, cfg, pat[t % len(pat)], device=device))
+        params["tail"].append(init_block(generator, cfg, pat[t % len(pat)],
+                                         cross_attn=cross_attn, device=device))
     return params
 
 
@@ -233,17 +482,34 @@ def apply_stack(params: dict, cfg: ArchConfig, x, positions, *, cache=None,
 # Full model
 
 
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The encoder's config: a plain full-attention self-attention stack."""
+    return dataclasses.replace(cfg, attn_pattern=("full",), n_encoder_layers=0)
+
+
 def _init_params(generator, cfg: ArchConfig, device: torch.device) -> dict:
     _check_ported(cfg)
     dt = _dtype(cfg)
     params = {
         "embed": L.embed_init(generator, (cfg.vocab_size, cfg.d_model), dt, device=device),
-        "stack": init_stack(generator, cfg, cfg.n_layers, device=device),
+        "stack": init_stack(generator, cfg, cfg.n_layers,
+                            cross_attn=cfg.n_encoder_layers > 0, device=device),
         "final_norm": L.init_norm(cfg.d_model, cfg.norm, dt, device=device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.xavier_init(
             generator, (cfg.d_model, cfg.vocab_size), dt, device=device)
+    if cfg.pos_embedding == "learned":
+        params["pos_table"] = L.embed_init(
+            generator, (cfg.max_position, cfg.d_model), dt, device=device)
+    if cfg.n_encoder_layers:
+        params["encoder"] = {
+            "pos_table": L.embed_init(generator, (cfg.encoder_seq, cfg.d_model), dt,
+                                      device=device),
+            "stack": init_stack(generator, _encoder_cfg(cfg), cfg.n_encoder_layers,
+                                device=device),
+            "norm": L.init_norm(cfg.d_model, cfg.norm, dt, device=device),
+        }
     return params
 
 
@@ -257,24 +523,41 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *, device=None) -> 
     return _init_params(generator, cfg, resolve_device(device))
 
 
+def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Audio/vision encoder over precomputed frame embeddings (the modality
+    frontend is a stub, as in the reference; frames: (B, encoder_seq, d))."""
+    enc = params["encoder"]
+    x = frames + enc["pos_table"][None]
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x, _, _ = apply_stack(enc["stack"], _encoder_cfg(cfg), x, pos)
+    return L.apply_norm(x, enc["norm"], cfg.norm)
+
+
 def embed_tokens(params, cfg: ArchConfig, tokens, prefix_embeds=None):
+    h = params["embed"][tokens]
     if prefix_embeds is not None:
-        raise _not_ported("prefix embeddings (VLM)")
-    return params["embed"][tokens]
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    return h
 
 
 def forward_hidden(params: dict, cfg: ArchConfig, tokens, *, prefix_embeds=None,
                    encoder_frames=None, cache=None, decode_index=None):
-    if encoder_frames is not None:
-        raise _not_ported("the encoder")
     h = embed_tokens(params, cfg, tokens, prefix_embeds)
     b, s = h.shape[0], h.shape[1]
     if decode_index is not None:
-        positions = torch.as_tensor(decode_index, device=h.device).expand(b, 1)
+        decode_index = int(decode_index)
+        positions = torch.full((b, 1), decode_index, dtype=torch.long, device=h.device)
     else:
         positions = torch.arange(s, device=h.device)
+    if cfg.pos_embedding == "learned":
+        # (B, 1, d) rows at decode, (S, d) broadcast over the batch otherwise.
+        h = h + params["pos_table"][positions]
+    encoder_out = None
+    if encoder_frames is not None:
+        encoder_out = encode(params, cfg, encoder_frames)
     h, new_cache, aux = apply_stack(
         params["stack"], cfg, h, positions, cache=cache, decode_index=decode_index,
+        encoder_out=encoder_out,
     )
     h = L.apply_norm(h, params["final_norm"], cfg.norm)
     return h, new_cache, aux
@@ -304,9 +587,10 @@ def prefill(params: dict, cfg: ArchConfig, tokens, *, max_len: int,
 
 def decode_step(params: dict, cfg: ArchConfig, token, cache, index, *, encoder_out=None):
     """One serving step: logits for the next token + updated cache. The
-    cache passed in is left as it was."""
-    if encoder_out is not None:
-        raise _not_ported("the encoder")
+    cache passed in is left as it was. ``index`` is the token's absolute
+    position (a host int; a tensor is read once). ``encoder_out`` is
+    accepted and ignored, as in the reference: the cross-attention KV
+    was written into the cache at prefill."""
     h, new_cache, _ = forward_hidden(params, cfg, token, cache=cache, decode_index=index)
     logits = unembed(params, cfg, h[:, 0])
     return logits, new_cache

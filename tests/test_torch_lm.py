@@ -345,6 +345,9 @@ def test_lm_params_from_numpy_is_bit_exact_and_keeps_dtypes():
 
 def _lm_builders(tcfg):
     """Every public builder of the LM side, as a function of ``device``."""
+    from repro_torch.models import attention as tA
+    from repro_torch.models import moe as tmoe
+
     gen = torch.Generator().manual_seed(0)
     spec = tT._mamba_spec(tcfg)
     return {
@@ -357,6 +360,10 @@ def _lm_builders(tcfg):
         "init_block_cache": lambda **kw: tT.init_block_cache(tcfg, "mamba", "causal", 1, 4,
                                                              **kw),
         "init_mamba": lambda **kw: tssm.init_mamba(gen, spec, **kw),
+        "init_rglru": lambda **kw: tssm.init_rglru(gen, tssm.RGLRUSpec(4, 6), **kw),
+        "init_moe": lambda **kw: tmoe.init_moe(gen, tmoe.MoESpec(4, 2, 1, 8, shared_d_ff=4),
+                                               **kw),
+        "init_kv_cache": lambda **kw: tA.init_kv_cache(1, 4, 1, 2, torch.float32, **kw),
         "init_linear": lambda **kw: tL.init_linear(gen, 4, 2, bias=True, **kw),
         "init_norm": lambda **kw: tL.init_norm(4, "layernorm", **kw),
         "init_mlp": lambda **kw: tL.init_mlp(gen, 4, 8, **kw),
@@ -381,29 +388,6 @@ def test_lm_entry_points_raise_without_a_card_unless_asked_for_the_cpu(monkeypat
 
 # ---------------------------------------------------------------------------
 # (g) what is not ported raises
-
-
-@pytest.mark.parametrize("name", [n for n in jbase.ARCH_IDS if n != ARCH])
-def test_unported_architectures_raise(name):
-    cfg = tconfigs.get_arch(name).scaled_down()
-    with pytest.raises(ValueError, match="not yet ported"):
-        tT.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-
-
-def test_unported_block_kinds_and_inputs_raise():
-    _, tcfg = _cfgs()
-    gen = torch.Generator().manual_seed(0)
-    for kind in ("attn", "rglru"):
-        with pytest.raises(ValueError, match=f"block kind '{kind}' is not yet ported"):
-            tT.init_block(gen, tcfg, kind)
-        with pytest.raises(ValueError, match="not yet ported"):
-            tT.init_block_cache(tcfg, kind, "causal", 1, 4)
-    p = tT.init_params(gen, tcfg, device="cpu")
-    toks = torch.zeros((1, 3), dtype=torch.long)
-    with pytest.raises(ValueError, match="prefix embeddings"):
-        tT.forward_hidden(p, tcfg, toks, prefix_embeds=torch.zeros((1, 2, tcfg.d_model)))
-    with pytest.raises(ValueError, match="encoder"):
-        tT.forward_hidden(p, tcfg, toks, encoder_frames=torch.zeros((1, 2, tcfg.d_model)))
 
 
 def test_opt_bf16_ssm_raises():
