@@ -113,6 +113,28 @@ Phases (each asserts or exits non-zero):
      finite and shaped logits, with prefill ms, tokens/s, decode ms per
      step and peak memory; each config freed before the next; no port
      kernel launches (these architectures run none), under 180 s;
+  5j. LM training: (a) falcon-mamba-7b at full width, 2 layers, fp32,
+     B=2, S=256: train_loss and every gradient leaf through the scan
+     kernel's autograd Function against autograd of the plain
+     composition on the card (each leaf finite, nonzero, within a
+     relative L2 error of 1e-4), remat='full' bit-equal with the kernel
+     launched twice a layer, µbatches 1 and 2: the accumulated
+     gradients within the same 1e-4, and after make_train_step's AdamW
+     step the losses within rtol 1e-5 and the parameters within atol
+     1e-5 but for at most 2e-4 of the elements; (b) bf16 training, 4
+     layers, B=4, S=512, 10 AdamW steps (f32 master copy) on one
+     synthetic_token_batches batch: the first loss within 1.5 of ln V,
+     the last below the first, ms a step, tokens/s and a step's peak
+     memory; (c) the nine other families one
+     train_loss and gradient each at full width and 5i's gate depth,
+     B=2, S=64, fp32 where parameters and gradients fit 60 GB: the loss
+     equal to the full forward's f32 CE over the whole vocabulary, every
+     leaf finite and nonzero but for expert slices no token reached;
+     (d) examples/torch/quickstart.py, serve.py and train_lm.py at their
+     default sizes print OK; (e) the scan kernel launches, the plain
+     scan is never called; under 180 s. falcon-mamba's bf16 weights that
+     phase 6 times are set aside during the phase and drawn again after
+     it from the same seed;
   6. time each kernel, its plain version and the library call with CUDA
      events at main-path shapes, beside the card's bound; the fp32 and
      int8 conv kernels, pow2_matmul, the seed conv and their library calls
@@ -132,8 +154,13 @@ Phases (each asserts or exits non-zero):
      fused plan and the stages run in sequence, with the profiler's union
      of kernel device time against its sum; the 2-stage plan's serial
      rows; fit_constants on the serial rows, estimate_pipeline beside each
-     row and autotune_pipeline's pick, every line with the card's name and
-     power limit;
+     row and autotune_pipeline's pick; last, 5j's bf16 training step: the
+     scan's forward against its recomputed backward at the step's shape,
+     with the backward's peak memory, and the step's forward, backward
+     and optimizer on CUDA events and on the profiler, with its busy
+     share (the heaviest profiles last: after one, the profiler has
+     dropped records of later sessions); every line with the card's name
+     and power limit;
   7. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The launch counts are zeroed just before phase 4 and read just after
@@ -146,8 +173,9 @@ pipelined runs and read just after them (``launches_5f`` in the record),
 and zeroed just before phase 5g's training runs and read just after them
 (``launches_5g``), zeroed just before phase 5h's verification and
 examples and read just after them (``launches_5h``), and zeroed just
-before phase 5i and read just after it (``launches_5i``, all 0):
-they show that each path went through its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
+before phase 5i and read just after it (``launches_5i``, all 0), and
+zeroed just before phase 5j's kernel runs and read at its end
+(``launches_5j``): they show that each path went through its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
 before a path's counts are zeroed.
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -258,6 +286,30 @@ FAM_BATCH, FAM_PROMPT, FAM_NEW = 4, 512, 32  # bf16 serving
 PHASE_5I_LIMIT_S = 180.0
 # Phase 6: the families whose prefill and decode are timed and profiled.
 FAM_TIMED = ("recurrentgemma-9b", "qwen2.5-3b")
+# Phase 5j, LM training: the fp32 gradient gate's depth (falcon-mamba-7b at
+# full width, LM_GATE_BATCH x LM_GATE_LEN tokens); bf16 training's depth,
+# batch, sequence and AdamW steps on one repeated batch, and the profiled
+# repetitions; the nine other families' one step each at 5i's gate depth;
+# the bytes of parameters and gradients below which a family trains in
+# fp32 (the card's 80 GB less room for activations and the transient
+# gradient buffers of a stacked leaf); each gradient leaf's relative L2
+# error against the plain composition; the phase's time limit.
+LM_TRAIN_GATE_LAYERS = 2
+LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_LEN, LM_TRAIN_STEPS = 4, 4, 512, 10
+LM_TRAIN_PROFILED = 2
+FAM_TRAIN_BATCH, FAM_TRAIN_LEN = 2, 64
+FAM_TRAIN_FP32_BYTES = 60e9
+LM_GRAD_REL_L2 = 1e-4
+# µbatches against one batch after one AdamW step: the losses within
+# rtol 1e-5 and the parameters within atol 1e-5 (the reference test's
+# bounds) but for at most this share of the elements (the trainer
+# allowance of tests/test_torch_training.py): AdamW divides each
+# element's first moment by the root of its second, so where an
+# element's gradient is near zero the last bits of the two sums' orders
+# move its update by a visible share of the learning rate. The gradients
+# themselves are held at LM_GRAD_REL_L2.
+MB_PARAM_OFF_SHARE = 2e-4
+PHASE_5J_LIMIT_S = 180.0
 # 8-bit QAT gradients against another device's or another order's sums:
 # each tensor within this relative L2 error, the features equal but for
 # at most QUANT_MAX_STEP_SHARE elements one quant step apart (a float64
@@ -659,12 +711,36 @@ def phase_5g(smi: str) -> dict:
     return launches
 
 
-def phase_5h(smi: str) -> dict:
-    """The static gate and the CNN examples on the card (phase 5h). Returns
-    the launches of the phase's window."""
+def run_example(phase: str, file: str, argv) -> float:
+    """``examples/torch/<file>``'s ``main(argv)`` in this process, its
+    output echoed under ``[phase]``; fails unless it ends with ``OK``.
+    Returns its seconds (host clock, the card synchronized)."""
     import contextlib
     import importlib.util
     import io
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location(f"example_{file[:-3]}",
+                                                  os.path.join(ROOT, "examples", "torch", file))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[{phase}] {file} | {line}")
+    check(lines[-1:] == ["OK"], f"{phase} examples/torch/{file} ended with {lines[-1:]}")
+    return secs
+
+
+def phase_5h(smi: str) -> dict:
+    """The static gate and the CNN examples on the card (phase 5h). Returns
+    the launches of the phase's window."""
     import tempfile
 
     import torch
@@ -677,23 +753,6 @@ def phase_5h(smi: str) -> dict:
     from repro_torch.paper import train_cnn
 
     dev = torch.device("cuda")
-
-    def example(file, argv):
-        spec = importlib.util.spec_from_file_location(f"example_{file[:-3]}",
-                                                      os.path.join(ROOT, "examples", "torch", file))
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            mod.main(argv)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        lines = buf.getvalue().splitlines()
-        for line in lines:
-            print(f"[5h] {file} | {line}")
-        check(lines[-1:] == ["OK"], f"5h examples/torch/{file} ended with {lines[-1:]}")
-        return secs
 
     t_phase = time.perf_counter()
     plain, restore_plain = count_plain_versions()
@@ -724,7 +783,7 @@ def phase_5h(smi: str) -> dict:
         print(f"[5h] run_lint() over src/repro_torch: no finding ({time.perf_counter() - t0:.2f} s)")
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as cache:
             train_cnn.RESULTS_DIR = cache
-            ex_s = {f: example(f, []) for f in ("dhm_cnn.py", "serve_cnn.py")}
+            ex_s = {f: run_example("5h", f, []) for f in ("dhm_cnn.py", "serve_cnn.py")}
     finally:
         train_cnn.RESULTS_DIR = results_dir
         restore_plain()
@@ -902,6 +961,519 @@ def phase_5i(smi: str) -> dict:
           f"{LOGITS_ATOL}; bf16 logits finite and shaped; launches {launches} (these "
           f"architectures run no port kernel); phase {elapsed:.1f} s ({smi})")
     return launches
+
+
+def lm_loss_and_grads(params, cfg, batch, vocab_chunk=8192):
+    """``train_loss`` of ``batch`` and its gradient for every leaf of
+    ``params`` (the same leaves, detached and requiring grad)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.tree_util import tree_flatten
+
+    leaves, treedef = tree_flatten(params)
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    loss, metrics = T.train_loss(treedef.unflatten(leaves), cfg, batch, vocab_chunk=vocab_chunk)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(
+        torch.autograd.grad(loss, leaves))
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def leaf_paths(tree, path=()):
+    """The path of every leaf of a dict/list tree, in ``tree_flatten``'s
+    order (a dict's keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_paths(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, path + (i,))
+    elif tree is not None:
+        yield path
+
+
+def moe_leaf_slices(params, cfg) -> list:
+    """The MoE layers of the stack in the order a forward calls them: the
+    path of the dict holding ``w_gate``, ``w_up`` and ``w_down``, and the
+    unit index into those stacked leaves (None for a tail layer)."""
+    from repro_torch.tree_util import tree_leaves
+
+    pat = cfg.block_pattern
+    out = []
+    units = params["stack"]["units"]
+    if units is not None:
+        n_units = tree_leaves(units)[0].shape[0]
+        for u in range(n_units):
+            for i in range(len(pat)):
+                if "w_gate" in units[i].get("ffn", {}):
+                    out.append((("stack", "units", i, "ffn"), u))
+    for t, p_t in enumerate(params["stack"]["tail"]):
+        if "w_gate" in p_t.get("ffn", {}):
+            out.append((("stack", "tail", t, "ffn"), None))
+    return out
+
+
+EVENTS_ROW = "CUDA events (the device's span)"
+
+
+def device_busy_ms(fn, reps: int, tries: int = 3) -> tuple:
+    """Device busy ms per call of ``fn`` (profiler, every CUDA kernel over
+    ``reps`` calls after one warm call) and the ms by kernel name. The
+    profiler has recorded no kernel at all on the H100 (phase 6's
+    ``device_ms``), or dropped some of a call's (a count that is not a
+    multiple of ``reps``); such a reading is taken again, and said so, up
+    to ``tries`` times, then the calls are timed on CUDA events (the
+    device's span, idle gaps included: the one row ``EVENTS_ROW``), and
+    said so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows, count = {}, 0
+        for evt in prof.key_averages():
+            if str(evt.device_type).endswith("CUDA"):
+                us = getattr(evt, "self_device_time_total", None)
+                us = evt.self_cuda_time_total if us is None else us
+                rows[evt.key] = us / 1e3 / reps
+                count += evt.count
+        if sum(rows.values()) > 0 and count % reps == 0:
+            return sum(rows.values()), rows
+        print(f"[6] the profiler recorded {count} kernels over {reps} calls (try {attempt} of "
+              f"{tries}); reading again")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    print(f"[6] {ms:.4f} ms a call on CUDA events instead (the device's span)")
+    return ms, {EVENTS_ROW: ms}
+
+
+def phase_5j(smi: str) -> dict:
+    """LM training on the card (phase 5j). Returns the launches of the
+    phase's window."""
+    import dataclasses
+    import gc
+    import math
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStreamConfig, synthetic_token_batches
+    from repro_torch.kernels.pow2_matmul import pow2 as kpow2
+    from repro_torch.kernels.ssm_scan import ops as kssm_ops
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_chunked_ref
+    from repro_torch.kernels.stream_conv import conv as kconv
+    from repro_torch.kernels.stream_conv import legacy as klegacy
+    from repro_torch.launch.steps import VOCAB_CHUNK, make_train_step
+    from repro_torch.models import moe as mmoe
+    from repro_torch.models import ssm as mssm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.accounting import param_bytes, param_count
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree_util import tree_leaves
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    mods = (kconv, kpow2, kscan, klegacy)
+    t_phase = time.perf_counter()
+    kernel_scan, dispatch_plain = mssm.ssm_scan, kssm_ops.ssm_scan_ref
+    plain_calls = [0]
+
+    def counted_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return dispatch_plain(*args, **kwargs)
+
+    def plain_scan(x_, dt_, b_, c_, a_, d_skip_, h0_=None, **_):
+        return ssm_scan_chunked_ref(x_, dt_, b_, c_, a_, d_skip_, h0_)
+
+    def launches():
+        return {k: v for m in mods for k, v in m.LAUNCHES.items()}
+
+    arch = get_arch(LM_ARCH)
+    kssm_ops.ssm_scan_ref = counted_plain
+    try:
+        # (a) the fp32 gradient gate. The plain composition's loss and
+        # gradients first (no kernel), then the counts are zeroed.
+        cfg32 = dataclasses.replace(arch, n_layers=LM_TRAIN_GATE_LAYERS, dtype="float32",
+                                    remat="none")
+        params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg32, device=dev)
+        batch = {"tokens": torch.randint(0, arch.vocab_size, (LM_GATE_BATCH, LM_GATE_LEN + 1),
+                                         generator=gen).to(dev)}
+        mssm.ssm_scan = plain_scan
+        try:
+            want_loss, _, want = lm_loss_and_grads(params, cfg32, batch)
+            torch.cuda.synchronize()
+        finally:
+            mssm.ssm_scan = kernel_scan
+        for m in mods:
+            m.reset_launch_counts()
+        plain_calls[0] = 0
+        t0 = time.perf_counter()
+        loss, _, grads = lm_loss_and_grads(params, cfg32, batch)
+        torch.cuda.synchronize()
+        check(kscan.LAUNCHES["ssm_scan"] == LM_TRAIN_GATE_LAYERS,
+              f"5j gate: ssm_scan launched {kscan.LAUNCHES['ssm_scan']} times")
+        check(abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss)),
+              f"5j gate loss {float(loss)} against the plain composition's {float(want_loss)}")
+        errs = []
+        for g_, w_ in zip(grads, want):
+            check(bool(torch.isfinite(g_).all()) and bool((g_ != 0).any()),
+                  f"5j gate: a gradient leaf {tuple(g_.shape)} is not finite or is zero")
+            errs.append(rel_l2(g_, w_))
+        check(max(errs) <= LM_GRAD_REL_L2, f"5j gate gradients: relative L2 {max(errs)}")
+        t_gate = time.perf_counter() - t0
+        remat_loss, _, remat_grads = lm_loss_and_grads(
+            params, dataclasses.replace(cfg32, remat="full"), batch)
+        torch.cuda.synchronize()
+        check(kscan.LAUNCHES["ssm_scan"] == 3 * LM_TRAIN_GATE_LAYERS,
+              f"5j remat='full' launched ssm_scan {kscan.LAUNCHES['ssm_scan'] - 2} times")
+        check(torch.equal(remat_loss, loss) and all(torch.equal(a, b) for a, b in
+                                                    zip(remat_grads, grads)),
+              "5j remat='full' is not bit-equal to remat='none'")
+        del remat_grads, want
+        # µbatch accumulation: the gradients of the two halves, each over
+        # two, summed in f32 as make_train_step sums them, against the
+        # whole batch's; then one make_train_step of each.
+        halves = [{"tokens": t} for t in batch["tokens"].chunk(2)]
+        acc = [torch.zeros_like(g) for g in grads]
+        for half in halves:
+            acc = [a + g / 2 for a, g in zip(acc, lm_loss_and_grads(params, cfg32, half)[2])]
+        mb_grad = max(rel_l2(a, g) for a, g in zip(acc, grads))
+        check(mb_grad <= LM_GRAD_REL_L2, f"5j µbatch gradients: relative L2 {mb_grad}")
+        del acc, grads
+        stepped = {}
+        for mb in (1, 2):
+            opt = adamw_init(params, AdamWConfig())
+            p_new, opt_new, metrics = make_train_step(cfg32, microbatches=mb)(params, opt, batch)
+            stepped[mb] = (float(metrics["loss"]), p_new)
+            del opt, opt_new, p_new
+        torch.cuda.synchronize()
+        mb_loss = abs(stepped[2][0] - stepped[1][0]) / abs(stepped[1][0])
+        diffs = [(a - b).abs() for a, b in zip(tree_leaves(stepped[1][1]),
+                                                tree_leaves(stepped[2][1]))]
+        mb_param = max(float(d.max()) for d in diffs)
+        mb_off = sum(int((d > 1e-5).sum()) for d in diffs)
+        n_el = sum(d.numel() for d in diffs)
+        del diffs
+        check(mb_loss <= 1e-5 and mb_off <= MB_PARAM_OFF_SHARE * n_el,
+              f"5j µbatches 2 against 1: loss rtol {mb_loss}, {mb_off} of {n_el} parameters "
+              f"outside atol 1e-5 (max |delta| {mb_param})")
+        print(f"[5j] {LM_ARCH} fp32 gradient gate, {LM_TRAIN_GATE_LAYERS} layers at full width "
+              f"({param_count(cfg32):,} params), B={LM_GATE_BATCH}, S={LM_GATE_LEN}: train_loss "
+              f"{float(loss):.6f} (plain composition {float(want_loss):.6f}), {len(errs)} gradient "
+              f"leaves finite and nonzero, relative L2 against autograd of the plain composition "
+              f"max {max(errs):.3e}, median {sorted(errs)[len(errs) // 2]:.3e} ({t_gate:.2f} s); "
+              f"remat='full' bit-equal, ssm_scan twice a layer; µbatches 2 against 1: "
+              f"gradients relative L2 max {mb_grad:.3e}, after make_train_step's AdamW step "
+              f"the loss rtol {mb_loss:.2e}, {mb_off} of {n_el:,} parameters outside atol 1e-5, "
+              f"max |delta| {mb_param:.3e} (learning rate 3e-4)")
+        del params, stepped, batch, halves, g_, w_
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) bf16 training at the config's dtype, remat and AdamW
+        # (keep_master_copy), LM_TRAIN_STEPS steps on one repeated batch.
+        cfg = dataclasses.replace(arch, n_layers=LM_TRAIN_LAYERS)
+        opt_cfg = AdamWConfig(keep_master_copy=True)
+        base_mem = torch.cuda.memory_allocated()
+        params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+        opt = adamw_init(params, opt_cfg)
+        stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_LEN,
+                                   batch_size=LM_TRAIN_BATCH)
+        batch = {"tokens": torch.from_numpy(
+            next(synthetic_token_batches(stream, seed=SEED))["tokens"]).to(dev)}
+        torch.cuda.synchronize()
+        state_mem = torch.cuda.memory_allocated() - base_mem
+        torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(cfg, opt_cfg=opt_cfg)
+        losses, step_s = [], []
+        before = kscan.LAUNCHES["ssm_scan"]
+        for _ in range(LM_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        train_launches = kscan.LAUNCHES["ssm_scan"] - before
+        peak = torch.cuda.max_memory_allocated() - base_mem - state_mem
+        check(all(math.isfinite(x) for x in losses), f"5j bf16 losses {losses}")
+        check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.5 and losses[-1] < losses[0],
+              f"5j bf16 losses: first {losses[0]} (ln V {math.log(cfg.vocab_size):.3f}), "
+              f"last {losses[-1]}")
+        check(train_launches == 2 * LM_TRAIN_LAYERS * LM_TRAIN_STEPS,
+              f"5j bf16 training launched ssm_scan {train_launches} times")
+        ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3
+        n_tok = LM_TRAIN_BATCH * LM_TRAIN_LEN
+        print(f"[5j] {LM_ARCH} bf16 training, {LM_TRAIN_LAYERS} of {arch.n_layers} layers at full "
+              f"width ({param_count(cfg):,} params; weights, f32 master and moments "
+              f"{state_mem / 1e9:.2f} GB), B={LM_TRAIN_BATCH}, S={LM_TRAIN_LEN}, remat "
+              f"'{cfg.remat}', AdamW with the f32 master copy, {LM_TRAIN_STEPS} steps on one "
+              f"synthetic_token_batches batch: losses {losses[0]:.4f} (ln V "
+              f"{math.log(cfg.vocab_size):.4f}) -> {losses[-1]:.4f}; {ms:.2f} ms a step (host "
+              f"clock, synchronized, median of steps 2-{LM_TRAIN_STEPS}; the first "
+              f"{step_s[0] * 1e3:.1f}), {n_tok / ms * 1e3:.0f} tokens/s; ssm_scan "
+              f"{train_launches} launches (2 a layer a step: the forward and remat's recompute); "
+              f"a step's peak allocated {peak / 1e9:.2f} GB above the weights and optimizer "
+              f"state ({smi})")
+
+        del params, opt, batch, metrics
+        torch.cuda.empty_cache()
+
+        # (c) the nine other families: one train_loss and gradient each at
+        # full width and 5i's gate depth, fp32 where parameters and
+        # gradients fit FAM_TRAIN_FP32_BYTES, the config's dtype otherwise.
+        plain_moe = T.moe_apply
+        for name, gate_depth, _, _ in FAMILIES:
+            t0 = time.perf_counter()
+            fam = get_arch(name)
+            cfg = dataclasses.replace(fam, n_layers=gate_depth, dtype="float32")
+            fp32_bytes = 2 * param_bytes(cfg)
+            if fp32_bytes > FAM_TRAIN_FP32_BYTES:
+                cfg = dataclasses.replace(fam, n_layers=gate_depth)
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+            toks, kw, n_pre = family_inputs(cfg, FAM_TRAIN_BATCH, FAM_TRAIN_LEN + 1, gen, dev)
+            reached = []
+
+            def recording(p, spec, x):
+                # The experts each MoE layer of the forward routes a token
+                # to (remat's recompute is not recorded; nothing is saved).
+                if len(reached) < n_moe:
+                    with torch.no_grad():
+                        probs = torch.softmax(torch.matmul(x.float(), p["router"].float()), -1)
+                        ids = mmoe._top_k(probs, spec.top_k)[1].reshape(x.shape[0], -1)
+                        keep = (mmoe._expert_positions(ids, spec.n_experts)
+                                < spec.capacity(x.shape[1]))
+                        reached.append(set(ids[keep].unique().tolist()))
+                return plain_moe(p, spec, x)
+
+            moe_slices = moe_leaf_slices(params, cfg) if cfg.n_experts else []
+            n_moe = len(moe_slices)
+            T.moe_apply = recording
+            try:
+                loss, metrics, grads = lm_loss_and_grads(params, cfg, {"tokens": toks, **kw})
+            finally:
+                T.moe_apply = plain_moe
+            with torch.no_grad():
+                h, _, aux = T.forward_hidden(params, cfg, toks[:, :-1], **kw)
+                w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+                logits = torch.matmul(h[:, n_pre:].float(), w.float())
+                full_ce = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                                          toks[:, 1:].reshape(-1).long())
+                want_loss = full_ce + 0.01 * aux
+            torch.cuda.synchronize()
+            check(abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss)),
+                  f"5j {name} train_loss {float(loss)} against the full-vocab CE "
+                  f"{float(want_loss)}")
+            paths = {path: i for i, path in enumerate(leaf_paths(params))}
+            unreached = 0
+            expert_leaves = set()
+            for (path, u), experts_hit in zip(moe_slices, reached):
+                for key in ("w_gate", "w_up", "w_down"):
+                    idx = paths[path + (key,)]
+                    expert_leaves.add(idx)
+                    g = grads[idx] if u is None else grads[idx][u]
+                    for e in range(cfg.n_experts):
+                        if not bool((g[e] != 0).any()):
+                            check(e not in experts_hit,
+                                  f"5j {name}: expert {e} of a layer got tokens and no gradient")
+                            unreached += 1
+            for i, g in enumerate(grads):
+                check(bool(torch.isfinite(g).all()), f"5j {name}: a gradient leaf is not finite")
+                check(i in expert_leaves or bool((g != 0).any()),
+                      f"5j {name}: gradient leaf {i} {tuple(g.shape)} is zero")
+            peak = torch.cuda.max_memory_allocated() - base_mem
+            fits = "fit" if cfg.dtype == "float32" else "would not fit"
+            print(f"[5j] {name} {cfg.dtype} (fp32 parameters and gradients, "
+                  f"{fp32_bytes / 1e9:.1f} GB, {fits} {FAM_TRAIN_FP32_BYTES / 1e9:.0f} GB), "
+                  f"{gate_depth} layers at full width, B={FAM_TRAIN_BATCH}, S={FAM_TRAIN_LEN}"
+                  f"{f' + {n_pre} prefix' if n_pre else ''}: train_loss {float(loss):.6f} against "
+                  f"the full forward's f32 CE over all {cfg.vocab_size:,} columns "
+                  f"{float(want_loss):.6f} (last chunk {cfg.vocab_size % VOCAB_CHUNK or VOCAB_CHUNK} "
+                  f"of {VOCAB_CHUNK} columns); {len(grads)} gradient leaves finite and nonzero"
+                  + (f" but for {unreached} expert slices that no token reached (of "
+                     f"{n_moe * cfg.n_experts} in {n_moe} MoE layers, each slice counted once "
+                     f"for each of its 3 weights)" if cfg.n_experts else "")
+                  + f"; peak allocated {peak / 1e9:.2f} GB above the family's start; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            del params, grads, toks, kw, h, logits, w
+            torch.cuda.empty_cache()
+
+        # (d) the three LM examples at their default sizes.
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as ckpt:
+            ex_s = {"quickstart.py": run_example("5j", "quickstart.py", []),
+                    "serve.py": run_example("5j", "serve.py", []),
+                    "train_lm.py": run_example("5j", "train_lm.py", ["--ckpt-dir", ckpt])}
+    finally:
+        mssm.ssm_scan = kernel_scan
+        kssm_ops.ssm_scan_ref = dispatch_plain
+    # (e) the window's launches: the scan kernel ran, the plain scan never.
+    window = launches()
+    check(window["ssm_scan"] > 0, f"phase 5j launches: {window}")
+    check(plain_calls[0] == 0, f"phase 5j called the plain scan {plain_calls[0]} times")
+    elapsed = time.perf_counter() - t_phase
+    check(elapsed < PHASE_5J_LIMIT_S, f"phase 5j took {elapsed:.1f} s")
+    print(f"[5j] LM training: examples at their default sizes "
+          + ", ".join(f"{f} {t:.2f} s" for f, t in ex_s.items())
+          + f"; launches { {k: v for k, v in window.items() if v} }; the plain scan called 0 "
+          f"times; phase {elapsed:.1f} s ({smi})")
+    return window
+
+
+def time_lm_training(smi: str) -> None:
+    """Phase 6's LM training rows: where a step of phase 5j's bf16 training
+    (falcon-mamba-7b, LM_TRAIN_LAYERS layers, B x S) spends the card's
+    time, and the scan's forward against its recomputed backward at that
+    shape with the backward's peak memory. The heaviest profiles come
+    last: after one, the profiler has dropped records of later sessions."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStreamConfig, synthetic_token_batches
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.launch.steps import VOCAB_CHUNK, make_train_step
+    from repro_torch.models import ssm as mssm
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, clip_by_global_norm
+    from repro_torch.tree_util import tree_flatten
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LM_TRAIN_LAYERS)
+    opt_cfg = AdamWConfig(keep_master_copy=True)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    opt = adamw_init(params, opt_cfg)
+    stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_LEN,
+                               batch_size=LM_TRAIN_BATCH)
+    batch = {"tokens": torch.from_numpy(
+        next(synthetic_token_batches(stream, seed=SEED))["tokens"]).to(dev)}
+    step = make_train_step(cfg, opt_cfg=opt_cfg)
+    for _ in range(2):
+        params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+
+    # The scan alone at the training shape: its inputs captured from one
+    # forward; the forward kernel against the recomputed backward.
+    captured = []
+    kernel_scan = mssm.ssm_scan
+
+    def capture(*args, **kwargs):
+        if not captured:
+            captured.append(tuple(None if a is None else a.detach() for a in args))
+        return kernel_scan(*args, **kwargs)
+
+    mssm.ssm_scan = capture
+    try:
+        with torch.no_grad():
+            T.train_loss(params, cfg, batch, vocab_chunk=VOCAB_CHUNK)
+    finally:
+        mssm.ssm_scan = kernel_scan
+    s_in = captured[0]
+    g_y = torch.randn(tuple(s_in[0].shape), generator=torch.Generator().manual_seed(SEED)).to(dev)
+
+    def scan_fwd_only():
+        with torch.no_grad():
+            return ssm_scan(*s_in)
+
+    def scan_fwd_bwd():
+        leaves = [t.detach().requires_grad_() for t in s_in[:6]]
+        y, _ = ssm_scan(*leaves)
+        return torch.autograd.grad(y, leaves, g_y)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_bwd = torch.cuda.memory_allocated()
+    scan_fwd_bwd()
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated() - before_bwd
+    s_fwd, f_rows = device_busy_ms(scan_fwd_only, LM_TRAIN_PROFILED)
+    s_fb, s_rows = device_busy_ms(scan_fwd_bwd, LM_TRAIN_PROFILED)
+    shape = tuple(s_in[0].shape) + (s_in[2].shape[-1],)
+    print(f"[6] the scan at 5j's training shape (Bz, S, D, N) = {shape}, x {s_in[0].dtype} "
+          f"({smi}, {'CUDA events' if EVENTS_ROW in f_rows else 'profiler'}): forward (the "
+          f"kernel) {s_fwd:.4f} ms device; forward and recomputed backward (the reference's "
+          f"composition under autograd, {len(s_rows)} kernel names) {s_fb:.4f} ms, the "
+          f"backward {s_fb - s_fwd:.4f} ms ({(s_fb - s_fwd) / s_fwd:.0f}x the forward); the "
+          f"backward's peak {bwd_peak / 1e9:.2f} GB above its inputs (a (Bz, S, D, N) f32 "
+          f"tensor is {math.prod(shape) * 4 / 1e9:.2f} GB)")
+    del captured, s_in, g_y
+
+    # A step's parts on CUDA events (the device's span of each), then on
+    # the profiler: the forward, the forward and backward, the whole step.
+    def fwd():
+        with torch.enable_grad():
+            leaves, treedef = tree_flatten(params)
+            leaves = [t.detach().requires_grad_() for t in leaves]
+            return T.train_loss(treedef.unflatten(leaves), cfg, batch, vocab_chunk=VOCAB_CHUNK)[0]
+
+    def fwd_bwd():
+        return lm_loss_and_grads(params, cfg, batch)
+
+    def full_step():
+        _, _, g = lm_loss_and_grads(params, cfg, batch)
+        g, _ = clip_by_global_norm(g, 1.0)
+        return adamw_update(tree_flatten(params)[1].unflatten(g), opt, params, opt_cfg, 3e-4)
+
+    spans = []
+    for _ in range(LM_TRAIN_PROFILED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        with torch.enable_grad():
+            leaves, treedef = tree_flatten(params)
+            leaves = [t.detach().requires_grad_() for t in leaves]
+            loss, _ = T.train_loss(treedef.unflatten(leaves), cfg, batch, vocab_chunk=VOCAB_CHUNK)
+        ev[1].record()
+        g = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        g, _ = clip_by_global_norm(treedef.unflatten(list(g)), 1.0)
+        adamw_update(g, opt, params, opt_cfg, 3e-4)
+        ev[3].record()
+        torch.cuda.synchronize()
+        spans.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        del loss, leaves, g
+    span = [sum(x[i] for x in spans) / len(spans) for i in range(3)]
+    print(f"[6] 5j's bf16 training step ({LM_TRAIN_LAYERS} layers, B={LM_TRAIN_BATCH}, "
+          f"S={LM_TRAIN_LEN}) on CUDA events ({smi}): forward {span[0]:.3f} ms, backward "
+          f"{span[1]:.3f} ms, optimizer {span[2]:.3f} ms (each the device's span, mean of "
+          f"{LM_TRAIN_PROFILED} steps)")
+    t_fwd, _ = device_busy_ms(fwd, LM_TRAIN_PROFILED)
+    t_fb, fb_rows = device_busy_ms(fwd_bwd, LM_TRAIN_PROFILED)
+    t_full, full_rows = device_busy_ms(full_step, LM_TRAIN_PROFILED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LM_TRAIN_PROFILED):
+        full_step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / LM_TRAIN_PROFILED
+    if EVENTS_ROW in full_rows:
+        busy = "busy share not measured (the profiler recorded no kernel)"
+    else:
+        busy = f"busy {t_full:.3f} ms of {ms:.2f} ms (host clock), busy share {t_full / ms:.3f}"
+    print(f"[6] 5j's bf16 training step on the profiler ({smi}, {LM_TRAIN_PROFILED} "
+          f"repetitions): {busy}; forward {t_fwd:.3f} ms, backward {t_fb - t_fwd:.3f} ms, "
+          f"optimizer {t_full - t_fb:.3f} ms device")
+    for v, k in sorted(((v, k) for k, v in fb_rows.items()), reverse=True)[:6]:
+        print(f"[6]   forward+backward {v:.3f} ms  {k[:90]}")
 
 
 def _forward_loss(topo, params, x, y, quant):
@@ -1896,6 +2468,14 @@ def main() -> None:
     # -- 5i. the other nine LM families --------------------------------------------
     family_launches = phase_5i(smi)
 
+    # -- 5j. LM training ---------------------------------------------------------------
+    # The bf16 falcon-mamba weights phase 6 times are set aside for the
+    # phase's fp32 families and drawn again after it, from the same seed.
+    del params16
+    torch.cuda.empty_cache()
+    lm_train_launches = phase_5j(smi)
+    params16 = T.init_params(torch.Generator(device=dev).manual_seed(SEED), lm_cfg)
+
     # -- 6. timing at main-path shapes -------------------------------------------
     def time_ms(fn, iters=50, warmup=5):
         for _ in range(warmup):
@@ -2629,6 +3209,10 @@ def main() -> None:
     print(f"[6] autotune_pipeline(cifar10 3-stage, 3 slots, the measured rows) ({smi}): "
           f"{pick.summary()}; on the fitted model alone: {model_pick.summary()}")
 
+    # 5j's LM training step and the scan's recomputed backward, last: the
+    # heaviest profiles of the script.
+    time_lm_training(smi)
+
     check(join_watchdogs(30.0) == 0, "a watchdog thread is still running at the end")
     torch.cuda.synchronize()
 
@@ -2638,6 +3222,7 @@ def main() -> None:
         rec["launches_5g"] = train_launches.get(rec["name"], 0)
         rec["launches_5h"] = static_launches.get(rec["name"], 0)
         rec["launches_5i"] = family_launches.get(rec["name"], 0)
+        rec["launches_5j"] = lm_train_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

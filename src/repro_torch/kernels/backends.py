@@ -18,6 +18,7 @@ kernel wrappers follow the device of the tensor they are given
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -66,3 +67,27 @@ def sm_count(device: torch.device) -> int:
     grid to one wave."""
     dev = torch.device(device)
     return _sm_count(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+@contextlib.contextmanager
+def backward_numerics(t: torch.Tensor):
+    """IEEE fp32 and deterministic convolutions for a recomputed backward
+    on the card (the stream-conv and scan autograd Functions): TF32 off
+    for matmuls, and PyTorch's own CUDA convolution (im2col and cuBLAS
+    GEMMs) in place of cuDNN. On an H100, under ``deterministic=True,
+    allow_tf32=False``, cuDNN picks for lenet5's first layer at B=16 an
+    algorithm whose gradients sit 5.8e-4 (relative L2) from a float64
+    composition, where this path sits at 4.5e-7 (``chip_smoke.py`` phase
+    5g prints both); it costs a slower backward. On the CPU nothing
+    changes."""
+    if not t.is_cuda:
+        yield
+        return
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=False, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

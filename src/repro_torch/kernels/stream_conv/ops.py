@@ -22,13 +22,13 @@ are forward-only: asking them for a gradient raises.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import probe
+from repro_torch.kernels.backends import backward_numerics as _backward_numerics
 from repro_torch.kernels.backends import on_cuda
 from repro_torch.kernels.stream_conv.conv import (
     stream_conv_fused_cuda,
@@ -121,29 +121,6 @@ def _refuse_int8_grad(int8_scales) -> None:
             "int8 stream-conv calls are forward-only: integer codes have no "
             "gradient (run them under torch.no_grad() or inference_mode)"
         )
-
-
-@contextlib.contextmanager
-def _backward_numerics(t: torch.Tensor):
-    """IEEE fp32 and deterministic convolutions for the backward on the
-    card: PyTorch's own CUDA convolution (im2col and cuBLAS GEMMs, TF32
-    off) in place of cuDNN. On an H100, under ``deterministic=True,
-    allow_tf32=False``, cuDNN picks for lenet5's first layer at B=16 an
-    algorithm whose gradients sit 5.8e-4 (relative L2) from a float64
-    composition, where this path sits at 4.5e-7 (``chip_smoke.py`` phase
-    5g prints both); it costs a slower backward. On the CPU nothing
-    changes."""
-    if not t.is_cuda:
-        yield
-        return
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=False, benchmark=False,
-                                        deterministic=True, allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 class _GroupGrad(torch.autograd.Function):

@@ -16,8 +16,10 @@ CUDA, its own ``torch.cuda.Stream``.
 The default device is the card; without one ``make_mesh`` raises unless
 the caller asks for the CPU (the policy of ``kernels/backends.py``).
 No ``torch.distributed`` process group is involved: the reference is one
-controller, and so is the port. ``make_production_mesh`` (256 TPU chips)
-has no counterpart.
+controller, and so is the port. ``make_production_mesh`` gives the
+reference's production mesh shape and axes (16 x 16 per pod) as slots
+over the cards there are; the LM's layouts over it come from
+``launch/sharding.py``.
 """
 from __future__ import annotations
 
@@ -104,6 +106,14 @@ def make_mesh(shape, axes, *, device=None) -> Mesh:
         else:
             slots.append(Slot(coords=c, device=torch.device("cpu")))
     return Mesh(axes, shape, slots)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """16x16 = 256 slots per pod; multi-pod adds a leading 2-pod axis (the
+    reference's 256 and 512 chips). On the card unless ``device="cpu"``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device)
 
 
 def data_axes(mesh) -> tuple:

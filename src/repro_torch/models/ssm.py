@@ -8,15 +8,17 @@ an einsum. The port calls the fused selective scan
 (``kernels/ssm_scan``) instead: on the card a hand-written kernel that
 keeps the states in registers, on the CPU its plain step loop. Both give
 the same ``y`` and final state; neither forms the (B, S, d_inner, N)
-tensors.
+tensors. In training (grad mode on, an input requiring grad) the scan's
+autograd Function keeps that forward and differentiates the reference's
+own composition, recomputed from the saved inputs, in its backward
+(``kernels/ssm_scan/ops.py``).
 
-RG-LRU runs the reference's ``chunked_linear_recurrence``: inside a
-chunk, ``_associative_scan`` combines elements in the order
-``jax.lax.associative_scan`` does (pairs, then the odd half recursively,
-then the even elements), so the f32 states take the reference's sums
-(they may differ in the last bits where XLA contracts a multiply-add);
-chunks follow in a Python loop carrying the boundary state. Decode is the same
-recurrence on one step.
+RG-LRU runs the reference's ``chunked_linear_recurrence``
+(``kernels/ssm_scan/ref.py``; it and its ``_combine`` are imported here
+under the reference's names): inside a chunk, ``_associative_scan`` combines elements in the
+order ``jax.lax.associative_scan`` does, so the f32 states take the
+reference's sums; chunks follow in a Python loop carrying the boundary
+state. Decode is the same recurrence on one step.
 """
 from __future__ import annotations
 
@@ -27,76 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan.ref import _combine, chunked_linear_recurrence  # noqa: F401
 from repro_torch.models.layers import _gelu, _init_device, _normal, init_linear, linear
-
-# ---------------------------------------------------------------------------
-# Chunked diagonal linear recurrence
-
-
-def _combine(left, right):
-    a1, b1 = left
-    a2, b2 = right
-    return a1 * a2, a2 * b1 + b2
-
-
-def _associative_scan(fn, elems, dim: int):
-    """Inclusive scan of the tuple of tensors ``elems`` along ``dim`` under
-    the associative ``fn``, combining in ``jax.lax.associative_scan``'s
-    order: adjacent pairs, the scan of those recursively (the odd
-    results), then each odd result with the next element (the even
-    results)."""
-    n = elems[0].shape[dim]
-    if n < 2:
-        return elems
-
-    def sl(t, start, stop=None, step=1):
-        return t[(slice(None),) * dim + (slice(start, stop, step),)]
-
-    reduced = fn(tuple(sl(e, 0, n - 1, 2) for e in elems),
-                 tuple(sl(e, 1, None, 2) for e in elems))
-    odd = _associative_scan(fn, reduced, dim)
-    if n % 2 == 0:
-        even = fn(tuple(sl(e, 0, e.shape[dim] - 1) for e in odd),
-                  tuple(sl(e, 2, None, 2) for e in elems))
-    else:
-        even = fn(odd, tuple(sl(e, 2, None, 2) for e in elems))
-    even = [torch.cat([sl(e, 0, 1), r], dim=dim) for e, r in zip(elems, even)]
-    out = []
-    for ev, od in zip(even, odd):
-        t = ev.new_empty(ev.shape[:dim] + (n,) + ev.shape[dim + 1:])
-        t[(slice(None),) * dim + (slice(0, None, 2),)] = ev
-        t[(slice(None),) * dim + (slice(1, None, 2),)] = od
-        out.append(t)
-    return tuple(out)
-
-
-def chunked_linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
-                              chunk: int = 256):
-    """h_t = a_t * h_{t-1} + b_t along axis 1.
-
-    a, b: (B, S, ...); h0: (B, ...). Returns (all h (B, S, ...), final h).
-    The sequence is padded to a whole number of chunks with a = 1, b = 0,
-    which carries the state through unchanged."""
-    bsz, s = a.shape[0], a.shape[1]
-    c = min(chunk, s)
-    pad = (-s) % c
-    if pad:
-        tail = (0, 0) * (a.ndim - 2) + (0, pad)
-        a = F.pad(a, tail, value=1.0)
-        b = F.pad(b, tail)
-    n_chunks = a.shape[1] // c
-    h = h0
-    outs = []
-    for i in range(n_chunks):
-        a_blk = a[:, i * c:(i + 1) * c]
-        b_blk = b[:, i * c:(i + 1) * c]
-        # Fold the carry into the first element: b'_0 = b_0 + a_0 * h.
-        b_blk = torch.cat([(b_blk[:, 0] + a_blk[:, 0] * h)[:, None], b_blk[:, 1:]], dim=1)
-        _, cum_b = _associative_scan(_combine, (a_blk, b_blk), 1)
-        h = cum_b[:, -1]
-        outs.append(cum_b)
-    h_all = torch.cat(outs, dim=1) if n_chunks > 1 else outs[0]
-    return h_all[:, :s], h
 
 # ---------------------------------------------------------------------------
 # Causal depthwise conv1d (the mixer's short 'smear' conv)
@@ -182,9 +116,9 @@ def mamba_apply(
     ``out_proj``. The conv's taps, its bias and the SiLU run in f32 and
     round to the model dtype once, as the reference's compiled program
     keeps that fused bf16 chain in f32. The reference's
-    ``state_dtype=bfloat16`` mode rounds
-    the discretized tensors that the fused scan never forms, so it has
-    no counterpart here."""
+    ``state_dtype=bfloat16`` mode (``opt_bf16_ssm``) rounds the
+    discretized tensors that the fused scan never forms, so under that
+    flag the port runs the same f32 scan (``models/transformer.py``)."""
     di, n, dtr = spec.d_inner, spec.d_state, spec.dtr
     xz = linear(x, p["in_proj"])
     xin, z = xz.split(di, dim=-1)  # (B, S, di) each

@@ -28,15 +28,31 @@ divides s (``ROADMAP.md``, Queue 3).
 once per step): every attention layer derives its ring slot from it on
 the host.
 
-Not ported: the reference's ``opt_bf16_ssm`` mode (raises
-``ValueError``) and the training loss (``train_loss``,
-``chunked_softmax_ce``).
+Training: ``train_loss`` and ``chunked_softmax_ce`` (an online
+logsumexp over vocab chunks in float32, ``torch.utils.checkpoint`` per
+chunk under ``opt_ce_remat``); ``cfg.remat`` checkpoints each pattern
+unit when a gradient is being recorded (``"full"`` saves nothing,
+``"dots"`` the matmul outputs that carry no batch dimension, as
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``). The last
+vocab chunk's padding is masked: the reference slices that chunk with
+``dynamic_slice``, which clamps it back inside the vocab, so its loss is
+off whenever the chunk does not divide the vocab (``ROADMAP.md``,
+Queue 3). ``opt_bf16_ssm`` rounds the reference's discretized SSM
+tensors to bf16; the fused scan never forms them, so under the flag the
+port runs the same f32 scan.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backends import resolve_device
@@ -105,17 +121,6 @@ def _use_rope(cfg: ArchConfig, attn_kind: str) -> bool:
     if cfg.chunk > 0 and attn_kind == "causal":
         return False
     return True
-
-
-_BF16_SSM = (
-    "opt_bf16_ssm=True rounds the discretized SSM tensors to bf16, which "
-    "the fused scan never forms: the port runs the f32 recurrence only"
-)
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.opt_bf16_ssm:
-        raise ValueError(_BF16_SSM)
 
 
 # ---------------------------------------------------------------------------
@@ -328,8 +333,6 @@ def apply_block(p: dict, cfg: ArchConfig, kind: str, attn_kind: str, x, position
         f, aux = _ffn_apply(p["ffn"], cfg, h2)
         return x + f, new_cache, aux
     if kind == "mamba":
-        if cfg.opt_bf16_ssm:
-            raise ValueError(_BF16_SSM)
         h = L.apply_norm(x, p["ln1"], cfg.norm)
         if decode_index is not None or cache is not None:
             y, ssm_new, conv_new = mamba_apply(
@@ -443,26 +446,63 @@ def init_stack_cache(cfg: ArchConfig, n_layers: int, batch: int, max_len: int, *
     return cache
 
 
+# matmuls with no batch dimension (a linear's (B*S, d) @ (d, n)): what
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable keeps.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(cfg: ArchConfig, fn):
+    """``fn`` under ``cfg.remat``: ``"none"`` as is; ``"dots"`` checkpointed
+    saving the outputs of matmuls without a batch dimension; anything else
+    checkpointed saving nothing (full remat), as the reference's."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def apply_stack(params: dict, cfg: ArchConfig, x, positions, *, cache=None,
                 decode_index=None, encoder_out=None):
-    """Run the full stack. Returns (x, new_cache, total_aux)."""
+    """Run the full stack. Returns (x, new_cache, total_aux). While a
+    gradient is recorded (no cache), each pattern unit runs under
+    ``cfg.remat``, as the reference's scanned unit body does."""
     pat = cfg.block_pattern
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {"units": None, "tail": []}
     if params["units"] is not None:
         n_units = next(iter(_leaves(params["units"]))).shape[0]
         outs = [[] for _ in pat]
-        for u in range(n_units):
+
+        def unit_body(h, aux, u, unit_cache):
+            caches = []
             for i, kind in enumerate(pat):
                 p_u = _tree_map(lambda t: t[u], params["units"][i])
-                c_u = (_tree_map(lambda t: t[u], cache["units"][i])
-                       if cache is not None else None)
-                x, c_new, a = apply_block(
-                    p_u, cfg, kind, cfg.attn_kind_for_layer(i), x, positions,
+                c_u = _tree_map(lambda t: t[u], unit_cache[i]) if unit_cache is not None else None
+                h, c_new, a = apply_block(
+                    p_u, cfg, kind, cfg.attn_kind_for_layer(i), h, positions,
                     cache=c_u, decode_index=decode_index, encoder_out=encoder_out,
                 )
+                caches.append(c_new)
+                aux = aux + a
+            return h, aux, caches
+
+        remat = None
+        if cache is None and torch.is_grad_enabled():
+            remat = _remat_wrap(cfg, lambda h, aux, u: unit_body(h, aux, u, None)[:2])
+        for u in range(n_units):
+            if remat is not None:
+                x, total_aux = remat(x, total_aux, u)
+                continue
+            x, total_aux, caches = unit_body(x, total_aux, u,
+                                             cache["units"] if cache is not None else None)
+            for i, c_new in enumerate(caches):
                 outs[i].append(c_new)
-                total_aux = total_aux + a
         if cache is not None:
             new_cache["units"] = [_tree_map(lambda *ts: torch.stack(ts), *per_pos)
                                   for per_pos in outs]
@@ -488,7 +528,6 @@ def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
 
 
 def _init_params(generator, cfg: ArchConfig, device: torch.device) -> dict:
-    _check_ported(cfg)
     dt = _dtype(cfg)
     params = {
         "embed": L.embed_init(generator, (cfg.vocab_size, cfg.d_model), dt, device=device),
@@ -566,6 +605,72 @@ def forward_hidden(params: dict, cfg: ArchConfig, tokens, *, prefix_embeds=None,
 def unembed(params: dict, cfg: ArchConfig, h):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return torch.matmul(h, w)
+
+
+# ---------------------------------------------------------------------------
+# Chunked-vocab cross-entropy (the (B, S, V) logits never materialize)
+
+
+def _ce_chunk(h32, w_vocab, targets, m, lse_l, tgt, start: int, c: int):
+    """One vocab chunk of the online logsumexp: the logits of columns
+    ``start .. start + c - 1`` in float32 (columns past the vocab, the last
+    chunk's padding, at -1e30), folded into the running max ``m``, sum
+    ``lse_l`` and target logit ``tgt``."""
+    w_c = w_vocab[:, start:start + c].float()
+    logits = torch.matmul(h32, w_c)
+    if w_c.shape[1] < c:
+        logits = F.pad(logits, (0, c - w_c.shape[1]), value=-1e30)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    lse_l = lse_l * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(dim=-1)
+    local = torch.clamp(targets - start, 0, c - 1)
+    t_log = torch.gather(logits, -1, local[..., None])[..., 0]
+    in_chunk = (targets >= start) & (targets < start + c)
+    return m_new, lse_l, torch.where(in_chunk, t_log, tgt)
+
+
+def chunked_softmax_ce(h, w_vocab, targets, *, vocab_chunk: int = 8192,
+                       remat_chunks: bool = False):
+    """Mean CE via online logsumexp over vocab chunks, in float32.
+
+    h (B, S, d), ``w_vocab`` (d, V), ``targets`` (B, S) integer.
+    ``remat_chunks`` recomputes each logits chunk in the backward pass
+    (``torch.utils.checkpoint``) instead of saving it: B*S*V*4 bytes of
+    residuals saved for one extra h @ w_c matmul per chunk. The last
+    chunk's columns past V are padding, masked at -1e30."""
+    b, s, _ = h.shape
+    v = w_vocab.shape[1]
+    c = min(vocab_chunk, v)
+    n_chunks = -(-v // c)
+    h32 = h.float()
+    targets = targets.long()
+    step = _ce_chunk
+    if remat_chunks:
+        step = functools.partial(checkpoint, _ce_chunk, use_reentrant=False)
+    m = torch.full((b, s), -1e30, dtype=torch.float32, device=h.device)
+    lse_l = torch.zeros((b, s), dtype=torch.float32, device=h.device)
+    tgt = torch.zeros((b, s), dtype=torch.float32, device=h.device)
+    for ci in range(n_chunks):
+        m, lse_l, tgt = step(h32, w_vocab, targets, m, lse_l, tgt, ci * c, c)
+    nll = (m + torch.log(torch.clamp_min(lse_l, 1e-30))) - tgt
+    return nll.mean()
+
+
+def train_loss(params: dict, cfg: ArchConfig, batch: dict, *, aux_weight: float = 0.01,
+               vocab_chunk: int = 8192):
+    """batch: {'tokens': (B, S+1)} (+ 'prefix_embeds' / 'encoder_frames').
+    Returns (loss, {'ce': ce, 'aux': aux}): the next-token CE over the
+    token positions (prefix positions sliced off) through the tied or
+    untied head, plus ``aux_weight`` times the MoE load-balancing loss."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    h, _, aux = forward_hidden(params, cfg, inputs, prefix_embeds=batch.get("prefix_embeds"),
+                               encoder_frames=batch.get("encoder_frames"))
+    if batch.get("prefix_embeds") is not None:
+        h = h[:, batch["prefix_embeds"].shape[1]:]
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    ce = chunked_softmax_ce(h, w, targets, vocab_chunk=vocab_chunk,
+                            remat_chunks=cfg.opt_ce_remat)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

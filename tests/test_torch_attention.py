@@ -446,14 +446,13 @@ def test_moe_with_drops_keeps_each_experts_first_tokens():
 
 @pytest.mark.parametrize("module", ["attention", "moe", "ssm", "layers", "transformer"])
 def test_the_lm_modules_have_the_references_names(module):
-    """Every function and class the reference module defines, but the LM's
-    training loss (ROADMAP Queue 1 item 5) and the mesh constraint and
-    remat wrapper the port has no mesh or ``jax.checkpoint`` for."""
+    """Every function and class the reference module defines, but the mesh
+    constraint the port has no ambient mesh for."""
     import importlib
 
     j = importlib.import_module(f"repro.models.{module}")
     t = importlib.import_module(f"repro_torch.models.{module}")
-    left_out = {"train_loss", "chunked_softmax_ce", "_constrain", "_remat_wrap"}
+    left_out = {"_constrain"}
     names = {n for n, v in vars(j).items() if not n.startswith("__")
              and callable(v) and getattr(v, "__module__", None) == j.__name__}
     assert sorted(n for n in names - left_out if not hasattr(t, n)) == []

@@ -1,11 +1,15 @@
-"""The port's CNN examples, ``examples/torch/dhm_cnn.py`` and
-``examples/torch/serve_cnn.py``, run on the CPU at a smoke size (the
-trained LeNet5 cached in the test's temporary directory): each ends with
-``OK``, and the numbers the deterministic host models print (the DPN,
+"""The port's examples run on the CPU at a smoke size, each ending with
+``OK``. The CNN examples, ``examples/torch/dhm_cnn.py`` and
+``serve_cnn.py`` (the trained LeNet5 cached in the test's temporary
+directory): the numbers the deterministic host models print (the DPN,
 resources under the three multiplier strategies, DHM throughput, the
 stage balance and the pipelined stages' geometry and cost) are the
 reference functions' values for the same topology and, for the
-resources, the same trained parameters.
+resources, the same trained parameters. The LM examples,
+``quickstart.py``, ``serve.py`` and ``train_lm.py``: the parameter
+count, the token stream's loss floor and the pow2-packed stack's bytes
+are the reference's; the loss falls; a run with an injected failure
+restarts from its checkpoint and ends where the clean run ends.
 """
 import pytest
 
@@ -29,7 +33,13 @@ from repro.core.dhm import (  # noqa: E402
     dhm_throughput_gops,
     estimate_resources,
 )
+from repro.configs import get_arch  # noqa: E402
+from repro.configs.base import ArchConfig  # noqa: E402
 from repro.core.dhm.resources import ParamClassFractions  # noqa: E402
+from repro.data import TokenStreamConfig  # noqa: E402
+from repro.models import transformer as jT  # noqa: E402
+from repro.models.accounting import param_count  # noqa: E402
+from repro.models.layers import pack_params_pow2  # noqa: E402
 from repro.models.cnn import ALL_TOPOLOGIES, LENET5, init_cnn  # noqa: E402
 from repro.paper.analysis import classify_model  # noqa: E402
 
@@ -100,3 +110,60 @@ def test_serve_cnn_runs_every_section(tmp_path):
     for st in plan.stages:
         assert (f"  stage {st.index}: {st.io.in_shape} -> {st.io.out_shape} "
                 f"({st.cost_flops / 1e6:.2f} Mflop)") in lines
+
+
+# ---------------------------------------------------------------------------
+# The LM examples
+
+
+def _stack_mb(tree) -> float:
+    return sum(x.size * x.dtype.itemsize for x in jax.tree_util.tree_leaves(tree)) / 1e6
+
+
+def test_quickstart_trains_and_serves(tmp_path):
+    lines = _run("quickstart.py", results_dir=tmp_path)
+    assert f"token stream loss floor: {TokenStreamConfig(512, 64, 16).loss_floor:.3f} nats" in lines
+    losses = [float(ln.split()[-1]) for ln in lines if ln.startswith("step ")]
+    assert len(losses) == 4 and losses[-1] < losses[0]
+    assert any(ln.startswith("greedy continuation: [") for ln in lines)
+
+
+@pytest.mark.parametrize("pow2", [False, True])
+def test_serve_prefills_and_decodes(tmp_path, pow2):
+    lines = _run("serve.py", *(["--pow2", "--temperature", "0.8"] if pow2 else []),
+                 results_dir=tmp_path)
+    text = "\n".join(lines)
+    assert "prefill: batch=4 len=32" in text and "decode: 16 tokens x 4 seqs" in text
+    if pow2:
+        cfg = get_arch("qwen2.5-3b").scaled_down(n_layers=4, d_model=128, vocab_size=1024)
+        stack = jax.eval_shape(lambda k: jT.init_params(k, cfg)["stack"], jax.random.PRNGKey(0))
+        packed = jax.eval_shape(pack_params_pow2, stack)
+        before, after = _stack_mb(stack), _stack_mb(packed)
+        assert (f"pow2-packed stack: {before:.1f} MB -> {after:.1f} MB "
+                f"({before / after:.2f}x)") in lines
+
+
+def _ref_train_cfg(preset):
+    """``examples/train_lm.py``'s config for ``preset`` (its PRESETS row)."""
+    layers, d, h, kv, ff, v = {"smoke": (2, 128, 4, 2, 256, 512)}[preset]
+    return ArchConfig(name=f"lm-{preset}", family="dense", n_layers=layers, d_model=d,
+                      n_heads=h, n_kv_heads=kv, d_ff=ff, vocab_size=v, dtype="float32",
+                      remat="none")
+
+
+def test_train_lm_restarts_from_its_checkpoint(tmp_path):
+    args = ("--steps", "12", "--ckpt-every", "5")
+    clean = _run("train_lm.py", *args, "--ckpt-dir", str(tmp_path / "clean"),
+                 results_dir=tmp_path)
+    faulted = _run("train_lm.py", *args, "--ckpt-dir", str(tmp_path / "faulted"),
+                   "--inject-failure-at", "7", results_dir=tmp_path)
+    cfg = _ref_train_cfg("smoke")
+    assert f"model: 2L d=128 -> {param_count(cfg) / 1e6:.1f}M params on cpu" in clean
+    assert f"stream loss floor: {TokenStreamConfig(512, 64, 8).loss_floor:.3f} nats" in clean
+    done = [ln for ln in clean if ln.startswith("done:")][0]
+    done_f = [ln for ln in faulted if ln.startswith("done:")][0]
+    assert "restarts=0" in done and "restarts=1" in done_f
+    # Bitwise replay from the step-4 checkpoint: the same final loss.
+    assert done.split("final loss ")[1].split()[0] == done_f.split("final loss ")[1].split()[0]
+    assert sorted(os.listdir(tmp_path / "faulted")) == ["step_11", "step_9"]
+

@@ -387,18 +387,27 @@ def test_lm_entry_points_raise_without_a_card_unless_asked_for_the_cpu(monkeypat
 
 
 # ---------------------------------------------------------------------------
-# (g) what is not ported raises
+# (g) opt_bf16_ssm
 
 
-def test_opt_bf16_ssm_raises():
+def test_opt_bf16_ssm_is_accepted_and_runs_the_f32_scan():
+    """The reference's flag rounds its discretized SSM tensors to bf16,
+    which the fused scan never forms: the port accepts it and runs the
+    same f32 scan, so init, prefill and decode equal the flag's absence
+    bit for bit (the loss against the reference's 2 % bound:
+    ``test_torch_lm_train_parts.py``)."""
     _, tcfg = _cfgs()
+    flagged = dataclasses.replace(tcfg, opt_bf16_ssm=True)
     p = tT.init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    bad = dataclasses.replace(tcfg, opt_bf16_ssm=True)
-    toks = torch.zeros((1, 3), dtype=torch.long)
-    with pytest.raises(ValueError, match="opt_bf16_ssm"):
-        tT.init_params(torch.Generator().manual_seed(0), bad, device="cpu")
-    with pytest.raises(ValueError, match="opt_bf16_ssm"):
-        tT.prefill(p, bad, toks, max_len=4)
+    q = tT.init_params(torch.Generator().manual_seed(0), flagged, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(tT._leaves(p), tT._leaves(q)))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, tcfg.vocab_size, (2, 6)))
+    want, cache = tT.prefill(p, tcfg, toks[:, :-1], max_len=8)
+    got, cache_f = tT.prefill(p, flagged, toks[:, :-1], max_len=8)
+    assert torch.equal(got, want)
+    want, _ = tT.decode_step(p, tcfg, toks[:, -1:], cache, 5)
+    got, _ = tT.decode_step(p, flagged, toks[:, -1:], cache_f, 5)
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -57,7 +57,8 @@ def test_no_port_source_imports_jax_or_the_reference():
     assert files
     files += [SRC.parent / "chip_smoke.py", SRC.parent / "chip_phases.py"]
     examples = sorted((SRC.parent / "examples" / "torch").glob("*.py"))
-    assert [p.name for p in examples] == ["dhm_cnn.py", "serve_cnn.py"]
+    assert [p.name for p in examples] == ["dhm_cnn.py", "quickstart.py", "serve.py",
+                                          "serve_cnn.py", "train_lm.py"]
     files += examples
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -155,3 +156,28 @@ def test_the_training_subpackages_are_walked_and_import_no_jax(sub):
     assert (SRC / "repro_torch" / sub).is_dir() and sorted(
         p.name for p in (SRC / "repro" / sub).glob("*.py")) == sorted(
         p.name for p in (SRC / "repro_torch" / sub).glob("*.py"))
+
+
+def test_the_launch_subpackage_is_walked_and_imports_no_jax():
+    """``launch/``: every module of the reference's but its XLA dry-run
+    tools, imported with no JAX and no reference module loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch.launch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'repro_torch.launch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(sorted(mods), bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120, check=True,
+    ).stdout
+    dry_run = {"dryrun.py", "hlo_analysis.py", "optflags.py", "reanalyze.py"}
+    want = sorted(p.name for p in (SRC / "repro" / "launch").glob("*.py"))
+    got = sorted(p.name for p in (SRC / "repro_torch" / "launch").glob("*.py"))
+    assert got == [n for n in want if n not in dry_run]
+    assert out.strip() == str(sorted(f"repro_torch.launch.{n[:-3]}" for n in got
+                                     if n != "__init__.py")) + " []"
