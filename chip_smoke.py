@@ -135,6 +135,21 @@ Phases (each asserts or exits non-zero):
      scan is never called; under 180 s. falcon-mamba's bf16 weights that
      phase 6 times are set aside during the phase and drawn again after
      it from the same seed;
+  5k. (run last, after phase 6's profiles: it needs no profiler, and the
+     pipeline sweep's profile once recorded no kernel after it) the dry
+     run: launch/dryrun.py's run_cell at full width on the meta
+     device for decode_32k of all ten LM configs and train_4k of
+     qwen2.5-3b and falcon-mamba-7b, every status ok, the op log's FLOPs
+     equal to FlopCounterMode's, beside model_flops, with trace_s; then
+     the same recorder over real steps on the card, falcon-mamba-7b bf16
+     training (5j's 4 layers, B=4, S=512, one step through the scan
+     kernel) and qwen2.5-3b bf16 prefill of 4 x 512 at full depth: the
+     card's log holds the meta trace's FLOPs and op counts per overload,
+     the predicted peak (arguments + the log's peak live bytes) lies
+     within 10 % of torch.cuda.max_memory_allocated above the cell's
+     start, and the step timed without the recorder gives its TFLOP/s
+     beside the dense bf16 peak; the scan kernel launches, the plain
+     scan is never called;
   6. time each kernel, its plain version and the library call with CUDA
      events at main-path shapes, beside the card's bound; the fp32 and
      int8 conv kernels, pow2_matmul, the seed conv and their library calls
@@ -175,7 +190,8 @@ and zeroed just before phase 5g's training runs and read just after them
 examples and read just after them (``launches_5h``), and zeroed just
 before phase 5i and read just after it (``launches_5i``, all 0), and
 zeroed just before phase 5j's kernel runs and read at its end
-(``launches_5j``): they show that each path went through its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
+(``launches_5j``), and zeroed just before phase 5k's steps on the card
+and read at its end (``launches_5k``): they show that each path went through its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
 before a path's counts are zeroed.
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -320,6 +336,21 @@ QAT_GRAD_REL_L2 = 2e-2
 # frames (normal, seed SEED) under which cuDNN's algorithm is measured
 # against PyTorch's own convolution and a float64 composition.
 PRECISION_BATCH = 16
+
+# Phase 5k, the dry run: the full-width cells traced on meta (decode_32k
+# for every config, train_4k for two), and the cells the same recorder
+# watches on the card: (config, layers (None: all), batch, sequence,
+# kind), falcon-mamba at 5j's bf16 training setting and qwen2.5-3b's bf16
+# prefill at 5i's serving size; the predicted peak (arguments + the log's
+# peak live bytes) within DRY_PEAK_RTOL of the allocator's; the dense bf16
+# peak (NVIDIA data sheet, H100 SXM) for the achieved rate's share; the
+# phase's time limit.
+DRY_TRAIN_ARCHS = ("qwen2.5-3b", "falcon-mamba-7b")
+DRY_CUDA_CELLS = (("falcon-mamba-7b", LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_LEN, "train"),
+                  ("qwen2.5-3b", None, FAM_BATCH, FAM_PROMPT, "prefill"))
+DRY_PEAK_RTOL = 0.10
+PEAK_BF16_FLOPS = 989e12
+PHASE_5K_LIMIT_S = 400.0
 
 
 def regroup_topologies(cnn) -> dict:
@@ -1335,6 +1366,148 @@ def phase_5j(smi: str) -> dict:
           + ", ".join(f"{f} {t:.2f} s" for f, t in ex_s.items())
           + f"; launches { {k: v for k, v in window.items() if v} }; the plain scan called 0 "
           f"times; phase {elapsed:.1f} s ({smi})")
+    return window
+
+
+def phase_5k(smi: str) -> dict:
+    """The dry run (phase 5k). Returns the launches of the phase's window:
+    (b)'s CUDA steps."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.pow2_matmul import pow2 as kpow2
+    from repro_torch.kernels.ssm_scan import ops as kssm_ops
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.kernels.stream_conv import conv as kconv
+    from repro_torch.kernels.stream_conv import legacy as klegacy
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import analyze_hlo, op_counts, record, top_contributors
+    from repro_torch.launch.mesh import make_production_mesh
+
+    dev = torch.device("cuda")
+    mods = (kconv, kpow2, kscan, klegacy)
+    t_phase = time.perf_counter()
+
+    # (a) the dry run at full width on meta, through run_cell (records and
+    # logs in a temporary directory).
+    cells = ([(a, "decode_32k") for a in list_archs()]
+             + [(a, "train_4k") for a in DRY_TRAIN_ARCHS])
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    results = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    saved_dir, dryrun.RESULTS_DIR = dryrun.RESULTS_DIR, results
+    try:
+        for arch, shape_name in cells:
+            rec = dryrun.run_cell(arch, shape_name)
+            check(rec["status"] == "ok", f"5k dry run {arch} x {shape_name}: {rec['status']}")
+            st, mem = rec["step"], rec["memory"]
+            check(st["flops"] == st["flop_counter_flops"] and
+                  os.path.exists(dryrun.log_path(dryrun.cell_path(arch, shape_name, False))),
+                  f"5k dry run {arch} x {shape_name}: {st}")
+            print(f"[5k] dry run {arch} x {shape_name} on meta: {st['flops']:.4e} FLOPs "
+                  f"(model_flops {rec['model_flops']:.4e}, x{st['flops'] / rec['model_flops']:.4f}), "
+                  f"{st['hbm_bytes']:.4e} HBM bytes of the eager step, peak live "
+                  f"{st['peak_live_bytes'] / 1e9:.2f} GB above {st['argument_bytes'] / 1e9:.2f} GB "
+                  f"of arguments on one card; per device of 256: arguments "
+                  f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, outputs "
+                  f"{mem['output_size_in_bytes'] / 1e9:.3f} GB; {st['ops']:,} ops, "
+                  f"log {rec['hlo_bytes'] / 1e6:.1f} MB; trace_s {rec['trace_s']} ({smi})")
+    finally:
+        dryrun.RESULTS_DIR = saved_dir
+        shutil.rmtree(results, ignore_errors=True)
+
+    # (b) the recorder over real steps on the card, each against its meta
+    # trace: the same FLOPs and ops, the predicted peak within
+    # DRY_PEAK_RTOL of the allocator's; then the same step timed without
+    # the recorder.
+    mesh = make_production_mesh(device="cpu")
+    dispatch_plain, plain_calls = kssm_ops.ssm_scan_ref, [0]
+
+    def counted_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return dispatch_plain(*args, **kwargs)
+
+    for m in mods:
+        m.reset_launch_counts()
+    kssm_ops.ssm_scan_ref = counted_plain
+    try:
+        for arch, layers, b, s, kind in DRY_CUDA_CELLS:
+            cfg = get_arch(arch)
+            cfg = dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+            shape = ShapeConfig(f"5k_{kind}", s, b, kind)
+            tr = dryrun.trace_cell(cfg, shape, mesh)
+            want = analyze_hlo(tr.instrs)
+            step, meta_args, _ = dryrun.cell_step(cfg, shape, mesh)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            args = dryrun.cell_args(cfg, shape, torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            arg_bytes = dryrun.tree_bytes(args)
+            check(arg_bytes == dryrun.tree_bytes(meta_args),
+                  f"5k {arch}: arguments {arg_bytes} B on the card, {dryrun.tree_bytes(meta_args)} "
+                  f"B on meta")
+            torch.cuda.reset_peak_memory_stats()
+            before = kscan.LAUNCHES["ssm_scan"]
+            out, rec, counter = record(step, *args, device=dev)
+            torch.cuda.synchronize()
+            measured = torch.cuda.max_memory_allocated() - base
+            launched = kscan.LAUNCHES["ssm_scan"] - before
+            del out
+            got = analyze_hlo(rec.instrs)
+            check(got.flops == want.flops and counter == tr.counter_flops,
+                  f"5k {arch} {kind}: {got.flops} FLOPs on the card, {want.flops} on meta")
+            on_card, on_meta = op_counts(rec.instrs), op_counts(tr.instrs)
+            diff = {k: (on_meta.get(k), on_card.get(k)) for k in set(on_card) | set(on_meta)
+                    if on_card.get(k) != on_meta.get(k)}
+            check(not diff, f"5k {arch} {kind}: op counts differ (meta, card): {diff}")
+            predicted = arg_bytes + tr.peak_live_bytes
+            off = predicted / measured - 1
+            check(abs(off) <= DRY_PEAK_RTOL,
+                  f"5k {arch} {kind}: predicted peak {predicted} B, the allocator's {measured} B")
+            if arch == "falcon-mamba-7b":
+                check(launched == 2 * cfg.n_layers, f"5k {arch}: ssm_scan launched {launched} times")
+            gc.collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            del out
+            rate = want.flops / step_s
+            print(f"[5k] {arch} {cfg.dtype} {kind}, {cfg.n_layers} layers at full width, B={b}, "
+                  f"S={s}, on the card under the recorder: {len(rec.instrs):,} ops, per overload "
+                  f"the meta trace's; {got.flops:.4e} FLOPs (meta {want.flops:.4e}, "
+                  f"FlopCounterMode {counter:.4e}), {got.hbm_bytes:.4e} HBM bytes; peak: "
+                  f"predicted {predicted / 1e9:.3f} GB (arguments {arg_bytes / 1e9:.3f} + live "
+                  f"{tr.peak_live_bytes / 1e9:.3f}; the card's log {rec.peak_live_bytes / 1e9:.3f}), "
+                  f"max_memory_allocated {measured / 1e9:.3f} GB ({off * 100:+.2f} %); "
+                  f"ssm_scan launched {launched} times; the step without the recorder "
+                  f"{step_s * 1e3:.2f} ms (host clock, synchronized): {rate / 1e12:.2f} TFLOP/s, "
+                  f"{rate / PEAK_BF16_FLOPS * 100:.2f} % of the dense bf16 peak "
+                  f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {got.hbm_bytes / step_s / 1e12:.3f} TB/s of "
+                  f"logged traffic ({smi})")
+            print(f"[5k] {arch} {kind}: the log's largest HBM-byte contributors: "
+                  + "; ".join(f"{c['op']} at {c['site']} {c['shape']} {c['bytes'] / 1e9:.2f} GB"
+                              for c in top_contributors(tr.instrs, 4)))
+            del args, rec, tr, meta_args
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        kssm_ops.ssm_scan_ref = dispatch_plain
+    window = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    check(window["ssm_scan"] > 0, f"phase 5k launches: {window}")
+    check(plain_calls[0] == 0, f"phase 5k called the plain scan {plain_calls[0]} times")
+    elapsed = time.perf_counter() - t_phase
+    check(elapsed < PHASE_5K_LIMIT_S, f"phase 5k took {elapsed:.1f} s")
+    print(f"[5k] dry run: launches { {k: v for k, v in window.items() if v} }; the plain scan "
+          f"called 0 times; phase {elapsed:.1f} s ({smi})")
     return window
 
 
@@ -3128,19 +3301,28 @@ def main() -> None:
     trace_path = os.path.join(ROOT, "build", "pipeline_sweep_trace.json")
     os.makedirs(os.path.dirname(trace_path), exist_ok=True)
 
-    def kernel_union(fn, reps=5):
+    def kernel_union(fn, reps=5, tries=3):
         """(sum, union) of the kernels' device intervals per call, ms, over
-        ``reps`` calls on the profiler's clock, and the kernels per call."""
+        ``reps`` calls on the profiler's clock, and the kernels per call;
+        (None, None, 0) when the profiler recorded no kernel in ``tries``
+        readings (it drops records at times)."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        prof.export_chrome_trace(trace_path)
-        with open(trace_path) as fh:
-            evs = [e for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"]
-        os.remove(trace_path)
+        for attempt in range(tries):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(trace_path)
+            with open(trace_path) as fh:
+                evs = [e for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"]
+            os.remove(trace_path)
+            if evs:
+                break
+            print(f"[6] the profiler recorded no kernel of a pipelined call over {reps} calls "
+                  f"(try {attempt + 1} of {tries}); reading again")
+        else:
+            return None, None, 0
         iv = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in evs)
         total = sum(b - a for a, b in iv)
         union, end = 0.0, None
@@ -3197,10 +3379,13 @@ def main() -> None:
               f"mb={row['microbatch']} overlap={row['overlap']} ({smi}): "
               f"{row['frames_per_s']:.0f} frames/s ({row['ms']:.4f} ms a call, CUDA events); "
               f"1-stage fused {row['fused_fps']:.0f}, {row['n_stages']}-stage in sequence "
-              f"{row['sequential_fps']:.0f} frames/s; kernels {row['kernels']:.0f} a call, device "
-              f"sum {row['kernel_sum_ms']:.4f} ms, union {row['kernel_union_ms']:.4f} ms "
-              f"(union/sum {row['kernel_union_ms'] / row['kernel_sum_ms']:.3f}, busy share "
-              f"{row['kernel_union_ms'] / row['ms']:.3f}); model {est.frames_per_s:.0f} frames/s")
+              f"{row['sequential_fps']:.0f} frames/s; "
+              + (f"kernels {row['kernels']:.0f} a call, device sum {row['kernel_sum_ms']:.4f} ms, "
+                 f"union {row['kernel_union_ms']:.4f} ms (union/sum "
+                 f"{row['kernel_union_ms'] / row['kernel_sum_ms']:.3f}, busy share "
+                 f"{row['kernel_union_ms'] / row['ms']:.3f})" if row["kernels"] else
+                 "kernels' device time not measured (the profiler recorded none)")
+              + f"; model {est.frames_per_s:.0f} frames/s")
     pick = autotune_pipeline(plan3, PIPE_STAGES,
                              measurements=[r for r in sweep_rows if r["n_stages"] == PIPE_STAGES],
                              constants=fitted)
@@ -3213,6 +3398,10 @@ def main() -> None:
     # heaviest profiles of the script.
     time_lm_training(smi)
 
+    # -- 5k. the dry run, after every profile: it needs no profiler, and a
+    # profile after it (the pipeline sweep) once recorded no kernel.
+    dryrun_launches = phase_5k(smi)
+
     check(join_watchdogs(30.0) == 0, "a watchdog thread is still running at the end")
     torch.cuda.synchronize()
 
@@ -3223,6 +3412,7 @@ def main() -> None:
         rec["launches_5h"] = static_launches.get(rec["name"], 0)
         rec["launches_5i"] = family_launches.get(rec["name"], 0)
         rec["launches_5j"] = lm_train_launches.get(rec["name"], 0)
+        rec["launches_5k"] = dryrun_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,10 +1,16 @@
 """Public wrapper for the fused selective scan.
 
 The reference picks a path with a ``backend=`` enum; the port dispatches
-on the device of ``x``: a CUDA tensor goes to the hand-written kernel
-(``scan.py``) and the call raises if the kernel cannot take it; a CPU
-tensor goes to the plain PyTorch version (``ref.py``). There is no other
-path and no fallback between the two.
+on the device of ``x`` through one registered op, ``repro_torch::ssm_scan``
+(``torch.library.custom_op``): its CUDA implementation is the hand-written
+kernel (``scan.py``), which raises if it cannot take the call; its CPU
+implementation is the plain PyTorch version (``ref.py``); its fake (meta)
+implementation gives the outputs' shapes, so a step runs on the ``meta``
+device with the scan as one node, charged 2 Bz S D N FLOPs (the
+contraction with C, what the reference's HLO analysis counts for the
+composition its model lowers) under ``FlopCounterMode`` and the dry run
+(``launch/dryrun.py``). The op is the only place a ``meta`` tensor is
+accepted; any other device raises. There is no fallback between paths.
 
 A call that autograd must see through (grad mode on, and an input
 requiring grad) goes through :class:`_ScanGrad`: its forward is the same
@@ -15,20 +21,44 @@ autodiff of the reference's ``mamba_apply`` (the JAX package has no
 backward kernel). Every other call, inference included, is the bare
 dispatch.
 """
-from __future__ import annotations
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels.backends import backward_numerics, on_cuda
+from repro_torch.kernels.backends import backward_numerics
 from repro_torch.kernels.ssm_scan import ref as _ref
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.kernels.ssm_scan.scan import ssm_scan_cuda
 
 
-def _dispatch(x, dt, b, c, a, d_skip, h0):
-    if not on_cuda(x):
-        return ssm_scan_ref(x, dt, b, c, a, d_skip, h0)
+@torch.library.custom_op("repro_torch::ssm_scan", mutates_args=(), device_types="cpu")
+def scan_op(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+            a: torch.Tensor, d_skip: torch.Tensor,
+            h0: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan as one op: (y (Bz, S, D) f32, h_last (Bz, D, N)
+    f32). On the CPU the plain version (this module's ``ssm_scan_ref``,
+    looked up at each call, so a test may count its calls)."""
+    return ssm_scan_ref(x, dt, b, c, a, d_skip, h0)
+
+
+@scan_op.register_kernel("cuda")
+def _scan_cuda(x, dt, b, c, a, d_skip, h0):
     return ssm_scan_cuda(x, dt, b, c, a, d_skip, h0)
+
+
+@scan_op.register_fake
+def _scan_fake(x, dt, b, c, a, d_skip, h0):
+    bz, s, di = x.shape
+    return (x.new_empty((bz, s, di), dtype=torch.float32),
+            x.new_empty((bz, di, b.shape[-1]), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan)
+def scan_flops(x_shape, dt_shape, b_shape, *args, **kwargs) -> int:
+    """2 Bz S D N: the states' contraction with C."""
+    bz, s, di = x_shape
+    return 2 * bz * s * di * b_shape[-1]
 
 
 class _ScanGrad(torch.autograd.Function):
@@ -49,7 +79,7 @@ class _ScanGrad(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.has_h0 = h0 is not None
         ctx.save_for_backward(x, dt, b, c, a, d_skip, *((h0,) if ctx.has_h0 else ()))
-        return _dispatch(x, dt, b, c, a, d_skip, h0)
+        return scan_op(x, dt, b, c, a, d_skip, h0)
 
     @staticmethod
     def backward(ctx, g_y, g_h):
@@ -95,4 +125,4 @@ def ssm_scan(x, dt, b, c, a, d_skip, h0=None, *, block_d: int = 256):
     inputs = (x, dt, b, c, a, d_skip, h0)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         return _ScanGrad.apply(*inputs)
-    return _dispatch(*inputs)
+    return scan_op(*inputs)

@@ -70,11 +70,19 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _one_hot(ids: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``F.one_hot(ids, n)`` in ``dtype``, as one comparison with
+    ``arange``: the same ops on every device (``F.one_hot`` checks the
+    ids' range on the CPU, scatters on the card and compares on ``meta``),
+    so a dry run's op log is the card's."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).to(dtype)
+
+
 def _expert_positions(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
     """The position of each (token, slot) within its expert, in token
     order: ``flat_e`` (G, T*k) holds the experts of the flattened (T*k)
     slots, token-major; the cumsum runs over that order."""
-    onehot = F.one_hot(flat_e, n_experts)  # (G, T*k, E)
+    onehot = _one_hot(flat_e, n_experts, torch.int64)  # (G, T*k, E)
     return (torch.cumsum(onehot, dim=1) - 1).gather(2, flat_e[..., None])[..., 0]
 
 
@@ -127,7 +135,7 @@ def _route_group(x: torch.Tensor, p: dict, spec: MoESpec):
     out.scatter_add_(1, src[..., None].expand(grp, spare, d), y_flat)
 
     # Switch load-balancing aux loss: E * sum_e f_e * P_e.
-    f_e = F.one_hot(expert_ids, e).float().sum(dim=2).mean(dim=1)  # (G, E)
+    f_e = _one_hot(expert_ids, e, torch.float32).sum(dim=2).mean(dim=1)  # (G, E)
     p_e = probs.mean(dim=1)
     aux = e * ((f_e / k) * p_e).sum(dim=-1)
     return out.to(x.dtype), aux

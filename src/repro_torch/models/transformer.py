@@ -458,13 +458,17 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _remat_wrap(cfg: ArchConfig, fn):
     """``fn`` under ``cfg.remat``: ``"none"`` as is; ``"dots"`` checkpointed
     saving the outputs of matmuls without a batch dimension; anything else
-    checkpointed saving nothing (full remat), as the reference's."""
+    checkpointed saving nothing (full remat), as the reference's. No RNG
+    state is stashed: the LM draws no random numbers, and on the card the
+    stash clones the RNG state at every recompute, ops a dry run on
+    ``meta`` would not see."""
     if cfg.remat == "none":
         return fn
     kw = {}
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+                             **kw)
 
 
 def apply_stack(params: dict, cfg: ArchConfig, x, positions, *, cache=None,
@@ -645,7 +649,8 @@ def chunked_softmax_ce(h, w_vocab, targets, *, vocab_chunk: int = 8192,
     targets = targets.long()
     step = _ce_chunk
     if remat_chunks:
-        step = functools.partial(checkpoint, _ce_chunk, use_reentrant=False)
+        step = functools.partial(checkpoint, _ce_chunk, use_reentrant=False,
+                                 preserve_rng_state=False)
     m = torch.full((b, s), -1e30, dtype=torch.float32, device=h.device)
     lse_l = torch.zeros((b, s), dtype=torch.float32, device=h.device)
     tgt = torch.zeros((b, s), dtype=torch.float32, device=h.device)

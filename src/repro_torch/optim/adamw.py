@@ -58,8 +58,10 @@ def adamw_update(grads: Any, state: OptState, params: Any, cfg: AdamWConfig, lr)
     in place."""
     step = state.step + 1
     t = step.to(torch.float32)
-    c1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=t.device), t)
-    c2 = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=t.device), t)
+    # torch.full, not torch.tensor: the same ops on every device, meta
+    # included (a dry run's op log is the card's).
+    c1 = 1.0 - torch.pow(torch.full((), cfg.b1, dtype=torch.float32, device=t.device), t)
+    c2 = 1.0 - torch.pow(torch.full((), cfg.b2, dtype=torch.float32, device=t.device), t)
     lr = torch.as_tensor(lr, dtype=torch.float32)
 
     source = state.master if cfg.keep_master_copy else params

@@ -159,25 +159,28 @@ def test_the_training_subpackages_are_walked_and_import_no_jax(sub):
 
 
 def test_the_launch_subpackage_is_walked_and_imports_no_jax():
-    """``launch/``: every module of the reference's but its XLA dry-run
-    tools, imported with no JAX and no reference module loaded."""
+    """``launch/``: every module of the reference's, the dry-run tools
+    (``dryrun``, ``hlo_analysis``, ``optflags``, ``reanalyze``) included,
+    imported with no JAX, no reference module and no ``zstandard`` loaded,
+    and no ``XLA_FLAGS`` set."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "import repro_torch.launch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'repro_torch.launch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
-        "print(sorted(mods), bad)\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN + ('zstandard',)!r})\n"
+        "print(sorted(mods), bad, 'XLA_FLAGS' in os.environ)\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(SRC)
     out = subprocess.run(
         [sys.executable, "-c", code], env=env, capture_output=True, text=True,
         timeout=120, check=True,
     ).stdout
-    dry_run = {"dryrun.py", "hlo_analysis.py", "optflags.py", "reanalyze.py"}
     want = sorted(p.name for p in (SRC / "repro" / "launch").glob("*.py"))
     got = sorted(p.name for p in (SRC / "repro_torch" / "launch").glob("*.py"))
-    assert got == [n for n in want if n not in dry_run]
+    assert got == want
+    assert {"dryrun.py", "hlo_analysis.py", "optflags.py", "reanalyze.py"} <= set(got)
     assert out.strip() == str(sorted(f"repro_torch.launch.{n[:-3]}" for n in got
-                                     if n != "__init__.py")) + " []"
+                                     if n != "__init__.py")) + " [] False"

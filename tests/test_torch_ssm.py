@@ -25,6 +25,7 @@ from repro.kernels.ssm_scan import ssm_scan_ref as j_ssm_scan_ref  # noqa: E402
 from repro.kernels.stream_conv import stream_conv2d_ref as j_conv_ref  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro_torch.convert import lm_params_from_numpy  # noqa: E402
+from repro_torch.kernels.backends import on_cuda  # noqa: E402
 from repro_torch.kernels.ssm_scan import scan as kscan  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref  # noqa: E402
 from repro_torch.kernels.stream_conv import legacy as klegacy  # noqa: E402
@@ -117,8 +118,12 @@ def test_scan_on_the_cpu_launches_nothing_and_the_kernel_wrapper_refuses_cpu_ten
     assert kscan.LAUNCHES == before
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         kscan.ssm_scan_cuda(*args)
+    # The registered op takes meta tensors (shapes only: the dry run);
+    # the device policy itself still refuses them.
+    y, h_last = ssm_scan(*(t.to("meta") for t in args))
+    assert (y.device.type, tuple(y.shape), tuple(h_last.shape)) == ("meta", (1, 3, 8), (1, 8, 2))
     with pytest.raises(ValueError, match="unsupported device"):
-        ssm_scan(*(t.to("meta") for t in args))
+        on_cuda(args[0].to("meta"))
     assert kscan.LAUNCHES == before
 
 
