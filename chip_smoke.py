@@ -29,7 +29,9 @@ Phases (each asserts or exits non-zero):
      both with the plain-version forward;
   5. serve 24 requests of 1-256 frames with deadlines through
      Engine(plan, microbatch=256) with the flush loop on, and hold every
-     answer against plan(x) and the plain-version forward;
+     answer bit for bit against plan(x) (the plan's CUDA graph) and eager
+     forward on the group as the engine pads it, and against the
+     plain-version forward;
   4b. the int8 and pow2 path on an on-grid B=256 batch: plan (a)
      QuantSpec(weight_bits=8, act_bits=8, int8_compute=True), fused and
      vmem_budget=0, bit for bit against the 8-bit fake-quant plan; plan
@@ -38,7 +40,7 @@ Phases (each asserts or exits non-zero):
      (fp32 kernels, fp32-decode head); plan (c) QuantSpec(pow2_weights=
      True) against the plain-version forward;
   5b. serve the same burst through Engine(plan (b)) and hold every answer
-     bit for bit against plan (b)(x);
+     bit for bit against plan (b)(x) and eager forward on the padded group;
   4c. the fp32 gate: falcon-mamba at full width and depth in float32,
      drawn on the card; prefill (B=2, S=256) through the kernel against
      the same prefill through the plain scan, and prefill of S-1 tokens
@@ -135,6 +137,22 @@ Phases (each asserts or exits non-zero):
      scan is never called; under 180 s. falcon-mamba's bf16 weights that
      phase 6 times are set aside during the phase and drawn again after
      it from the same seed;
+  5l. the plan's jitted closure (jitted_forward(), one CUDA graph of the
+     kernels per input shape): cifar10 at full width on fresh plans, the
+     fp32 fused plan, its vmem_budget=0 plan, plans (a), (b) and (c), at
+     B = 1, 8 and 256: each replay bit for bit equal to eager forward, one
+     capture a shape, the replay's launches counted equal to the eager
+     call's (a capture's first call counts its eager warm-up too), x
+     unchanged under donate=False, the donating closure's buffer read in
+     place (no device copy, the verifier's lower_donated); phase 5's burst
+     through Engine(plan, microbatch=256) donating and not, every answer
+     equal to eager forward on the padded group, the rung fused with one
+     capture; a DispatchError past the retries demotes to per_layer, which
+     serves through its own graph; two Router tenants (fp32 and plan (b))
+     from 4 threads, every answer equal to eager forward; then CUDA-event
+     ms of eager forward against the graph at B = 1, 8 and 256 (fp32 and
+     plan (b)) and the Engine's host ms per micro-batch eager against the
+     graph; no plain version is called, under 60 s;
   5k. (run last, after phase 6's profiles: it needs no profiler, and the
      pipeline sweep's profile once recorded no kernel after it) the dry
      run: launch/dryrun.py's run_cell at full width on the meta
@@ -190,8 +208,11 @@ and zeroed just before phase 5g's training runs and read just after them
 examples and read just after them (``launches_5h``), and zeroed just
 before phase 5i and read just after it (``launches_5i``, all 0), and
 zeroed just before phase 5j's kernel runs and read at its end
-(``launches_5j``), and zeroed just before phase 5k's steps on the card
-and read at its end (``launches_5k``): they show that each path went through its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
+(``launches_5j``), zeroed just before phase 5l's captures and read after
+its Router (``launches_5l``), and zeroed just before phase 5k's steps on
+the card and read at its end (``launches_5k``). A CUDA graph's replay
+adds the launches its capture recorded, and the first call of a shape
+also its eager warm-up's: they show that each path went through its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
 before a path's counts are zeroed.
 Imports nothing of JAX and nothing of the reference package.
 """
@@ -351,6 +372,18 @@ DRY_CUDA_CELLS = (("falcon-mamba-7b", LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_
 DRY_PEAK_RTOL = 0.10
 PEAK_BF16_FLOPS = 989e12
 PHASE_5K_LIMIT_S = 400.0
+# Phase 5l, the plan's jitted closure: (plan, its QuantSpec's key, its
+# vmem_budget) of the plans captured, the batch sizes of each capture, the
+# Router's requests per tenant, the Engine's micro-batches timed on the
+# host clock (the first 3 are its warm-up), CUDA-event calls per reading,
+# and the phase's time limit.
+PHASE_5L_PLANS = (("fp32 fused", "fp32", None), ("fp32 vmem_budget=0", "fp32", 0),
+                  ("(a)", "a", None), ("(b)", "b", None), ("(c)", "c", None))
+PHASE_5L_SIZES = (1, 8, 256)
+PHASE_5L_TENANT_REQUESTS = 6
+PHASE_5L_HOST_BATCHES = 23
+PHASE_5L_ITERS = 50
+PHASE_5L_LIMIT_S = 60.0
 
 
 def regroup_topologies(cnn) -> dict:
@@ -1511,6 +1544,213 @@ def phase_5k(smi: str) -> dict:
     return window
 
 
+def phase_5l(smi: str, topo, cparams, x, xq, frames, quants) -> dict:
+    """The plan's jitted closure on the card (phase 5l): CUDA graphs of the
+    kernels, captured per input shape. Returns the launches of the phase's
+    window."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis.verify import ProbeContext
+    from repro_torch.core.dhm import DispatchError, Engine, FaultPlan, Router, compile_dhm
+    from repro_torch.core.dhm.engine import JittedForward, forward
+    from repro_torch.core.dhm.pipeline import join_watchdogs
+    from repro_torch.kernels.pow2_matmul import pow2 as kpow2
+    from repro_torch.kernels.stream_conv import conv as kconv
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    frame = tuple(x.shape[1:])
+
+    def counts():
+        return {**kconv.LAUNCHES, **kpow2.LAUNCHES}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in counts().items() if v != before[k]}
+
+    def eager(plan_, xb):
+        with torch.inference_mode():
+            return forward(plan_, xb)
+
+    def padded(f):
+        return np.concatenate([f, np.zeros((BATCH - f.shape[0],) + f.shape[1:], np.float32)])
+
+    def events_ms(fn, iters=PHASE_5L_ITERS):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    # Fresh plans on phase 4's params, so that every capture of the phase
+    # is counted from none.
+    plans = {what: compile_dhm(topo, cparams, quant=quants[q], vmem_budget=budget)
+             for what, q, budget in PHASE_5L_PLANS}
+    inputs = {what: (x if q in ("fp32", "c") else xq) for what, q, _ in PHASE_5L_PLANS}
+    plain, restore_plain = count_plain_versions()
+    kconv.reset_launch_counts()
+    kpow2.reset_launch_counts()
+    try:
+        # (a) each plan's closures at B = 1, 8 and 256 against eager forward.
+        for what, plan_ in plans.items():
+            fwd, fwd_d = plan_.jitted_forward(), plan_.jitted_forward(donate=True)
+            check(isinstance(fwd, JittedForward) and fwd_d.donate and not fwd.donate
+                  and plan_.jitted_forward() is fwd, f"5l {what}: closures {fwd!r} {fwd_d!r}")
+            for b_ in PHASE_5L_SIZES:
+                xb = inputs[what][:b_].contiguous()
+                before = counts()
+                want = eager(plan_, xb)
+                torch.cuda.synchronize()
+                per_call = delta(before)
+                kept = xb.clone()
+                before = counts()
+                first = fwd(xb)  # warm-up + capture + replay
+                first_launches = delta(before)
+                before = counts()
+                again = plan_(xb)  # a replay alone
+                torch.cuda.synchronize()
+                replay_launches = delta(before)
+                check(torch.equal(first, want) and torch.equal(again, want),
+                      f"5l {what} B={b_}: graph against eager forward, max |delta| "
+                      f"{float((first - want).abs().max())}, {float((again - want).abs().max())}")
+                check(torch.equal(xb, kept), f"5l {what} B={b_}: donate=False changed the input")
+                check(first_launches == {k: 2 * v for k, v in per_call.items()}
+                      and replay_launches == per_call,
+                      f"5l {what} B={b_}: eager {per_call}, first call {first_launches}, "
+                      f"replay {replay_launches}")
+                rep = ProbeContext(plan_, batch=b_).lower_donated()
+                check(rep.declared and rep.input_copies == 0,
+                      f"5l {what} B={b_}: the donating closure copied its buffer: {rep}")
+                with fwd_d.lock:
+                    buf = fwd_d.input_buffer(tuple(xb.shape))
+                    buf.copy_(xb)
+                    donated = fwd_d(buf)
+                check(torch.equal(donated, want), f"5l {what} B={b_}: donating closure")
+            check(fwd._cache_size() == len(PHASE_5L_SIZES)
+                  and fwd_d._cache_size() == len(PHASE_5L_SIZES),
+                  f"5l {what}: {fwd._cache_size()} and {fwd_d._cache_size()} captures for "
+                  f"{len(PHASE_5L_SIZES)} shapes")
+            print(f"[5l] {what}: jitted_forward() at B={PHASE_5L_SIZES} bit for bit equal to eager "
+                  f"forward, one capture a shape (donate=False and True), x unchanged, replay "
+                  f"launches {replay_launches} equal to the eager call's, the donating closure's "
+                  f"buffer read in place (0 device copies)")
+
+        # (b) phase 5's burst through Engine(plan, microbatch=256), donating
+        # and not, on plans of their own.
+        fused0 = plans["fp32 fused"]
+        for donate in (True, False):
+            plan_e = compile_dhm(topo, cparams, quant=quants["fp32"])
+            eng = Engine(plan_e, microbatch=BATCH, auto_flush=True, donate=donate,
+                         default_deadline_ms=10_000.0)
+            reqs = [eng.submit(f) for f in frames]
+            answers = [r.result(timeout=120.0) for r in reqs]
+            eng.stop()
+            for f, got in zip(frames, answers):
+                want = eager(fused0, torch.from_numpy(padded(f)).to(dev))[: f.shape[0]].cpu()
+                check(torch.equal(got, want), f"5l engine donate={donate}: max |delta| "
+                      f"{float((got - want).abs().max())} against eager forward")
+            st_ = eng.stats()
+            check(eng.rung == "fused" and eng.demotions == [] and st_.n_errors == 0
+                  and isinstance(eng._fwd, JittedForward) and eng._fwd.donate is donate
+                  and eng._fwd._cache_size() == 1,
+                  f"5l engine donate={donate}: rung {eng.rung}, {st_.summary()}, "
+                  f"captures {getattr(eng._fwd, '_cache_size', lambda: None)()}")
+            print(f"[5l] Engine(plan, microbatch={BATCH}, donate={donate}): {len(frames)} requests "
+                  f"on rung fused through one graph, every answer bit for bit equal to eager "
+                  f"forward on the padded group; {st_.n_batches} micro-batches")
+        plan_f = compile_dhm(topo, cparams, quant=quants["fp32"])
+        eng_f = Engine(plan_f, microbatch=BATCH, retry_backoff_s=1e-4,
+                       fault_plan=FaultPlan([DispatchError(at=0, times=3)]))
+        got_f = eng_f.infer(frames[0])
+        want_f = eager(plans["fp32 vmem_budget=0"], torch.from_numpy(padded(frames[0])).to(dev))
+        check(eng_f.rung == "per_layer" and [d["rung"] for d in eng_f.demotions] == ["fused"]
+              and isinstance(eng_f._fwd, JittedForward) and eng_f._fwd._cache_size() == 1
+              and torch.equal(got_f, want_f[: frames[0].shape[0]].cpu()),
+              f"5l demotion: rung {eng_f.rung}, demotions {eng_f.demotions}")
+        print(f"[5l] a DispatchError past 2 retries demotes fused -> per_layer, which serves "
+              f"through its own graph (1 capture), bit for bit equal to the vmem_budget=0 plan's "
+              f"eager forward")
+        # Two tenants from 4 threads.
+        tenants = {"fp32": compile_dhm(topo, cparams, quant=quants["fp32"]),
+                   "int8": compile_dhm(topo, cparams, quant=quants["b"])}
+        rng_l = np.random.default_rng(SEED + 12)
+        traffic = [(t_, rng_l.normal(size=(int(rng_l.integers(1, BATCH + 1)),) + frame)
+                    .astype(np.float32)) for _ in range(PHASE_5L_TENANT_REQUESTS)
+                   for t_ in tenants]
+        results = {}
+        router = Router(microbatch=BATCH, default_deadline_ms=MT_DEADLINE_MS, join_timeout_s=60.0)
+        for t_, p_ in tenants.items():
+            router.add(t_, p_)
+
+        def submitter(tid):
+            for i in range(tid, len(traffic), MT_SUBMITTERS):
+                results[i] = router.submit(*traffic[i])
+
+        with router:
+            threads = [threading.Thread(target=submitter, args=(tid,))
+                       for tid in range(MT_SUBMITTERS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60.0)
+            answers = {i: r.result(timeout=60.0) for i, r in results.items()}
+        for i, (t_, f) in enumerate(traffic):
+            want = eager(tenants[t_], torch.from_numpy(padded(f)).to(dev))[: f.shape[0]].cpu()
+            check(torch.equal(answers[i], want), f"5l router {t_} request {i}: max |delta| "
+                  f"{float((answers[i] - want).abs().max())} against eager forward")
+        for t_ in tenants:
+            check(router.engine(t_).rung == "fused", f"5l router {t_}: {router.engine(t_).rung}")
+        print(f"[5l] Router, tenants fp32 and plan (b), {len(traffic)} requests from "
+              f"{MT_SUBMITTERS} threads: every answer bit for bit equal to eager forward")
+        torch.cuda.synchronize()
+    finally:
+        restore_plain()
+    launches = counts()
+    check(all(v == 0 for v in plain.values()), f"phase 5l called plain versions: {plain}")
+    for key in ("stream_conv_pyramid", "stream_conv_fused", "stream_conv_pyramid_int8",
+                "pow2_matmul", "pow2_matmul_int"):  # plan (a)'s one group is a pyramid
+        check(launches[key] > 0, f"phase 5l never launched {key}")
+    check(join_watchdogs(30.0) == 0, "a watchdog thread is still running after phase 5l")
+
+    # (c) timing: eager forward against the graph, and the Engine's host ms
+    # per micro-batch with its fused rung eager against the graph.
+    for what in ("fp32 fused", "(b)"):
+        plan_ = plans[what]
+        fwd = plan_.jitted_forward()
+        for b_ in PHASE_5L_SIZES:
+            xb = inputs[what][:b_].contiguous()
+            e_ms = events_ms(lambda: eager(plan_, xb))
+            g_ms = events_ms(lambda: fwd(xb))
+            print(f"[5l] {what} B={b_}: eager forward {e_ms:.4f} ms, graph {g_ms:.4f} ms "
+                  f"(CUDA events, {PHASE_5L_ITERS} calls queued; {smi})")
+    host = {}
+    for mode in ("eager", "graph"):
+        eng = Engine(plans["fp32 fused"], microbatch=BATCH)
+        if mode == "eager":
+            eng._fwd = lambda xb, p_=plans["fp32 fused"]: eager(p_, xb)
+        batches = [np.random.default_rng(SEED + 20 + i).normal(size=(BATCH,) + frame)
+                   .astype(np.float32) for i in range(PHASE_5L_HOST_BATCHES)]
+        for i, f in enumerate(batches):
+            if i == 3:
+                eng.reset_stats()
+            eng.infer(f)
+        st_ = eng.stats()
+        host[mode] = st_.busy_s / st_.n_batches * 1e3
+    print(f"[5l] Engine micro-batch of {BATCH} on rung fused, host clock per micro-batch (mean of "
+          f"{PHASE_5L_HOST_BATCHES - 3}): eager {host['eager']:.4f} ms, graph {host['graph']:.4f} "
+          f"ms ({smi})")
+    elapsed = time.perf_counter() - t_phase
+    check(elapsed < PHASE_5L_LIMIT_S, f"phase 5l took {elapsed:.1f} s")
+    print(f"[5l] launches { {k: v for k, v in launches.items() if v} }; plain versions called 0 "
+          f"times; phase {elapsed:.1f} s ({smi})")
+    return launches
+
+
 def time_lm_training(smi: str) -> None:
     """Phase 6's LM training rows: where a step of phase 5j's bf16 training
     (falcon-mamba-7b, LM_TRAIN_LAYERS layers, B x S) spends the card's
@@ -1691,6 +1931,7 @@ def main() -> None:
         SwapRejected,
         compile_dhm,
     )
+    from repro_torch.core.dhm.engine import forward
     from repro_torch.core.dhm.pipeline import join_watchdogs
     from repro_torch.core.dhm.fusion import plan_fusion_groups
     from repro_torch.core.quant.fixed_point import dynamic_spec, quantize_fixed
@@ -2045,12 +2286,21 @@ def main() -> None:
     eng.stop()
     main_launches = dict(kconv.LAUNCHES)
     st = eng.stats()
+    def padded(f):
+        return np.concatenate([f, np.zeros((BATCH - f.shape[0],) + f.shape[1:], np.float32)])
+
     for f, got in zip(frames, results):
-        want = plan(f).cpu()
+        # plan(x) runs the plan's CUDA graph; eager forward its kernels one
+        # by one: both on the group as the engine pads it, bit for bit.
+        group = torch.from_numpy(padded(f)).to(dev)
+        want = plan(group)[: f.shape[0]].cpu()
+        with torch.inference_mode():
+            want_eager = forward(plan, group)[: f.shape[0]].cpu()
         plain = cnn_apply_reference(cparams, topo, torch.from_numpy(f).to(dev)).cpu()
         check(got.shape == want.shape, f"engine logits {tuple(got.shape)} vs {tuple(want.shape)}")
-        check(torch.allclose(got, want, rtol=LOGITS_RTOL, atol=LOGITS_ATOL),
-              f"engine logits max |delta| {float((got - want).abs().max())} against plan(x)")
+        check(torch.equal(got, want) and torch.equal(got, want_eager),
+              f"engine logits max |delta| {float((got - want).abs().max())} against plan(x), "
+              f"{float((got - want_eager).abs().max())} against eager forward")
         check(torch.allclose(got, plain, rtol=LOGITS_RTOL, atol=LOGITS_ATOL),
               f"engine logits max |delta| {float((got - plain).abs().max())} against the "
               "plain-version forward")
@@ -2123,9 +2373,13 @@ def main() -> None:
               "plain-version forward")
     st_b = eng_b.stats()
     for f, got in zip(q_frames, results_b):
-        want = plan_b(f).cpu()
-        check(torch.equal(got, want), f"engine (b) logits max |delta| "
-              f"{float((got - want).abs().max())} against plan(x)")
+        group = torch.from_numpy(padded(f)).to(dev)
+        want = plan_b(group)[: f.shape[0]].cpu()
+        with torch.inference_mode():
+            want_eager = forward(plan_b, group)[: f.shape[0]].cpu()
+        check(torch.equal(got, want) and torch.equal(got, want_eager), f"engine (b) logits max "
+              f"|delta| {float((got - want).abs().max())} against plan(x), "
+              f"{float((got - want_eager).abs().max())} against eager forward")
     check(eng_b.rung == "fused", f"engine (b) rung {eng_b.rung!r}")
     check(eng_b.demotions == [], f"engine (b) demotions {eng_b.demotions}")
     check(st_b.n_retries == 0, f"engine (b) retries {st_b.n_retries}")
@@ -2649,6 +2903,10 @@ def main() -> None:
     lm_train_launches = phase_5j(smi)
     params16 = T.init_params(torch.Generator(device=dev).manual_seed(SEED), lm_cfg)
 
+    # -- 5l. the plan's jitted closure: CUDA graphs of the kernels ----------------
+    jitted_launches = phase_5l(smi, topo, cparams, x, xq, frames,
+                               {"fp32": QuantSpec(), "a": quant_a, "b": quant_b, "c": quant_c})
+
     # -- 6. timing at main-path shapes -------------------------------------------
     def time_ms(fn, iters=50, warmup=5):
         for _ in range(warmup):
@@ -3037,7 +3295,8 @@ def main() -> None:
         ))
     fwd_ms = time_ms(lambda: plan(x), iters=20)
     fwd0_ms = time_ms(lambda: plan0(x), iters=20)
-    print(f"[6] cifar10 plan(x) B={BATCH}: fused {fwd_ms:.4f} ms, vmem_budget=0 {fwd0_ms:.4f} ms")
+    print(f"[6] cifar10 plan(x) (its CUDA graph) B={BATCH}: fused {fwd_ms:.4f} ms, "
+          f"vmem_budget=0 {fwd0_ms:.4f} ms")
     plan_ms = {name_: time_ms(lambda: p_(xq), iters=20)
                for name_, p_ in (("(a) fused", plan_a), ("(a) vmem_budget=0", plan_a0),
                                  ("(b)", plan_b), ("(c)", plan_c))}
@@ -3076,7 +3335,7 @@ def main() -> None:
     # its launches, and _sync (the card finishing, then the copy back).
     from repro_torch.core.dhm import engine as tengine
 
-    split = dict.fromkeys(("submit", "flush", "watchdog", "stage", "enqueue", "sync"), 0.0)
+    split = dict.fromkeys(("submit", "flush", "watchdog", "stage", "forward", "sync"), 0.0)
 
     def timed(key, fn):
         def call(*args, **kwargs):
@@ -3093,7 +3352,7 @@ def main() -> None:
     watchdog_fn = tengine.call_with_timeout
     tengine.call_with_timeout = timed("watchdog", watchdog_fn)
     eng6._stage, eng6._sync = timed("stage", eng6._stage), timed("sync", eng6._sync)
-    eng6._fwd = timed("enqueue", eng6._fwd)
+    eng6._forward = timed("forward", eng6._forward)  # _stage and the graph's enqueue
     submit6, flush6 = timed("submit", eng6.submit), timed("flush", eng6.flush)
     try:
         for warm in range(2):
@@ -3106,6 +3365,7 @@ def main() -> None:
     finally:
         tengine.call_with_timeout = watchdog_fn
     ms6 = {k: v / HOST_SPLIT_BATCHES * 1e3 for k, v in split.items()}
+    ms6["enqueue"] = ms6["forward"] - ms6["stage"]
     inside = ms6["stage"] + ms6["enqueue"] + ms6["sync"]
     print(f"[6] engine host split per micro-batch of {BATCH} frames (host clock, mean of "
           f"{HOST_SPLIT_BATCHES}): submit {ms6['submit']:.4f} ms; flush {ms6['flush']:.4f} ms = "
@@ -3413,6 +3673,7 @@ def main() -> None:
         rec["launches_5i"] = family_launches.get(rec["name"], 0)
         rec["launches_5j"] = lm_train_launches.get(rec["name"], 0)
         rec["launches_5k"] = dryrun_launches.get(rec["name"], 0)
+        rec["launches_5l"] = jitted_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -39,8 +39,10 @@ scopes, for all four scopes.
 Invariants self-gate as in the reference: a check that only the kernel
 path has (V003, V007, V203) returns no findings on a CPU plan, as the
 reference's kernel-structure checks return none on a non-Pallas
-backend. V001 and V006 have no observable counterpart in PyTorch; they
-are registered, and their docstrings say why they find nothing.
+backend. V001 has no observable counterpart in PyTorch; it is
+registered, and its docstring says why it finds nothing. V006 reads the
+port's donation, a static input buffer handed over to the closure's CUDA
+graph (``core/dhm/engine.py``, ``JittedForward``).
 """
 
 from __future__ import annotations
@@ -350,25 +352,51 @@ def _no_host_transfer(ctx):
     """Nothing in the forward (features and head, as the reference's
     closure) reads a value to the host (``aten::item`` /
     ``_local_scalar_dense``) or copies a card tensor to the CPU —
-    nothing may stall the serving hot path on a host round-trip."""
+    nothing may stall the serving hot path on a host round-trip. On a
+    card plan the jitted closure must also capture as a CUDA graph,
+    which no host read between the kernels survives: a capture that
+    fails is an error carrying CUDA's message."""
     seen = {}
     for op in ctx.trace().ops:
         if op.to_host:
             seen[op.name] = seen.get(op.name, 0) + 1
+    out = []
     if seen:
-        return [ctx.error(
+        out.append(ctx.error(
             "V005", f"the forward moves data to the host: {seen}",
-        )]
-    return []
+        ))
+    err = ctx.capture_error()
+    if err is not None:
+        out.append(ctx.error(
+            "V005", f"capturing jitted_forward() as a CUDA graph failed: {err}",
+        ))
+    return out
 
 
 @invariant("V006", name="donation-declared", scope="structure")
 def _donation_declared(ctx):
-    """The reference checks that ``jitted_forward(donate=True)`` declares
-    its input donation to XLA. PyTorch has no buffer donation: the
-    engine stages each packed batch into a fresh device tensor that the
-    forward alone holds, so there is no declaration to drop and this
-    check finds nothing."""
+    """``jitted_forward(donate=True)`` really takes its input by donation:
+    the closure declares ``donate``, and on a card plan a call with its
+    own input buffer (``input_buffer``, where the serving engine stages
+    each batch) makes no device copy before the graph's replay. Either
+    failing means the donate flag was dropped. A plan with no
+    ``jitted_forward`` surface finds nothing, as in the reference."""
+    rep = ctx.lower_donated()
+    if rep is None:
+        return []
+    if not rep.declared:
+        return [ctx.error(
+            "V006",
+            "jitted_forward(donate=True) returned a closure that does not "
+            "donate its input — the donation was dropped",
+        )]
+    if rep.input_copies:
+        return [ctx.error(
+            "V006",
+            f"the donating closure copied its own input buffer "
+            f"{rep.input_copies} time(s) before the replay — the donation "
+            "was dropped",
+        )]
     return []
 
 

@@ -23,7 +23,12 @@ own device and at a tiny batch, and reads what happened:
   kernel dispatch and each launch with the shared memory it requested.
   Both logs belong to the probing thread, so another thread's launches
   (a router serving other tenants while it verifies a swap) never enter
-  the counts.
+  the counts. On a card plan the scope also captures the plan's jitted
+  closure (``jitted_forward()``, a CUDA graph) at the probe batch, which
+  no host read between the kernels survives (V005), and calls the
+  donating closure on its own input buffer with the op log open, to see
+  that no device copy precedes the replay (V006,
+  :meth:`ProbeContext.lower_donated`).
 
 ``verify_plan`` returns findings; ``check_plan`` (what
 ``CompiledDHM.self_check`` delegates to) raises ``PlanCheckError``
@@ -105,6 +110,18 @@ class _OpLog(TorchDispatchMode):
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class DonationReport:
+    """What :meth:`ProbeContext.lower_donated` saw of
+    ``jitted_forward(donate=True)``: the closure's declared flag and, on
+    a card plan, the device copies (``aten::copy_``) a call on the
+    closure's own input buffer made before its replay (None on a CPU
+    plan, whose closure is eager)."""
+
+    declared: bool
+    input_copies: Optional[int] = None
+
+
 @dataclasses.dataclass
 class PipelineProbe:
     """One run of a plan's pipelined runner plus the EdgePlan it must
@@ -129,6 +146,9 @@ class ProbeContext:
         self.where = where or getattr(getattr(plan, "topo", None), "name", "plan")
         self.pipeline = pipeline
         self._trace: Optional[StructureTrace] = None
+        self._capture_error: Optional[str] = None
+        self._captured = False
+        self._donated: Optional[DonationReport] = None
 
     # -- finding constructors ------------------------------------------------
 
@@ -191,6 +211,51 @@ class ProbeContext:
                 dispatches=log.dispatches, launches=log.launches,
             )
         return self._trace
+
+    def _probe_shape(self) -> tuple:
+        h, w = self.plan.topo.input_shape
+        return (self.batch, h, w, self.plan.topo.input_channels)
+
+    def capture_error(self) -> Optional[str]:
+        """On a card plan: capture ``jitted_forward()`` at the probe batch
+        and return the error that stopped the capture (CUDA's message), or
+        None when it captured. None on a CPU plan, which captures
+        nothing."""
+        if not self._captured:
+            self._captured = True
+            fwd = getattr(self.plan, "jitted_forward", None)
+            if self.on_card and fwd is not None:
+                try:
+                    self.run(fwd(), self.zeros(self._probe_shape()))
+                except Exception as e:  # noqa: BLE001 — the finding carries it
+                    self._capture_error = f"{type(e).__name__}: {e}"
+        return self._capture_error
+
+    def lower_donated(self) -> Optional[DonationReport]:
+        """The donation ``jitted_forward(donate=True)`` really makes: on a
+        card plan its graph is captured at the probe batch and called on
+        its own input buffer with the op log open, counting the device
+        copies before the replay; on a CPU plan the closure's declared
+        flag alone. None when the plan has no such surface."""
+        if self._donated is None:
+            fwd = getattr(self.plan, "jitted_forward", None)
+            if fwd is None:
+                return None
+            fwd = fwd(donate=True)
+            declared = bool(getattr(fwd, "donate", False))
+            copies = None
+            if self.on_card and hasattr(fwd, "input_buffer"):
+
+                def call():
+                    with fwd.lock:
+                        buf = fwd.input_buffer(self._probe_shape())
+                        with probe.recording() as log, _OpLog(log) as ops:
+                            fwd(buf)
+                    return ops.ops
+
+                copies = sum(op.name == "aten::copy_" for op in self.run(call))
+            self._donated = DonationReport(declared=declared, input_copies=copies)
+        return self._donated
 
 
 def _resolve_scopes(scopes, ids) -> tuple:

@@ -623,13 +623,23 @@ class CompiledDHM:
             x = st.fn(self.stage_params(st.index), x)
         return x
 
+    def jitted_forward(self, *, donate: bool = False) -> Callable:
+        """The plan's cached end-to-end closure (see
+        ``repro_torch.core.dhm.engine.plan_jitted_forward``, where
+        execution lives): on the card, one CUDA graph per input shape.
+        ``donate=True`` gives the variant the serving ``Engine`` stages
+        its batches into."""
+        from repro_torch.core.dhm.engine import plan_jitted_forward
+
+        return plan_jitted_forward(self, donate=donate)
+
     def __call__(self, x) -> torch.Tensor:
         """x: (B, H, W, C) NHWC frames (a tensor or anything
         ``torch.as_tensor`` takes) -> logits (B, n_classes) on the plan's
-        device."""
-        from repro_torch.core.dhm.engine import forward
-
-        return forward(self, torch.as_tensor(x, dtype=torch.float32, device=self.device))
+        device. Runs the cached closure (``jitted_forward``); the eager
+        composition is ``engine.forward``."""
+        return self.jitted_forward()(
+            torch.as_tensor(x, dtype=torch.float32, device=self.device))
 
     # -- spatial (mesh) execution ------------------------------------------
 

@@ -3,6 +3,13 @@
 The counterpart of ``repro.core.dhm.engine``:
 
 - :func:`forward` — the eager stage/head composition on the plan's device.
+- :func:`plan_jitted_forward` — the plan's cached end-to-end closure
+  (:class:`JittedForward`): on the card one CUDA graph of the plan's
+  kernels and head per input shape, captured at its first call and
+  replayed after, with no Python between the kernels; the
+  ``donate=True`` variant takes its input in a buffer the caller stages
+  into (the port's input donation). On the CPU it is the eager
+  composition.
 - :func:`pipeline_spec` / :func:`build_plan_pipeline` /
   :func:`run_pipelined` — spatial execution on a mesh of slots: the
   plan's per-stage closures and per-edge :class:`StageIOSpec` geometry
@@ -17,7 +24,10 @@ The counterpart of ``repro.core.dhm.engine``:
   retry-with-backoff; persistent failures demote the engine down a
   health-checked ladder (mesh pipeline, when a ``mesh`` is given ->
   fused plan -> per-layer plan). Every rung runs the plan's kernels;
-  there is no plain-version rung on the card.
+  there is no plain-version rung on the card. The fused and per-layer
+  rungs are :class:`JittedForward` closures, captured in the rung's
+  warmup probe; with ``donate`` (the default) the engine stages each
+  packed batch straight into the closure's input buffer.
   Failures surface as structured per-request errors — ``result()``
   raises, it never hangs. A seed-driven
   :class:`~repro_torch.core.dhm.faults.FaultPlan` injects failures
@@ -44,6 +54,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import logging
 import threading
 import time
@@ -54,6 +65,7 @@ import torch
 
 from repro_torch.core.dhm.faults import FaultPlan, InjectedDeviceLoss
 from repro_torch.core.dhm.pipeline import CollectiveTimeout, Watch, call_with_timeout
+from repro_torch.kernels import probe
 
 _LOG = logging.getLogger("repro_torch.dhm.engine")
 
@@ -62,6 +74,181 @@ def forward(plan, x: torch.Tensor) -> torch.Tensor:
     """Eager single-device forward: sequential fused stages + FC head.
     x: (B, H, W, C) NHWC on the plan's device -> logits (B, n_classes)."""
     return plan.head_fn(plan.features(x))
+
+
+# One capture at a time in the process: PyTorch allows no more, and a
+# router's engines capture from their own threads.
+_CAPTURE_LOCK = threading.Lock()
+_CACHE_LOCK = threading.Lock()
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One input shape of a :class:`JittedForward`: its static input and,
+    on the card, the graph, its static output, the launches one replay
+    makes ((name, shared-memory bytes) each) and the event after the last
+    replay's output copy."""
+
+    static_in: Optional[torch.Tensor] = None
+    static_out: Optional[torch.Tensor] = None
+    graph: Optional[object] = None  # torch.cuda.CUDAGraph
+    launches: tuple = ()
+    done: Optional[object] = None  # torch.cuda.Event
+
+
+class JittedForward:
+    """A forward closure ``fn(x) -> logits`` run as one captured
+    executable per input shape: the counterpart of the reference's
+    ``jax.jit`` of the plan (:func:`plan_jitted_forward`).
+
+    On the card, the first call of each ``(shape, dtype)`` runs ``fn`` once
+    eagerly on a side stream (it builds the kernels, sets their shared
+    memory and allocates the library workspaces outside the capture; its
+    launches are real and counted), then captures ``fn`` on its static
+    input into a ``torch.cuda.CUDAGraph`` with its own memory pool, in
+    ``thread_local`` mode (other threads may launch and allocate
+    meanwhile). Each call fills the static input, replays the graph and
+    returns a clone of the static output; the kernels run in the same
+    order on the same buffers as eagerly, so the logits are eager
+    ``fn``'s bit for bit. A capture that fails raises: nothing falls back
+    to the eager composition. A replay runs no wrapper, so the launches
+    the capture logged are counted again at each replay
+    (``kernels/probe.py``).
+
+    ``donate=True`` is the port's input donation: a caller that writes
+    its batch into :meth:`input_buffer` and hands that buffer over gets a
+    replay with no device copy before it. Otherwise the caller's tensor
+    is copied in and left as it was.
+
+    On the CPU, the closure is the eager composition (same API;
+    ``_cache_size()`` counts the shapes it has run).
+
+    The closure records no autograd graph: like the reference's jitted
+    closure, it treats the plan's parameters as constants. Gradients go
+    through the eager composition (``forward``, ``cnn_apply``).
+
+    A graph's static buffers are shared: ``lock`` (reentrant) is held
+    around staging, replay and the output copy; a caller that stages
+    into :meth:`input_buffer` holds it from there to the call.
+    """
+
+    def __init__(self, fn: Callable, device, *, donate: bool = False):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.donate = donate
+        self.lock = threading.RLock()
+        self._shapes: dict = {}  # (shape, dtype) -> _Captured
+        self._stream = None  # the side stream of warm-ups and captures
+
+    @property
+    def on_card(self) -> bool:
+        return self.device.type == "cuda"
+
+    def _cache_size(self) -> int:
+        """The input shapes captured (on the CPU: run) so far."""
+        return len(self._shapes)
+
+    def _entry(self, shape: tuple, dtype) -> _Captured:
+        key = (tuple(shape), dtype)
+        entry = self._shapes.get(key)
+        if entry is None:
+            entry = self._capture(key) if self.on_card else _Captured()
+            self._shapes[key] = entry
+        return entry
+
+    def _capture(self, key: tuple) -> _Captured:
+        dev = self.device
+        static_in = torch.zeros(key[0], dtype=key[1], device=dev)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        side, caller = self._stream, torch.cuda.current_stream(dev)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            self.fn(static_in)  # the warm-up: real launches, counted
+        graph = torch.cuda.CUDAGraph()
+        # No garbage collection during the capture: a plan and its closures
+        # form a cycle, and a collected graph's teardown on this thread
+        # would void the capture.
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with _CAPTURE_LOCK, torch.cuda.stream(side), probe.recording() as log:
+                graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
+                                    capture_error_mode="thread_local")
+                try:
+                    static_out = self.fn(static_in)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture is void already; the first error says why
+                    raise
+                finally:
+                    probe.uncount(log.launches)
+                graph.capture_end()
+        finally:
+            if gc_on:
+                gc.enable()
+        caller.wait_stream(side)
+        return _Captured(static_in=static_in, static_out=static_out, graph=graph,
+                         launches=tuple((name, smem) for _, name, smem in log.launches))
+
+    def input_buffer(self, shape, dtype=torch.float32) -> torch.Tensor:
+        """The static input for ``shape`` (captured first if new), free to
+        write once the last replay has read it."""
+        with self.lock, torch.inference_mode(False), torch.no_grad():
+            entry = self._entry(shape, dtype)
+            if not self.on_card:
+                if entry.static_in is None:
+                    entry.static_in = torch.zeros(tuple(shape), dtype=dtype)
+                return entry.static_in
+            if entry.done is not None:
+                torch.cuda.current_stream(self.device).wait_event(entry.done)
+            return entry.static_in
+
+    def __call__(self, x) -> torch.Tensor:
+        """x: (B, H, W, C) frames -> logits (B, n_classes) on the closure's
+        device."""
+        x = torch.as_tensor(x)
+        with self.lock, torch.inference_mode(False), torch.no_grad():
+            entry = self._entry(x.shape, x.dtype)
+            if not self.on_card:
+                return self.fn(x)
+            stream = torch.cuda.current_stream(self.device)
+            if entry.done is not None:
+                stream.wait_event(entry.done)
+            if not (self.donate and x is entry.static_in):
+                entry.static_in.copy_(x)
+            entry.graph.replay()
+            out = entry.static_out.clone()
+            if entry.done is None:
+                entry.done = torch.cuda.Event()
+            entry.done.record(stream)
+            probe.replayed(entry.launches)
+            return out
+
+
+def plan_jitted_forward(plan, *, donate: bool = False) -> JittedForward:
+    """The plan's cached end-to-end closure (conv stages + FC head as one
+    captured CUDA graph per input shape on the card: no Python between
+    the kernels once captured), built once per plan and donation flag, so
+    ``plan_jitted_forward(p) is plan_jitted_forward(p)``.
+
+    ``donate=True`` returns the variant whose :meth:`JittedForward.
+    input_buffer` the serving ``Engine`` stages each batch into, so the
+    replay needs no device copy of its input; the default copies the
+    caller's tensor in and leaves it unchanged.
+    """
+    with _CACHE_LOCK:
+        cache = getattr(plan, "_fwd_cache", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(plan, "_fwd_cache", cache)
+        if donate not in cache:
+            cache[donate] = JittedForward(
+                lambda xb: forward(plan, xb), plan.device, donate=donate
+            )
+        return cache[donate]
 
 
 def pipeline_spec(plan):
@@ -339,7 +526,10 @@ class Engine:
     (``max_retries``), and demotes (mesh ->) fused -> per_layer on
     persistent failure (``engine.demotions`` records why). A rung serves
     only after the plan passes its self-check and the rung completes a
-    warmup probe.
+    warmup probe, which on the card also captures the rung's CUDA graph
+    (a capture that fails is a failed probe). ``donate`` stages each
+    packed group into the graph's input buffer instead of a fresh device
+    tensor.
 
     ``fault_plan`` injects deterministic failures
     (:mod:`repro_torch.core.dhm.faults`) for chaos testing.
@@ -358,6 +548,7 @@ class Engine:
         overlap: bool = False,
         edge_mode: str = "auto",
         tuning=None,  # a throughput.PipelineTuning overriding the knobs
+        donate: bool = True,
         warmup: bool = True,
         max_queue: int = 0,
         admission: str = "block",
@@ -416,6 +607,7 @@ class Engine:
         self.edge_mode = edge_mode
         # Frames one dispatch consumes.
         self.group = microbatch if mesh is None else microbatch * n_microbatches
+        self.donate = donate
         self.warmup = warmup
         self.max_queue = max_queue
         self.admission = admission
@@ -487,17 +679,12 @@ class Engine:
         return self._rung_name
 
     def _build_fused_fwd(self) -> Callable:
-        plan = self.plan
-
-        def _fwd(xb):
-            with torch.inference_mode():
-                return forward(plan, xb)
-
-        return _fwd
+        return plan_jitted_forward(self.plan, donate=self.donate)
 
     def _build_unfused_fwd(self) -> Callable:
         """The degraded closure: one single-layer kernel launch per conv
-        layer (the ``vmem_budget=0`` lowering), same baked params and head."""
+        layer (the ``vmem_budget=0`` lowering), same baked params and head,
+        as a :class:`JittedForward` of its own with the engine's donation."""
         from repro_torch.core.dhm.compiler import emit_conv_stage
 
         plan = self.plan
@@ -510,18 +697,18 @@ class Engine:
         ]
 
         def _fwd(xb):
-            with torch.inference_mode():
-                for s, fn in enumerate(stage_fns):
-                    xb = fn(plan.stage_params(s), xb)
-                return plan.head_fn(xb)
+            for s, fn in enumerate(stage_fns):
+                xb = fn(plan.stage_params(s), xb)
+            return plan.head_fn(xb)
 
-        return _fwd
+        return JittedForward(_fwd, plan.device, donate=self.donate)
 
     def _build_mesh_fwd(self) -> Callable:
         """The mesh rung: the group reshaped into ``n_microbatches``
         µbatches, streamed through the plan's stages on the mesh's slots
         (each stage's params resident there, built once here), then the
-        head on the caller's stream."""
+        head on the caller's stream. It runs eagerly: its stream per slot
+        and its fill and drain are not captured (no donation either)."""
         from repro_torch.core.dhm.pipeline import PipelineConfig
 
         plan = self.plan
@@ -556,7 +743,7 @@ class Engine:
                     probe = np.zeros((self.group,) + self._frame_shape, np.float32)
                     watch = Watch()
                     out = call_with_timeout(
-                        lambda: self._watched(watch, lambda: fwd(self._stage(probe))),
+                        lambda: self._watched(watch, lambda: self._forward(fwd, probe)),
                         timeout_s=self.warmup_timeout_s,
                         what=f"warmup probe (rung {name})", watch=watch,
                     )
@@ -707,9 +894,23 @@ class Engine:
 
     # -- dispatch: watchdog, retry, demotion ----------------------------------
 
-    def _stage(self, batch: np.ndarray) -> torch.Tensor:
-        """Copy a packed host micro-batch into a fresh device tensor."""
-        return torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(self.device)
+    def _stage(self, batch: np.ndarray, fwd: Optional[Callable] = None) -> torch.Tensor:
+        """Copy a packed host micro-batch to the device: into ``fwd``'s
+        input buffer when the engine donates and ``fwd`` is a
+        :class:`JittedForward` (the caller holds ``fwd.lock``), else into
+        a fresh tensor."""
+        host = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
+        if self.donate and isinstance(fwd, JittedForward):
+            return fwd.input_buffer(host.shape).copy_(host)
+        return host.to(self.device)
+
+    def _forward(self, fwd: Callable, batch: np.ndarray) -> torch.Tensor:
+        """Stage ``batch`` for ``fwd`` and run it, holding a graph
+        closure's lock from the staging to its output copy."""
+        if not isinstance(fwd, JittedForward):
+            return fwd(self._stage(batch))
+        with fwd.lock:
+            return fwd(self._stage(batch, fwd))
 
     def _sync(self, out: torch.Tensor) -> torch.Tensor:
         """Wait for the device and bring the logits to the host."""
@@ -752,7 +953,7 @@ class Engine:
                     return self._watched(
                         watch, lambda: self._corrupted_forward(frames, eff.corrupt_stage)
                     )
-            return self._watched(watch, lambda: fwd(self._stage(frames)))
+            return self._watched(watch, lambda: self._forward(fwd, frames))
 
         return _run
 

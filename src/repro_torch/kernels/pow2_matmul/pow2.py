@@ -11,8 +11,10 @@ of a thread-block cluster split each output tile's K range.
 The wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch is refused. ``LAUNCHES`` counts the launches of each
-mode; nothing else touches the counts. Each launch is also logged to the
-calling thread's ``probe`` log, where one is open. The plain versions are in
+mode; besides the wrapper, only a CUDA graph of it touches the counts
+(``probe.uncount`` at its capture, ``probe.replayed`` at each replay).
+Each launch is also logged to the calling thread's ``probe`` log, where
+one is open. The plain versions are in
 ``ref.py``; ``ops.py`` picks between them by the device of the input.
 """
 from __future__ import annotations
@@ -32,7 +34,7 @@ SPLITS = (8, 4, 2, 1)  # the portable cluster sizes, largest first
 CTAS_PER_SM = 2  # one wave: two CTAs on every SM
 MAX_GRID_Z = 65535  # row tiles
 
-LAUNCHES = {"pow2_matmul": 0, "pow2_matmul_int": 0}
+LAUNCHES = probe.counted({"pow2_matmul": 0, "pow2_matmul_int": 0})
 
 
 def reset_launch_counts() -> None:

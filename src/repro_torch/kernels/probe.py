@@ -17,6 +17,13 @@ launches several), with the dynamic shared memory it requested, which
 the verifier's resource scope reads; a **transfer** is one hand-off of
 an activation over an interior edge of the spatial pipeline
 (``core/dhm/pipeline.py``), which the verifier's pipeline scope reads.
+
+A CUDA graph of the kernels (``core/dhm/engine.py``, ``JittedForward``)
+runs no wrapper when it replays. So the launch counts of the kernels
+that log here are registered (:func:`counted`): a capture records its
+launches under :func:`recording` and takes back their counts
+(:func:`uncount`), since a capture launches nothing, and each replay
+adds them again, to the counts and to the open log (:func:`replayed`).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import threading
 from typing import Optional
 
 _local = threading.local()
+_TABLES: dict = {}  # kernel name -> the LAUNCHES dict that counts it
 
 
 class DispatchLog:
@@ -91,3 +99,30 @@ def transferred(edge_class: int, pair: tuple, shape: tuple) -> None:
     log = active()
     if log is not None:
         log.transfers.append((edge_class, tuple(pair), tuple(shape)))
+
+
+def counted(table: dict) -> dict:
+    """Register a kernel module's ``LAUNCHES`` (kernel name -> count), so
+    that a graph's capture and replays can adjust the counts by name."""
+    for name in table:
+        _TABLES[name] = table
+    return table
+
+
+def uncount(launches) -> None:
+    """Take back the counts of the launches a stream capture logged,
+    ``(phase, name, smem)`` each: the capture recorded them, and launched
+    nothing."""
+    for _, name, _ in launches:
+        _TABLES[name][name] -= 1
+
+
+def replayed(launches) -> None:
+    """Count the launches one replay of a captured graph makes,
+    ``(name, smem)`` each, as the wrappers count theirs: in ``LAUNCHES``
+    and in the calling thread's open log."""
+    log = active()
+    for name, smem in launches:
+        _TABLES[name][name] += 1
+        if log is not None:
+            log.launches.append((log.phase, name, int(smem)))

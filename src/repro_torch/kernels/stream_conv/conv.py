@@ -28,8 +28,10 @@ layers within ``SMEM_LIMIT``).
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch is refused. ``LAUNCHES`` counts the launches of each
-kernel; nothing else touches the counts. Each launch is also logged to
-the calling thread's ``probe`` log, where one is open. The plain versions of both
+kernel; besides the wrappers, only a CUDA graph of them touches the
+counts (``probe.uncount`` at its capture, ``probe.replayed`` at each
+replay). Each launch is also logged to the calling thread's ``probe``
+log, where one is open. The plain versions of both
 kernels are in ``ref.py``; ``ops.py`` picks between them by the device of
 the input tensor.
 """
@@ -58,12 +60,12 @@ THREADS = 256  # SC_THREADS in the source
 K_STAGE = 64  # SC_KC in the source: weight rows per shared-memory stage
 ACT_CODES = {"none": 0, "relu": 1, "tanh": 2}
 
-LAUNCHES = {
+LAUNCHES = probe.counted({
     "stream_conv_fused": 0,
     "stream_conv_pyramid": 0,
     "stream_conv_fused_int8": 0,
     "stream_conv_pyramid_int8": 0,
-}
+})
 # The int8 kernels' MMA (mma.sync m16n8k32 s8): K bytes per step, and the
 # staged weight rows' alignment (whole 128-byte groups of eight 16-byte
 # chunks, which the staging swizzles).

@@ -50,7 +50,15 @@ import torch
 
 from repro_torch.configs import SHAPES, get_arch, list_archs
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.launch.hlo_analysis import analyze_hlo, format_log, record
+from repro_torch.launch.hlo_analysis import (
+    C10D_COLLECTIVES,
+    COLLECTIVE_OPS,
+    analyze_hlo,
+    format_log,
+    parse_computations,
+    record,
+    val_bytes,
+)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.optflags import BASELINE, OPTIMIZED, OptFlags
 from repro_torch.launch.sharding import P, batch_specs, cache_specs, constrain_spec, param_specs
@@ -195,6 +203,26 @@ def trace_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, opt: OptFlags = BASELI
     out, rec, counter = record(step, *args, device="meta")
     return Trace(rec.instrs, out, args, arg_specs, float(counter), rec.peak_live_bytes,
                  time.time() - t0)
+
+
+def parse_collectives(log) -> dict:
+    """Count the collectives of an op log (its text or its ``Instr``
+    list), per kind of ``COLLECTIVE_OPS``: the ops, the bytes of their
+    tensor operands (what each device contributes) and of their results,
+    as the reference counts them in the HLO. The c10d functional ops
+    (``hlo_analysis.C10D_COLLECTIVES``) are the collectives a log can
+    hold; a one-card step holds none, so every count is 0, as the
+    records' null ``collectives`` say."""
+    stats = {op: {"count": 0, "operand_bytes": 0, "result_bytes": 0}
+             for op in COLLECTIVE_OPS}
+    for i in parse_computations(log) if isinstance(log, str) else log:
+        kind = C10D_COLLECTIVES.get(i.packet)
+        if kind is None:
+            continue
+        stats[kind]["count"] += 1
+        stats[kind]["operand_bytes"] += sum(map(val_bytes, i.operands))
+        stats[kind]["result_bytes"] += sum(map(val_bytes, i.results))
+    return stats
 
 
 def analysis_dict(a, n_devices: int) -> dict:

@@ -30,7 +30,9 @@ The reference's charging rules, restated for an eager program:
                    slice rule); ``index_select``, ``embedding`` and
                    ``gather`` are charged result-sized reads and their
                    write; ``empty`` costs 0 and a fill its write
-  collective_bytes none: one card runs no collective
+  collective_bytes none: one card runs no collective (the c10d
+                   functional ops of ``C10D_COLLECTIVES`` would be
+                   counted, ``dryrun.parse_collectives``)
 
 All counts are for the whole step on one card; the dry run
 (``launch/dryrun.py``) splits them over a mesh.
@@ -74,6 +76,34 @@ _SLICE_READ_OPS = {"aten.index_select", "aten.embedding", "aten.gather"}
 # Contractions: the operand index of the left factor.
 _CONTRACT_OPS = {"aten.mm": 0, "aten.bmm": 0, "aten.addmm": 1, "aten.baddbmm": 1}
 SCAN_OP = "repro_torch.ssm_scan"
+# The reference's collective kinds (XLA's op names), and the c10d
+# functional ops an op log records for each
+# (``torch.distributed._functional_collectives``). A permute is
+# point-to-point: its sends are charged, as the reference charges what
+# each device contributes. Waits (``_c10d_functional.wait_tensor``), the
+# ends of async pairs, and receives are not counted. One card runs none
+# of these.
+COLLECTIVE_OPS = (
+    "all-gather",
+    "all-reduce",
+    "reduce-scatter",
+    "all-to-all",
+    "collective-permute",
+)
+C10D_COLLECTIVES = {
+    "_c10d_functional.all_gather_into_tensor": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_out": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional.all_reduce": "all-reduce",
+    "_c10d_functional.all_reduce_": "all-reduce",
+    "_c10d_functional.all_reduce_coalesced": "all-reduce",
+    "_c10d_functional.all_reduce_coalesced_": "all-reduce",
+    "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional.reduce_scatter_tensor_out": "reduce-scatter",
+    "_c10d_functional.reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional.all_to_all_single": "all-to-all",
+    "_c10d_functional.isend": "collective-permute",
+}
 
 # One operand or result: shape, dtype name, storage identity (unique in
 # the log), the storage's bytes, and whether the tensor is a view.

@@ -126,8 +126,10 @@ class TestRegistry:
     def test_every_invariant_says_what_it_checks(self):
         for inv in tinvariants.REGISTRY.values():
             assert inv.doc.strip(), f"{inv.id} has no doc"
-        for rule in ("V001", "V006"):  # no observable counterpart in PyTorch
-            assert "nothing" in tinvariants.REGISTRY[rule].doc
+        assert "nothing" in tinvariants.REGISTRY["V001"].doc  # no counterpart in PyTorch
+        # V006 reads the port's donation: the graph's handed-over input buffer.
+        assert "input_buffer" in tinvariants.REGISTRY["V006"].doc
+        assert "CUDA graph" in tinvariants.REGISTRY["V005"].doc
 
     def test_finding_severity_validated(self):
         with pytest.raises(ValueError):
@@ -265,6 +267,42 @@ class TestSeededPlanDefects:
         jbad = dataclasses.replace(jplan, stages=(dataclasses.replace(jst, fn=jfn),))
         tbad = dataclasses.replace(tplan, stages=(dataclasses.replace(tst, fn=tfn),))
         assert _both_ids(jbad, tbad, ids=("V005",)) == ["V005"]
+
+    def test_dropped_donation_is_V006(self):
+        """The reference's ``_DropsDonate``: a plan whose
+        ``jitted_forward(donate=True)`` returns the non-donating closure.
+        The reference's lowering carries no donation marker; the port's
+        closure declares no donation."""
+        jplan, tplan = _plans()
+
+        class _DropsDonate:
+            """A plan whose jitted_forward silently ignores donate=."""
+
+            def __init__(self, plan):
+                self._plan = plan
+                self.topo = plan.topo
+                self.backend = getattr(plan, "backend", None)
+                self.device = getattr(plan, "device", None)
+
+            def jitted_forward(self, *, donate=False):
+                return self._plan.jitted_forward(donate=False)
+
+        assert _ids(jverify_plan(_DropsDonate(jplan), ids=("V006",))) == ["V006"]
+        found = verify_plan(_DropsDonate(tplan), ids=("V006",))
+        assert _ids(found) == ["V006"] and "dropped" in found[0].message
+
+    def test_good_plan_declares_donation(self):
+        jplan, tplan = _plans()
+        assert jverify_plan(jplan, ids=("V006",)) == []
+        assert verify_plan(tplan, ids=("V006",)) == []
+        rep = ProbeContext(tplan).lower_donated()
+        assert rep.declared and rep.input_copies is None  # a CPU plan's closure is eager
+
+    def test_a_cpu_plan_captures_nothing(self):
+        ctx = ProbeContext(_tplan())
+        assert ctx.capture_error() is None
+        assert ctx.plan.jitted_forward()._cache_size() == 0
+        assert ProbeContext(object()).lower_donated() is None  # no jitted_forward surface
 
     def test_stage_that_splits_its_group_is_V002(self):
         """The plan says one fusion group; the stage body runs its layers

@@ -54,6 +54,7 @@ from repro.paper.train_cnn import _loss_fn as jax_loss_fn  # noqa: E402
 from repro.paper.train_cnn import train_cnn as jax_train_cnn  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.dhm import QuantSpec, compile_dhm  # noqa: E402
+from repro_torch.core.dhm.engine import forward  # noqa: E402
 from repro_torch.core.quant.fixed_point import dynamic_spec, quantize_fixed  # noqa: E402
 from repro_torch.data import SyntheticImageDataset, make_image_dataset  # noqa: E402
 from repro_torch.kernels import probe  # noqa: E402
@@ -248,7 +249,9 @@ def test_int8_calls_with_grad_raise():
     with torch.no_grad():
         out = stream_conv_block(x, codes, b, int8_scales=sc, **kw)
     assert out.shape == (1, 4, 4, 4) and not out.requires_grad
-    # A compiled int8 plan over params that require grad: forward-only too.
+    # A compiled int8 plan over params that require grad: forward-only too,
+    # through the eager composition autograd records (``plan(x)``, the
+    # jitted closure, records none: its params are constants to it).
     params, xs, _ = _setup("lenet5")
     tparams = params_from_numpy(params, "cpu")
     for t in tree_flatten(tparams)[0]:
@@ -256,7 +259,8 @@ def test_int8_calls_with_grad_raise():
     plan = compile_dhm(LENET5, tparams, device="cpu",
                        quant=QuantSpec(weight_bits=8, act_bits=8, int8_compute=True))
     with pytest.raises(ValueError, match="forward-only"):
-        plan(xs)
+        forward(plan, torch.from_numpy(xs))
+    assert not plan(xs).requires_grad
     with torch.inference_mode():
         assert plan(xs).shape == (BATCH, 10)
 

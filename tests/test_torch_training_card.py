@@ -42,6 +42,7 @@ import numpy as np  # noqa: E402
 from repro_torch.analysis.invariants import planned_launches  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core.dhm import QuantSpec, compile_dhm  # noqa: E402
+from repro_torch.core.dhm.engine import forward  # noqa: E402
 from repro_torch.data import make_image_dataset  # noqa: E402
 from repro_torch.kernels import probe  # noqa: E402
 from repro_torch.kernels.pow2_matmul import pow2 as kpow2  # noqa: E402
@@ -214,7 +215,7 @@ def test_an_int8_plan_with_grad_raises_on_the_card(card):
     p = tree_map(lambda t: t.to(card).requires_grad_(), params)
     plan = compile_dhm(topo, p, quant=QuantSpec(weight_bits=8, act_bits=8, int8_compute=True))
     with pytest.raises(ValueError, match="forward-only"):
-        plan(x.to(card))
+        forward(plan, x.to(card))  # the eager composition, which autograd sees
     with torch.inference_mode():
         assert plan(x.to(card)).shape == (BATCH, topo.n_classes)
 
