@@ -132,11 +132,12 @@ Phases (each asserts or exits non-zero):
      B=2, S=64, fp32 where parameters and gradients fit 60 GB: the loss
      equal to the full forward's f32 CE over the whole vocabulary, every
      leaf finite and nonzero but for expert slices no token reached;
-     (d) examples/torch/quickstart.py, serve.py and train_lm.py at their
-     default sizes print OK; (e) the scan kernel launches, the plain
-     scan is never called; under 180 s. falcon-mamba's bf16 weights that
-     phase 6 times are set aside during the phase and drawn again after
-     it from the same seed;
+     (d) examples/torch/quickstart.py, serve.py (also with --pow2 and
+     with --arch falcon-mamba-7b: its decode through the jitted step's
+     graph) and train_lm.py at their default sizes print OK; (e) the
+     scan kernel launches, the plain scan is never called; under 180 s.
+     falcon-mamba's bf16 weights that phase 6 times are set aside during
+     the phase and drawn again after it from the same seed;
   5l. the plan's jitted closure (jitted_forward(), one CUDA graph of the
      kernels per input shape): cifar10 at full width on fresh plans, the
      fp32 fused plan, its vmem_budget=0 plan, plans (a), (b) and (c), at
@@ -153,6 +154,22 @@ Phases (each asserts or exits non-zero):
      ms of eager forward against the graph at B = 1, 8 and 256 (fp32 and
      plan (b)) and the Engine's host ms per micro-batch eager against the
      graph; no plain version is called, under 60 s;
+  5m. the LM decode step as one CUDA graph per (batch, cache)
+     (launch/steps.py jit_decode_step, the cache donated, the position a
+     card tensor advanced in place), in three parts where the weights are
+     on the card: (a) after 5c, falcon-mamba-7b bf16 at full width and
+     depth, B=4, after the 512-token prompt, 32 greedy steps, each jitted
+     call's logits and every cache leaf bit for bit eager decode_step's,
+     the scan counted 64 times at each replay, the plain scan never
+     called; (b) in 5i's loop, each of the nine families at its serving
+     depth (qwen2.5-3b and recurrentgemma-9b full), 8 steps bit for bit
+     eager's, recurrentgemma's prompt ending 4 tokens before its
+     2048-slot rings' end so decoding wraps them; (c) in phase 6, eager
+     against the graph in ms per step on CUDA events and on the host
+     clock, tokens/s, the graph's busy share under the profiler and the
+     weight-read bound, for falcon-mamba-7b, recurrentgemma-9b and
+     qwen2.5-3b; (d) the peak memory allocated with the graph's pool, per
+     family; under 120 s in all;
   5k. (run last, after phase 6's profiles: it needs no profiler, and the
      pipeline sweep's profile once recorded no kernel after it) the dry
      run: launch/dryrun.py's run_cell at full width on the meta
@@ -209,7 +226,9 @@ examples and read just after them (``launches_5h``), and zeroed just
 before phase 5i and read just after it (``launches_5i``, all 0), and
 zeroed just before phase 5j's kernel runs and read at its end
 (``launches_5j``), zeroed just before phase 5l's captures and read after
-its Router (``launches_5l``), and zeroed just before phase 5k's steps on
+its Router (``launches_5l``), zeroed just before phase 5m (a) and read
+just after it (``launches_5m``; 5m (b) runs in 5i's window and launches
+no port kernel there), and zeroed just before phase 5k's steps on
 the card and read at its end (``launches_5k``). A CUDA graph's replay
 adds the launches its capture recorded, and the first call of a shape
 also its eager warm-up's: they show that each path went through its kernels. Every watchdog thread has ended before the record prints. Reference outputs that need kernel launches are computed
@@ -384,6 +403,16 @@ PHASE_5L_TENANT_REQUESTS = 6
 PHASE_5L_HOST_BATCHES = 23
 PHASE_5L_ITERS = 50
 PHASE_5L_LIMIT_S = 60.0
+# Phase 5m, the LM decode step as one CUDA graph: falcon-mamba's greedy
+# steps after 5c's prompt, each of 5i's families' steps after its prompt
+# (recurrentgemma-9b's prompt ends GRAPH_RING_LEAD tokens before its
+# 2048-slot rings' end, so decoding wraps them), the calls timed in phase
+# 6, and the time limit of the phase's three parts together.
+DEC_GRAPH_STEPS = 32
+FAM_GRAPH_STEPS = 8
+GRAPH_RING_LEAD = 4
+DEC_GRAPH_ITERS = 20
+PHASE_5M_LIMIT_S = 120.0
 
 
 def regroup_topologies(cnn) -> dict:
@@ -896,8 +925,9 @@ def moe_drops(x, p, spec) -> tuple:
     return int((pos >= spec.capacity(x.shape[1])).sum()), ids.numel()
 
 
-def phase_5i(smi: str) -> dict:
-    """The other nine LM families on the card (phase 5i). Returns the
+def phase_5i(smi: str, graph_s: list) -> dict:
+    """The other nine LM families on the card (phase 5i), and phase 5m's
+    gate on each (its seconds appended to ``graph_s``). Returns the
     launches of the phase's window (every kernel: 0)."""
     import contextlib
     import dataclasses
@@ -1015,7 +1045,22 @@ def phase_5i(smi: str) -> dict:
               f"{FAM_NEW} greedy decode steps {t_dec / FAM_NEW * 1e3:.2f} ms per step; peak "
               f"allocated {peak / 1e9:.2f} GB ({(peak - base_mem) / 1e9:.2f} GB above the "
               f"phase's start) ({smi})")
-        del params, cache, logits, tok, toks, kw
+        del cache, logits, tok, toks, kw
+
+        # 5m (b): the decode step as one CUDA graph, bit for bit against
+        # eager; recurrentgemma's prompt ends just before its rings' end.
+        g_prompt = cfg.window - GRAPH_RING_LEAD if cfg.window else FAM_PROMPT
+        toks, kw, n_pre = family_inputs(cfg, FAM_BATCH, g_prompt, gen, dev)
+        g = decode_graph_gate(name, params, cfg, toks, kw, n_pre, FAM_GRAPH_STEPS)
+        graph_s.append(g["s"])
+        wrap = (f"; the {cfg.window}-slot rings wrapped at step {GRAPH_RING_LEAD}"
+                if cfg.window else "")
+        print(f"[5m] {name} bf16, {serve_depth} of {arch.n_layers} layers, B={FAM_BATCH} after "
+              f"a {g_prompt}-token prompt{f' + {n_pre} prefix' if n_pre else ''}: "
+              f"{FAM_GRAPH_STEPS} steps of the decode graph bit for bit eager decode_step's"
+              f"{wrap}; peak allocated {g['peak'] / 1e9:.2f} GB with the graph's pool and its "
+              f"{g['cache_bytes'] / 1e6:.1f} MB static cache; {g['s']:.1f} s ({smi})")
+        del params, toks, kw
         torch.cuda.empty_cache()
     launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
     check(all(v == 0 for v in launches.values()), f"phase 5i launched kernels: {launches}")
@@ -1385,6 +1430,9 @@ def phase_5j(smi: str) -> dict:
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as ckpt:
             ex_s = {"quickstart.py": run_example("5j", "quickstart.py", []),
                     "serve.py": run_example("5j", "serve.py", []),
+                    "serve.py --pow2": run_example("5j", "serve.py", ["--pow2"]),
+                    "serve.py --arch falcon-mamba-7b": run_example(
+                        "5j", "serve.py", ["--arch", "falcon-mamba-7b"]),
                     "train_lm.py": run_example("5j", "train_lm.py", ["--ckpt-dir", ckpt])}
     finally:
         mssm.ssm_scan = kernel_scan
@@ -1904,6 +1952,53 @@ def _forward_loss(topo, params, x, y, quant):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def decode_graph_gate(tag, params, cfg, toks, kw, n_pre, steps) -> dict:
+    """Phase 5m's gate on one model: prefill ``toks`` (B, S) (with the VLM
+    or enc-dec inputs ``kw``), then ``steps`` greedy steps through eager
+    ``decode_step`` and through ``jit_decode_step(cfg)`` from
+    the same cache on the same tokens, the graph's position a device tensor
+    advanced in place: each step's logits and every leaf of the two caches
+    bit for bit. Returns the scan launches of each jitted call, the seconds
+    and the peak memory allocated during the gate (the graph's pool and its
+    static cache included)."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.launch.steps import jit_decode_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree_util import tree_leaves
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    start = n_pre + toks.shape[1]
+    scans = []
+    with torch.no_grad():
+        logits, cache = T.prefill(params, cfg, toks, max_len=start + steps, **kw)
+        decode = jit_decode_step(cfg)
+        pos = torch.full((), start, dtype=torch.long, device=toks.device)
+        tok = logits.argmax(-1, keepdim=True)
+        eager_cache = graph_cache = cache
+        for i in range(steps):
+            want, eager_cache = T.decode_step(params, cfg, tok, eager_cache, start + i)
+            before = kscan.LAUNCHES["ssm_scan"]
+            got, graph_cache = decode(params, graph_cache, tok, pos)
+            scans.append(kscan.LAUNCHES["ssm_scan"] - before)
+            pos.add_(1)
+            check(torch.equal(got, want), f"5m {tag} step {i}: the graph's logits differ from "
+                  f"eager decode_step's by {float((got.float() - want.float()).abs().max())}")
+            bad = [j for j, (a, b) in enumerate(zip(tree_leaves(graph_cache),
+                                                   tree_leaves(eager_cache)))
+                   if not torch.equal(a, b)]
+            check(not bad, f"5m {tag} step {i}: cache leaves {bad} differ from eager's")
+            tok = want.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+    check(decode._cache_size() == 1, f"5m {tag}: {decode._cache_size()} captures")
+    out = dict(scans=scans, s=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated(),
+               cache_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(graph_cache)))
+    decode.clear()
+    return out
 
 
 def main() -> None:
@@ -2490,6 +2585,34 @@ def main() -> None:
           f"tokens generated, sequence 0 starts {gen_toks[0, :8].tolist()}")
     print(f"[5c] LM path launches: {lm_launches}")
 
+    # -- 5m (a). the decode step as one CUDA graph: falcon-mamba ---------------
+    # The same prompts, then DEC_GRAPH_STEPS greedy steps through eager
+    # decode_step and through the jitted step (the cache donated, the
+    # position on the card), bit for bit at every step; each jitted call
+    # counts the scan once a layer (the first its eager warm-up, every
+    # later one its replay), and the plain scan never runs.
+    kscan.reset_launch_counts()
+    plain_calls[0] = 0
+    kssm_ops.ssm_scan_ref = counted_plain
+    try:
+        graph_a = decode_graph_gate(LM_ARCH, params16, lm_cfg, prompts, {}, 0, DEC_GRAPH_STEPS)
+    finally:
+        kssm_ops.ssm_scan_ref = dispatch_plain
+    decode_graph_launches = dict(kscan.LAUNCHES)
+    check(plain_calls[0] == 0, f"5m called the plain scan {plain_calls[0]} times")
+    check(graph_a["scans"] == [n_lm_layers] * DEC_GRAPH_STEPS,
+          f"5m jitted calls launched ssm_scan {graph_a['scans']} times")
+    check(decode_graph_launches["ssm_scan"] == n_lm_layers * (1 + 2 * DEC_GRAPH_STEPS),
+          f"5m launches {decode_graph_launches}")
+    graph_s = [graph_a["s"]]
+    print(f"[5m] {LM_ARCH} bf16, {n_lm_layers} layers at full width, B={LM_BATCH} after a "
+          f"{LM_PROMPT}-token prompt: {DEC_GRAPH_STEPS} steps of the decode graph bit for bit "
+          f"eager decode_step's (logits and every cache leaf); ssm_scan {n_lm_layers} launches "
+          f"counted at each jitted call; the plain scan never called; peak allocated "
+          f"{graph_a['peak'] / 1e9:.2f} GB with the graph's pool and its "
+          f"{graph_a['cache_bytes'] / 1e6:.1f} MB static cache; {graph_a['s']:.1f} s ({smi})")
+    print(f"[5m] decode graph launches: {decode_graph_launches}")
+
     # -- 5d. the seed conv's own path: what the kernel bench runs on it ----------
     # benchmarks/kernel_bench.py runs the seed kernel once on cifar10 conv1
     # (8 frames, SAME-padded to 36x36) beside the single-layer kernel on the
@@ -2893,7 +3016,7 @@ def main() -> None:
     static_launches = phase_5h(smi)
 
     # -- 5i. the other nine LM families --------------------------------------------
-    family_launches = phase_5i(smi)
+    family_launches = phase_5i(smi, graph_s)
 
     # -- 5j. LM training ---------------------------------------------------------------
     # The bf16 falcon-mamba weights phase 6 times are set aside for the
@@ -3464,10 +3587,55 @@ def main() -> None:
               "kernels")
         for ms_, cnt, key in rows[:8]:
             print(f"[6]   {ms_:.4f} ms  x{cnt}  {key[:90]}")
+        return busy_ms, wall_ms
+
+    # 5m (c): a decode step eager against its CUDA graph, on CUDA events and
+    # on the host clock (DEC_GRAPH_ITERS calls, then a synchronize), the
+    # graph's busy share under the profiler, beside the weight-read bound.
+    def decode_graph_times(name, params_, cfg_, tok_, cache_, index, eager_ms, bound_ms):
+        from repro_torch.launch.steps import jit_decode_step
+
+        t0 = time.perf_counter()
+        jd = jit_decode_step(cfg_)
+        pos = torch.full((), index, dtype=torch.long, device=dev)
+        with torch.no_grad():
+            _, static = jd(params_, cache_, tok_, pos)
+
+            def eager():
+                return T.decode_step(params_, cfg_, tok_, cache_, index)
+
+            def graph():
+                return jd(params_, static, tok_, pos)
+
+            graph_ms = time_ms(graph, iters=DEC_GRAPH_ITERS, warmup=2)
+            host = {}
+            for what, fn in (("eager", eager), ("graph", graph)):
+                fn()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(DEC_GRAPH_ITERS):
+                    fn()
+                torch.cuda.synchronize()
+                host[what] = (time.perf_counter() - t1) * 1e3 / DEC_GRAPH_ITERS
+            busy, wall = device_breakdown(f"{name} decode step, the graph", graph, 2)
+        check(jd._cache_size() == 1, f"5m {name}: {jd._cache_size()} captures while timing")
+        jd.clear()
+        share = (f"the card busy {busy:.3f} of {wall:.3f} ms ({busy / wall:.3f}) under the "
+                 "profiler" if busy > 0 else "busy share not measured (the profiler recorded "
+                 "no kernel)")
+        print(f"[5m] {name} decode step B={LM_BATCH} bf16, eager against the graph: "
+              f"{eager_ms:.3f} / {graph_ms:.3f} ms on CUDA events, {host['eager']:.3f} / "
+              f"{host['graph']:.3f} ms on the host clock ({DEC_GRAPH_ITERS} calls, then a "
+              f"synchronize); {LM_BATCH / eager_ms * 1e3:.0f} / {LM_BATCH / graph_ms * 1e3:.0f} "
+              f"tokens/s; graph {graph_ms / bound_ms:.2f}x the weight-read bound "
+              f"{bound_ms:.3f} ms; {share} ({smi})")
+        graph_s.append(time.perf_counter() - t0)
 
     device_breakdown(f"prefill {LM_BATCH}x{LM_PROMPT}",
                      lambda: T.prefill(params16, lm_cfg, prompts, max_len=LM_PROMPT + LM_NEW), 1)
     device_breakdown("decode step", lambda: T.decode_step(*dec_args), 2)
+    decode_graph_times(LM_ARCH, params16, lm_cfg, tok, lm_cache, LM_PROMPT + LM_NEW, dec_ms,
+                       dec_bound)
 
     # Two of phase 5i's families at full depth in bf16: prefill of 4 x 512
     # tokens and a decode step on CUDA events, and where their device time
@@ -3498,8 +3666,15 @@ def main() -> None:
               f"{param_bytes(arch) / PEAK_BYTES_S * 1e3:.3f} ms ({smi})")
         device_breakdown(f"{name} prefill {FAM_BATCH}x{FAM_PROMPT}", fam_prefill, 1)
         device_breakdown(f"{name} decode step", fam_decode, 2)
+        decode_graph_times(name, fam_params, arch, fam_tok, fam_cache, FAM_PROMPT, fam_dec,
+                           param_bytes(arch) / PEAK_BYTES_S * 1e3)
         del fam_params, fam_cache, fam_logits, fam_tok, fam_toks
         torch.cuda.empty_cache()
+
+    elapsed = sum(graph_s)
+    check(elapsed < PHASE_5M_LIMIT_S, f"phase 5m took {elapsed:.1f} s")
+    print(f"[5m] the decode graphs: every step bit for bit eager's; phase {elapsed:.1f} s in "
+          f"its three parts ({smi})")
 
     # The seed conv beside the single-layer kernel (the same bare conv on the
     # same padded frame) and cuDNN, at the kernel bench's shape and at B=256:
@@ -3674,6 +3849,7 @@ def main() -> None:
         rec["launches_5j"] = lm_train_launches.get(rec["name"], 0)
         rec["launches_5k"] = dryrun_launches.get(rec["name"], 0)
         rec["launches_5l"] = jitted_launches.get(rec["name"], 0)
+        rec["launches_5m"] = decode_graph_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -4,8 +4,12 @@ pow2-packed ("constant-specialized") weights for every linear layer —
 the paper's tactic as an LM serving feature (4 bits/weight).
 
 The counterpart of ``examples/serve.py``, with the same flags and
-``--device`` (the card unless ``cpu``). Times are on the host clock
-after the card has finished (``torch.cuda.synchronize``).
+``--device`` (the card unless ``cpu``). Decode runs the jitted step
+(``launch/steps.py`` ``jit_decode_step`` with the cache donated: one CUDA
+graph of the whole step on the card, replayed each token), the position
+a device tensor advanced in place; the greedy ``argmax`` and the
+temperature sampling run outside it. Times are on the host clock after
+the card has finished (``torch.cuda.synchronize``).
 
     PYTHONPATH=src python examples/torch/serve.py --batch 4 --new-tokens 16
     PYTHONPATH=src python examples/torch/serve.py --pow2
@@ -16,6 +20,7 @@ import time
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.launch.steps import jit_decode_step
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import pack_params_pow2
 from repro_torch.tree_util import tree_leaves
@@ -67,9 +72,12 @@ def main(argv=None) -> None:
         sample_gen = torch.Generator().manual_seed(2)
         tok = logits.argmax(-1, keepdim=True)
         out_tokens = [tok]
+        decode = jit_decode_step(cfg)
+        pos = torch.full((), p_len, dtype=torch.long, device=dev)
         t0 = time.perf_counter()
-        for t in range(args.new_tokens):
-            logits, cache = T.decode_step(params, cfg, tok, cache, p_len + t)
+        for _ in range(args.new_tokens):
+            logits, cache = decode(params, cache, tok, pos)
+            pos.add_(1)
             if args.temperature > 0:
                 probs = torch.softmax(logits.float() / args.temperature, dim=-1).cpu()
                 tok = torch.multinomial(probs, 1, generator=sample_gen).to(dev)

@@ -54,7 +54,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
-import gc
 import logging
 import threading
 import time
@@ -63,6 +62,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import cuda_graphs
 from repro_torch.core.dhm.faults import FaultPlan, InjectedDeviceLoss
 from repro_torch.core.dhm.pipeline import CollectiveTimeout, Watch, call_with_timeout
 from repro_torch.kernels import probe
@@ -76,9 +76,6 @@ def forward(plan, x: torch.Tensor) -> torch.Tensor:
     return plan.head_fn(plan.features(x))
 
 
-# One capture at a time in the process: PyTorch allows no more, and a
-# router's engines capture from their own threads.
-_CAPTURE_LOCK = threading.Lock()
 _CACHE_LOCK = threading.Lock()
 
 
@@ -107,8 +104,10 @@ class JittedForward:
     launches are real and counted), then captures ``fn`` on its static
     input into a ``torch.cuda.CUDAGraph`` with its own memory pool, in
     ``thread_local`` mode (other threads may launch and allocate
-    meanwhile). Each call fills the static input, replays the graph and
-    returns a clone of the static output; the kernels run in the same
+    meanwhile), by the port's one capture sequence
+    (``repro_torch/cuda_graphs.py``). Each call fills the static input,
+    replays the graph and returns a clone of the static output; the
+    kernels run in the same
     order on the same buffers as eagerly, so the logits are eager
     ``fn``'s bit for bit. A capture that fails raises: nothing falls back
     to the eager composition. A replay runs no wrapper, so the launches
@@ -157,41 +156,12 @@ class JittedForward:
         return entry
 
     def _capture(self, key: tuple) -> _Captured:
-        dev = self.device
-        static_in = torch.zeros(key[0], dtype=key[1], device=dev)
+        static_in = torch.zeros(key[0], dtype=key[1], device=self.device)
         if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-        side, caller = self._stream, torch.cuda.current_stream(dev)
-        side.wait_stream(caller)
-        with torch.cuda.stream(side):
-            self.fn(static_in)  # the warm-up: real launches, counted
-        graph = torch.cuda.CUDAGraph()
-        # No garbage collection during the capture: a plan and its closures
-        # form a cycle, and a collected graph's teardown on this thread
-        # would void the capture.
-        gc_on = gc.isenabled()
-        gc.disable()
-        try:
-            with _CAPTURE_LOCK, torch.cuda.stream(side), probe.recording() as log:
-                graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
-                                    capture_error_mode="thread_local")
-                try:
-                    static_out = self.fn(static_in)
-                except BaseException:
-                    try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass  # the capture is void already; the first error says why
-                    raise
-                finally:
-                    probe.uncount(log.launches)
-                graph.capture_end()
-        finally:
-            if gc_on:
-                gc.enable()
-        caller.wait_stream(side)
-        return _Captured(static_in=static_in, static_out=static_out, graph=graph,
-                         launches=tuple((name, smem) for _, name, smem in log.launches))
+            self._stream = torch.cuda.Stream(self.device)
+        cap = cuda_graphs.capture(lambda: self.fn(static_in), self.device, self._stream)
+        return _Captured(static_in=static_in, static_out=cap.out, graph=cap.graph,
+                         launches=cap.launches)
 
     def input_buffer(self, shape, dtype=torch.float32) -> torch.Tensor:
         """The static input for ``shape`` (captured first if new), free to

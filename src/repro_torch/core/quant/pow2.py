@@ -58,6 +58,17 @@ _POW2_MAGNITUDES = torch.tensor(
     [0.0] + [2.0 ** (m - 1) for m in range(1, POW2_LEVELS + 1)],
     dtype=torch.float32,
 )
+_MAGNITUDES_ON: dict = {}  # device -> _POW2_MAGNITUDES there
+
+
+def _magnitudes(device) -> torch.Tensor:
+    """``_POW2_MAGNITUDES`` on ``device``, copied there once: a decode
+    step captured in a CUDA graph may copy nothing from the host, and its
+    eager warm-up makes the copy first."""
+    table = _MAGNITUDES_ON.get(device)
+    if table is None:
+        table = _MAGNITUDES_ON[device] = _POW2_MAGNITUDES.to(device)
+    return table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,7 +162,7 @@ def decode_pow2(codes: torch.Tensor, scale) -> torch.Tensor:
     codes = torch.as_tensor(codes)
     m = (codes & 0x7).to(torch.int64)
     sign = torch.where((codes & 0x8) != 0, -1.0, 1.0).to(torch.float32)
-    mag = _POW2_MAGNITUDES.to(codes.device)[m]
+    mag = _magnitudes(codes.device)[m]
     return sign * mag * scale
 
 

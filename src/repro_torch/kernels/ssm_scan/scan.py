@@ -15,7 +15,11 @@ raises if the launch is refused. x, B and C are read in their own dtype
 (bfloat16 or float32, the same for all three) and may be strided views
 with a unit last stride, as ``mamba_apply``'s slices of one projection
 are; no cast or copy pass runs before the launch. ``LAUNCHES`` counts the
-launches; nothing else touches the count. The plain version is
+launches (registered with ``kernels/probe.py``, so a CUDA graph of the
+decode step adjusts the count: ``probe.uncount`` at its capture,
+``probe.replayed`` at each replay); nothing else touches the count. Each
+launch is also logged on the calling thread's probe log, with the shared
+memory of its plan. The plain version is
 ``ref.py``; ``ops.py`` picks between them by the device of the input.
 """
 from __future__ import annotations
@@ -25,7 +29,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _nvcc
+from repro_torch.kernels import _nvcc, probe
 from repro_torch.kernels.backends import sm_count
 from repro_torch.kernels.padding import round_up
 
@@ -52,7 +56,7 @@ SM_SMEM = 233_472  # shared memory per SM (228 KB)
 BLOCK_SMEM = 232_448  # of which one block may use
 CTA_RESERVED_SMEM = 1024  # of which CUDA reserves 1 KB per resident CTA
 
-LAUNCHES = {"ssm_scan": 0}
+LAUNCHES = probe.counted({"ssm_scan": 0})
 
 
 def reset_launch_counts() -> None:
@@ -239,4 +243,5 @@ def ssm_scan_cuda(
     if err:
         raise RuntimeError(f"ssm_scan launch failed: CUDA error {err}")
     LAUNCHES["ssm_scan"] += 1
+    probe.launched("ssm_scan", plan["smem"])
     return y, h_last

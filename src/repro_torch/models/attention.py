@@ -147,7 +147,7 @@ def decode_attention(
     q: torch.Tensor,  # (B, 1, Hkv, G, Dh)
     cache_k: torch.Tensor,  # (B, S_cache, Hkv, Dh)
     cache_v: torch.Tensor,
-    cur_index: int,  # position of the new token (a host int)
+    cur_index,  # position of the new token: a host int or a 0-d integer tensor
     spec: AttnSpec,
     *,
     exact_f32: bool = True,
@@ -157,9 +157,12 @@ def decode_attention(
     The cache is a ring buffer: slot i holds absolute position
     ``cur - ((cur - i) mod S)``; for an unwrapped cache (S > cur) this
     reduces to position i. Windowed/chunked layers size their cache to the
-    window so old positions are naturally evicted.
+    window so old positions are naturally evicted. A tensor ``cur_index``
+    (on the cache's device) is never read on the host: the mask is
+    computed on the device, as the reference computes it from a traced
+    index.
     """
-    cur = int(cur_index)
+    cur = cur_index
     s_cache = cache_k.shape[1]
     scale = _scale(q.shape[-1])
     slots = torch.arange(s_cache, device=q.device)
@@ -185,18 +188,28 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int, dtype, *,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _write_slot(buf: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tensor:
-    """``buf`` with ``new`` (B, 1, ...) at ``slot`` of axis 1, as a new
-    tensor: the buffer given is left as it was."""
-    out = buf.clone()
-    out[:, slot] = new[:, 0]
-    return out
+def _ring_slot(index, s_cache: int, device) -> torch.Tensor:
+    """The ring slot ``index mod S`` as a (1,) long tensor on ``device``
+    (the reference's ``jnp.mod``): a host int is filled in there, a
+    tensor index stays on the device."""
+    if isinstance(index, torch.Tensor):
+        return torch.remainder(index.reshape(1).to(torch.long), s_cache)
+    return torch.full((1,), int(index) % s_cache, dtype=torch.long, device=device)
 
 
 def update_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor, index) -> dict:
     """Insert (B, 1, Hkv, Dh) new KV at position ``index`` (mod cache len —
-    ring-buffer semantics for windowed layers). Returns a new cache; the
-    one given is left as it was."""
-    slot = int(index) % cache["k"].shape[1]
-    return {"k": _write_slot(cache["k"], k_new, slot),
-            "v": _write_slot(cache["v"], v_new, slot)}
+    ring-buffer semantics for windowed layers; a host int or a 0-d
+    integer tensor on the cache's device). Returns a new cache; the one
+    given is left as it was."""
+    return _write_kv_cache({"k": cache["k"].clone(), "v": cache["v"].clone()},
+                           k_new, v_new, index)
+
+
+def _write_kv_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor, index) -> dict:
+    """:func:`update_kv_cache` written into ``cache``'s own K and V (views
+    of a stacked cache write through to it). Returns ``cache``."""
+    slot = _ring_slot(index, cache["k"].shape[1], cache["k"].device)
+    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+    return cache

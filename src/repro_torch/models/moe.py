@@ -10,10 +10,16 @@ takes a leading group axis).
 
 Capacity: a (token, slot) past its expert's capacity is dropped, and
 only kept slots are scattered into the table, so an overflowing expert
-keeps its first ``C`` tokens. The reference also scatters dropped slots,
-to slot 0 of their expert, where on XLA:CPU the last write wins and the
-token kept there loses its output (``ROADMAP.md``, Queue 3); the two
-agree wherever no expert overflows.
+keeps its first ``C`` tokens. The reference also scatters dropped
+slots, to slot 0 of their expert, where on XLA:CPU the last write wins
+and the token kept there loses its output (``ROADMAP.md``, Queue 3); the
+two agree wherever no expert overflows.
+
+The combine gathers each token's k slot outputs and sums them over its
+k slots, where the reference scatter-adds every slot into its token: the
+same sum in another order. A scatter-add on the card sums in the order
+its atomics land, which differs from call to call, so no CUDA graph of
+the decode step could match the eager step bit for bit.
 """
 from __future__ import annotations
 
@@ -113,9 +119,6 @@ def _route_group(x: torch.Tensor, p: dict, spec: MoESpec):
     table.scatter_(1, dest, torch.where(keep, token_idx, -1))
     table = table[:, :spare]
     slot_ok = table >= 0  # (G, E*C)
-    slot_gate = torch.zeros((grp, spare + 1), dtype=torch.float32, device=dev)
-    slot_gate.scatter_(1, dest, torch.where(keep, gate_vals.reshape(grp, t * k), 0.0))
-    slot_gate = slot_gate[:, :spare]
 
     src = table.clamp_min(0)
     gathered = torch.gather(x, 1, src[..., None].expand(grp, spare, d))
@@ -127,12 +130,17 @@ def _route_group(x: torch.Tensor, p: dict, spec: MoESpec):
     h = F.silu(h_g) * h_u
     y_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])  # (G, E, C, d)
 
-    # Combine: each slot's output back to its token, weighted by its gate
-    # value, summed in float32.
-    y_flat = y_e.reshape(grp, spare, d).float() * slot_gate[..., None]
-    y_flat = torch.where(slot_ok[..., None], y_flat, 0.0)
-    out = torch.zeros((grp, t, d), dtype=torch.float32, device=dev)
-    out.scatter_add_(1, src[..., None].expand(grp, spare, d), y_flat)
+    # Combine: each token's k slot outputs gathered back from the table,
+    # weighted by their gate values (0 where dropped) and summed over the k
+    # slots in float32, in one fixed order. (A scatter-add of the slots
+    # into their tokens sums them in the order its atomics land on the
+    # card, which differs from call to call.)
+    kept_at = torch.where(keep, dest, 0)  # (G, T*k)
+    y_tok = torch.gather(y_e.reshape(grp, spare, d), 1,
+                         kept_at[..., None].expand(grp, t * k, d)).float()
+    w_tok = torch.where(keep, gate_vals.reshape(grp, t * k), 0.0)
+    y_tok = torch.where(keep[..., None], y_tok * w_tok[..., None], 0.0)
+    out = y_tok.view(grp, t, k, d).sum(dim=2)
 
     # Switch load-balancing aux loss: E * sum_e f_e * P_e.
     f_e = _one_hot(expert_ids, e, torch.float32).sum(dim=2).mean(dim=1)  # (G, E)

@@ -24,9 +24,16 @@ position where ``decode_attention`` expects it. The reference writes the
 tail at slots ``0 .. take-1``, which agrees only when ``s <= S`` or S
 divides s (``ROADMAP.md``, Queue 3).
 
-``decode_step`` takes the position as a host int (a tensor is read
-once per step): every attention layer derives its ring slot from it on
-the host.
+``decode_step`` takes the position as a host int or a 0-d integer
+tensor on the cache's device, which nothing reads on the host: the ring
+slots, the masks and the positions are computed from it on the device,
+as the reference computes them from a traced index. A decode step writes
+into the cache it runs on (``_decode_into``): each attention layer's new
+K/V row at its ring slot, each Mamba and RG-LRU layer's states over its
+own, stacked units through their per-unit views. The public
+``decode_step`` runs it on a clone of the cache given, which it leaves
+as it was; the jitted decode (``launch/steps.py`` ``jit_decode_step``)
+runs it on static buffers a CUDA graph replays.
 
 Training: ``train_loss`` and ``chunked_softmax_ce`` (an online
 logsumexp over vocab chunks in float32, ``torch.utils.checkpoint`` per
@@ -59,9 +66,9 @@ from repro_torch.kernels.backends import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (
     AttnSpec,
+    _write_kv_cache,
     blockwise_attention,
     decode_attention,
-    update_kv_cache,
 )
 from repro_torch.models.moe import MoESpec, init_moe, moe_apply
 from repro_torch.models.ssm import (
@@ -282,9 +289,9 @@ def _attn_apply(
         q5 = q.reshape(b, s, hkv, g, hd)
         exact_f32 = not cfg.opt_no_f32_cast_attn
         if decode_index is not None:
-            # Single-token decode against the ring-buffer cache.
-            new_cache = {**cache, **update_kv_cache(cache, k, v, decode_index)}
-            out = decode_attention(q5, new_cache["k"], new_cache["v"], decode_index, spec,
+            # Single-token decode: the new row written into the ring in place.
+            new_cache = _write_kv_cache(cache, k, v, decode_index)
+            out = decode_attention(q5, cache["k"], cache["v"], decode_index, spec,
                                    exact_f32=exact_f32)
         else:
             out = blockwise_attention(q5, k, v, spec, exact_f32=exact_f32,
@@ -305,9 +312,18 @@ def _ffn_apply(p: dict, cfg: ArchConfig, x: torch.Tensor):
     return L.mlp(x, p, act=cfg.mlp_act), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _store(cache: dict, **new) -> dict:
+    """``new``'s states copied over ``cache``'s own (decode). Returns
+    ``cache``."""
+    for key, t in new.items():
+        cache[key].copy_(t)
+    return cache
+
+
 def apply_block(p: dict, cfg: ArchConfig, kind: str, attn_kind: str, x, positions, *,
                 cache=None, decode_index=None, encoder_out=None):
-    """Returns (x, new_cache, aux_loss)."""
+    """Returns (x, new_cache, aux_loss). At decode (``decode_index``
+    given) the block writes its new state into ``cache`` and returns it."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "attn":
         if cfg.parallel_block:
@@ -339,7 +355,10 @@ def apply_block(p: dict, cfg: ArchConfig, kind: str, attn_kind: str, x, position
                 p["mamba"], _mamba_spec(cfg), h,
                 ssm_state=cache["ssm"], conv_state=cache["conv"],
             )
-            new_cache = {"ssm": ssm_new, "conv": conv_new}
+            if decode_index is not None:
+                new_cache = _store(cache, ssm=ssm_new, conv=conv_new)
+            else:
+                new_cache = {"ssm": ssm_new, "conv": conv_new}
         else:
             y, _, _ = mamba_apply(p["mamba"], _mamba_spec(cfg), h)
             new_cache = None
@@ -351,7 +370,10 @@ def apply_block(p: dict, cfg: ArchConfig, kind: str, attn_kind: str, x, position
                 p["rglru"], _rglru_spec(cfg), h,
                 h_state=cache["h"], conv_state=cache["conv"],
             )
-            new_cache = {"h": h_new, "conv": conv_new}
+            if decode_index is not None:
+                new_cache = _store(cache, h=h_new, conv=conv_new)
+            else:
+                new_cache = {"h": h_new, "conv": conv_new}
         else:
             y, _, _ = rglru_apply(p["rglru"], _rglru_spec(cfg), h)
             new_cache = None
@@ -475,7 +497,10 @@ def apply_stack(params: dict, cfg: ArchConfig, x, positions, *, cache=None,
                 decode_index=None, encoder_out=None):
     """Run the full stack. Returns (x, new_cache, total_aux). While a
     gradient is recorded (no cache), each pattern unit runs under
-    ``cfg.remat``, as the reference's scanned unit body does."""
+    ``cfg.remat``, as the reference's scanned unit body does. At decode
+    every block writes into ``cache`` (a stacked unit through its views
+    ``t[u]``) and ``new_cache`` is ``cache`` itself; at prefill it is a
+    new tree."""
     pat = cfg.block_pattern
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {"units": None, "tail": []}
@@ -505,9 +530,10 @@ def apply_stack(params: dict, cfg: ArchConfig, x, positions, *, cache=None,
                 continue
             x, total_aux, caches = unit_body(x, total_aux, u,
                                              cache["units"] if cache is not None else None)
-            for i, c_new in enumerate(caches):
-                outs[i].append(c_new)
-        if cache is not None:
+            if decode_index is None:  # at decode the blocks wrote into ``cache``
+                for i, c_new in enumerate(caches):
+                    outs[i].append(c_new)
+        if cache is not None and decode_index is None:
             new_cache["units"] = [_tree_map(lambda *ts: torch.stack(ts), *per_pos)
                                   for per_pos in outs]
     for t, p_t in enumerate(params["tail"]):
@@ -519,6 +545,8 @@ def apply_stack(params: dict, cfg: ArchConfig, x, positions, *, cache=None,
         )
         new_cache["tail"].append(c_new)
         total_aux = total_aux + a
+    if decode_index is not None:
+        return x, cache, total_aux
     return x, (new_cache if cache is not None else None), total_aux
 
 
@@ -583,13 +611,21 @@ def embed_tokens(params, cfg: ArchConfig, tokens, prefix_embeds=None):
     return h
 
 
+def _device_index(index, device) -> torch.Tensor:
+    """The decode position as a 0-d long tensor on ``device``: a host int
+    filled in there (no host-to-device copy), a tensor left where it is."""
+    if isinstance(index, torch.Tensor):
+        return index.reshape(()).to(device=device, dtype=torch.long)
+    return torch.full((), int(index), dtype=torch.long, device=device)
+
+
 def forward_hidden(params: dict, cfg: ArchConfig, tokens, *, prefix_embeds=None,
                    encoder_frames=None, cache=None, decode_index=None):
     h = embed_tokens(params, cfg, tokens, prefix_embeds)
     b, s = h.shape[0], h.shape[1]
     if decode_index is not None:
-        decode_index = int(decode_index)
-        positions = torch.full((b, 1), decode_index, dtype=torch.long, device=h.device)
+        decode_index = _device_index(decode_index, h.device)
+        positions = decode_index.expand(b, 1)
     else:
         positions = torch.arange(s, device=h.device)
     if cfg.pos_embedding == "learned":
@@ -697,10 +733,22 @@ def prefill(params: dict, cfg: ArchConfig, tokens, *, max_len: int,
 
 def decode_step(params: dict, cfg: ArchConfig, token, cache, index, *, encoder_out=None):
     """One serving step: logits for the next token + updated cache. The
-    cache passed in is left as it was. ``index`` is the token's absolute
-    position (a host int; a tensor is read once). ``encoder_out`` is
-    accepted and ignored, as in the reference: the cross-attention KV
-    was written into the cache at prefill."""
-    h, new_cache, _ = forward_hidden(params, cfg, token, cache=cache, decode_index=index)
+    cache passed in is left as it was: the step writes into a clone of it
+    (:func:`_decode_into`). ``index`` is the token's absolute position, a
+    host int or a 0-d integer tensor on the cache's device (never read on
+    the host). ``encoder_out`` is accepted and ignored, as in the
+    reference: the cross-attention KV was written into the cache at
+    prefill."""
+    return _decode_into(params, cfg, token, _tree_map(torch.clone, cache), index)
+
+
+def _decode_into(params: dict, cfg: ArchConfig, token, cache, index):
+    """One decode step written into ``cache``'s own storage: each
+    attention layer's new K/V row at ring slot ``index mod S``, each Mamba
+    ``ssm``/``conv`` and RG-LRU ``h``/``conv`` state over the old one,
+    stacked units through their per-unit views. Returns (logits,
+    ``cache``). The counterpart of the reference's decode step with its
+    cache donated; what a decode graph captures."""
+    h, cache, _ = forward_hidden(params, cfg, token, cache=cache, decode_index=index)
     logits = unembed(params, cfg, h[:, 0])
-    return logits, new_cache
+    return logits, cache

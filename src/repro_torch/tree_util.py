@@ -120,18 +120,22 @@ def _node(node) -> tuple:
     return "leaf", None, ()
 
 
+def _walk(node, leaves: list) -> TreeDef:
+    """``node``'s structure, its leaves appended to ``leaves``. A module
+    function: a recursive closure would form a reference cycle through
+    its own cell and keep ``leaves`` (the tensors) alive until the next
+    garbage collection."""
+    kind, meta, children = _node(node)
+    if kind == "leaf":
+        leaves.append(node)
+        return _LEAF
+    return TreeDef(kind, meta, tuple(_walk(c, leaves) for c in children))
+
+
 def tree_flatten(tree) -> tuple:
     """``(leaves, treedef)`` of ``tree``, the leaves in JAX's order."""
     leaves: list = []
-
-    def walk(node) -> TreeDef:
-        kind, meta, children = _node(node)
-        if kind == "leaf":
-            leaves.append(node)
-            return _LEAF
-        return TreeDef(kind, meta, tuple(walk(c) for c in children))
-
-    treedef = walk(tree)
+    treedef = _walk(tree, leaves)
     return leaves, treedef
 
 

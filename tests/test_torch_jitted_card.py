@@ -17,8 +17,10 @@ plan kind (fp32 fused and per-layer, int8, the integer and the fp32 pow2
 heads), the replay's launch accounting, four threads on one plan, a
 capture while another engine serves, the donating closure reading its
 buffer in place, the Engine's fused and per-layer rungs serving through
-graphs, a capture failure demoting the rung, and the verifier's V005 and
-V006 on the card.
+graphs, a capture failure demoting the rung, the verifier's V005 and
+V006 on the card, and the collector guard of the capture sequence
+(``repro_torch/cuda_graphs.py``) under a plan's and a decode step's
+capture.
 """
 import pytest
 
@@ -27,18 +29,23 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import dataclasses  # noqa: E402
+import gc  # noqa: E402
 import threading  # noqa: E402
 
 import numpy as np  # noqa: E402
 
 from repro_torch.analysis.verify import ProbeContext, verify_plan  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.dhm import DispatchError, Engine, FaultPlan, QuantSpec, compile_dhm  # noqa: E402
 from repro_torch.core.dhm.engine import JittedForward, forward  # noqa: E402
 from repro_torch.kernels import probe  # noqa: E402
 from repro_torch.kernels.pow2_matmul import pow2 as kpow2  # noqa: E402
 from repro_torch.kernels.stream_conv import conv as kconv  # noqa: E402
 from repro_torch.kernels.stream_conv.epilogue import quantize_stream, stream_quant_spec  # noqa: E402
+from repro_torch.launch import steps as S  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.cnn import ALL_TOPOLOGIES, init_cnn  # noqa: E402
+from repro_torch.tree_util import tree_leaves  # noqa: E402
 
 pytestmark = pytest.mark.card
 
@@ -271,3 +278,83 @@ def test_verifier_V005_V006_on_the_card(card):
     assert [f.rule for f in found] == ["V006"]
     rep = ProbeContext(_DropsDonate()).lower_donated()
     assert not rep.declared and rep.input_copies == 1
+
+
+# ---------------------------------------------------------------------------
+# The collector guard: a graph that becomes garbage during another capture.
+
+
+def _old_graph_dropped_mid_capture(card):
+    """A captured plan closure, and ``drop``: called at each call of the
+    next closure's function, at its second call (the capture; the first
+    is the warm-up) it moves the only reference to the old closure into a
+    fresh reference cycle, so that the collection the capture's own
+    allocations trigger under ``gc.set_threshold(1)`` would tear the old
+    graph down on the capturing thread."""
+    old = _plan("fp32", card, seed=3)
+    parked = [JittedForward(lambda xb: forward(old, xb), card)]
+    parked[0](_frames(8, 9, card))
+    calls = [0]
+
+    def drop():
+        calls[0] += 1
+        if calls[0] == 2 and parked:
+            cycle = [parked.pop()]
+            cycle.append(cycle)
+
+    return drop
+
+
+def _under_gc_threshold_1(fn):
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        return fn()
+    finally:
+        gc.set_threshold(*thresholds)
+
+
+def test_a_collection_inside_a_plan_capture_voids_nothing(card):
+    """Without the collector guard the capture fails (CUDA error 901:
+    the capture was invalidated)."""
+    plan = _plan("int_pow2_head", card, seed=1)
+    drop = _old_graph_dropped_mid_capture(card)
+
+    def fn(xb):
+        drop()
+        return forward(plan, xb)
+
+    fwd = JittedForward(fn, card)
+    x = _frames(8, 2, card, grid=True)
+    got, again = _under_gc_threshold_1(lambda: (fwd(x), fwd(x)))
+    want = _eager(plan, x)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert fwd._cache_size() == 1
+
+
+def test_a_collection_inside_a_decode_capture_voids_nothing(card, monkeypatch):
+    """The same for the LM decode step's graph (falcon-mamba through the
+    scan kernel)."""
+    cfg = get_arch("falcon-mamba-7b").scaled_down()
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, device=card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(1)).to(card)
+    with torch.no_grad():
+        _, cache = T.prefill(params, cfg, toks[:, :8], max_len=10)
+        want, want_cache = T.decode_step(params, cfg, toks[:, 8:], cache, 8)
+    drop = _old_graph_dropped_mid_capture(card)
+    real = S._decode_into
+
+    def step(*args):
+        drop()
+        return real(*args)
+
+    monkeypatch.setattr(S, "_decode_into", step)
+    decode = S.jit_decode_step(cfg)
+    with torch.no_grad():
+        (got, c1), (again, c2) = _under_gc_threshold_1(
+            lambda: (decode(params, cache, toks[:, 8:], 8), decode(params, cache, toks[:, 8:], 8)))
+    assert torch.equal(got, want) and torch.equal(again, want)
+    for c in (c1, c2):
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(c), tree_leaves(want_cache)))
+    assert decode._cache_size() == 1
