@@ -71,12 +71,14 @@ Phases (each asserts or exits non-zero):
      1-stage fused plans (fp32 at the logits' tolerance, int8 bit for
      bit), S x M stage launches a call (fill and drain launch nothing);
      phase 5's 24 requests through Engine(plan, mesh=..., microbatch=64,
-     n_microbatches=4), every answer equal to the plan on the padded group
-     and the rung staying mesh; a DeviceLoss on the mesh rung demotes to
-     fused with no retry, a StalledDispatch past its watchdog demotes and
-     the abandoned attempt launches nothing; verify_plan(scopes=
-     ("pipeline",)) finds no error on either plan and one V103 warning on
-     the boxed runner; no plain version is called;
+     n_microbatches=4), whose rung is one CUDA graph (a JittedForward
+     captured once, in its warmup probe), every answer equal to the plan
+     on the padded group and the rung staying mesh; a DeviceLoss on the
+     mesh rung's graph demotes to fused with no retry, a StalledDispatch
+     past its watchdog demotes and the abandoned attempt launches nothing;
+     verify_plan(scopes=("pipeline",)) on a replay of the rung's graph
+     finds no error on either plan and one V103 warning on the boxed
+     runner; no plain version is called;
   5g. training on the card: lenet5 and cifar10 at full width on the
      port's synthetic data at B=128; the backward's precision at lenet5
      B=16 against a float64 composition (beside cuDNN's); one step's
@@ -204,7 +206,10 @@ Phases (each asserts or exits non-zero):
      fused plan and the stages run in sequence, with the profiler's union
      of kernel device time against its sum; the 2-stage plan's serial
      rows; fit_constants on the serial rows, estimate_pipeline beside each
-     row and autotune_pipeline's pick; last, 5j's bf16 training step: the
+     row and autotune_pipeline's pick; the Engine's mesh rung, its eager
+     closure against its CUDA graph, serial and overlapped: ms a call on
+     CUDA events and on the host clock, and the Engine's frames/s on
+     phase 5's burst; last, 5j's bf16 training step: the
      scan's forward against its recomputed backward at the step's shape,
      with the backward's peak memory, and the step's forward, backward
      and optimizer on CUDA events and on the profiler, with its busy
@@ -310,6 +315,7 @@ HOST_SPLIT_BATCHES = 40  # phase 6: micro-batches the Engine's host split averag
 # outlast the host's enqueue), and the stage counts of the plans the cost
 # model is fitted on.
 PIPE_STAGES, PIPE_M = 3, 4
+MESH_ITERS = 50  # phase 6: calls of the mesh rung's closures per timing
 SWEEP_M, SWEEP_MB, SWEEP_STAGES = (1, 2, 4, 8), (16, 32, 64, 128, 256), (3, 2)
 # Phase 5g: the training batch; the steps and data of the reference's own
 # training tests (test_cnn.py::TestTraining); the pow2 QAT steps; the
@@ -2853,6 +2859,7 @@ def main() -> None:
     from repro_torch.analysis.invariants import planned_launches
     from repro_torch.analysis.verify import make_pipeline_probe
     from repro_torch.core.dhm import DeviceLoss, PipelineConfig, build_plan_pipeline
+    from repro_torch.core.dhm.engine import JittedForward
     from repro_torch.launch.mesh import make_mesh
 
     t_phase = time.perf_counter()
@@ -2916,11 +2923,16 @@ def main() -> None:
                   f"to the plan run in sequence bit for bit, {per_call[what]} launch(es) per stage "
                   f"body, {PIPE_M * per_call[what]} per call (fill and drain launch nothing); "
                   f"logits max |delta| {pipe_errs[what]:.3e} against the 1-stage fused plan")
-        # Phase 5's burst through the Engine's mesh rung.
+        # Phase 5's burst through the Engine's mesh rung: one CUDA graph,
+        # captured in the rung's warmup probe and replayed for every group.
         pipe_engines = {}
         for what, (p3, _, _) in pipe_in.items():
             eng_p = Engine(p3, mesh=pipe_mesh, microbatch=BATCH // PIPE_M, n_microbatches=PIPE_M,
                            auto_flush=True, default_deadline_ms=10_000.0)
+            graph_p = eng_p._fwd
+            check(isinstance(graph_p, JittedForward) and graph_p.donate
+                  and graph_p._cache_size() == 1,
+                  f"5f engine {what}: the mesh rung is {graph_p!r}, not one donating graph")
             eng_p.reset_stats()
             burst = frames if what == "fp32" else q_frames
             t0 = time.perf_counter()
@@ -2934,15 +2946,18 @@ def main() -> None:
                       f"{float((g_ - want_).abs().max())} against the plan")
             st_p = eng_p.stats()
             check(eng_p.rung == "mesh" and eng_p.demotions == [] and st_p.n_retries == 0
-                  and st_p.n_ok == len(burst) and st_p.n_errors == 0,
-                  f"5f engine {what}: rung {eng_p.rung}, {st_p.summary()}")
+                  and st_p.n_ok == len(burst) and st_p.n_errors == 0
+                  and eng_p._fwd is graph_p and graph_p._cache_size() == 1,
+                  f"5f engine {what}: rung {eng_p.rung}, {st_p.summary()}, "
+                  f"{graph_p._cache_size()} captures")
             pipe_engines[what] = (st_p, wall_p)
             lat = st_p.rung_latency_ms["mesh"]
             print(f"[5f] engine {what} on the mesh rung (group {eng_p.group} = {PIPE_M} x "
                   f"{BATCH // PIPE_M}): {len(burst)} requests / {n_frames} frames, p50 "
                   f"{lat['p50_ms']:.3f} ms p99 {lat['p99_ms']:.3f} ms, {st_p.frames_per_s:.0f} "
-                  f"frames/s busy, {n_frames / wall_p:.0f} frames/s wall, {st_p.n_batches} groups; "
-                  "every answer equal to the plan on the padded group; 0 retries, 0 demotions")
+                  f"frames/s busy, {n_frames / wall_p:.0f} frames/s wall, {st_p.n_batches} groups "
+                  "through one CUDA graph (one capture); every answer equal to the plan on the "
+                  "padded group; 0 retries, 0 demotions")
         # Chaos on the mesh rung: a device loss demotes with no retry; a stall
         # past the watchdog demotes, and the abandoned attempt launches
         # nothing: the only launches are the fused rung's warmup and the
@@ -2951,9 +2966,13 @@ def main() -> None:
         eng_l = Engine(plan3, mesh=pipe_mesh, microbatch=BATCH // PIPE_M, n_microbatches=PIPE_M,
                        retry_backoff_s=1e-4,
                        fault_plan=FaultPlan([DeviceLoss(at=0, times=None, rung="mesh")]))
+        graph_l = eng_l._fwd
+        check(isinstance(graph_l, JittedForward) and graph_l._cache_size() == 1,
+              f"5f device loss: the mesh rung is {graph_l!r}, not one graph")
         got_l = eng_l.infer(x_c)
         check(eng_l.rung == "fused" and [d["rung"] for d in eng_l.demotions] == ["mesh"]
-              and eng_l.stats().n_retries == 0, f"5f device loss: rung {eng_l.rung}, "
+              and eng_l.stats().n_retries == 0 and graph_l._cache_size() == 1,
+              f"5f device loss: rung {eng_l.rung}, "
               f"demotions {eng_l.demotions}, retries {eng_l.stats().n_retries}")
         check(torch.equal(got_l, pipe_direct[("fp32", 3)]), "5f device loss: answer")
         eng_s = Engine(plan3, mesh=pipe_mesh, microbatch=BATCH // PIPE_M, n_microbatches=PIPE_M,
@@ -2961,6 +2980,8 @@ def main() -> None:
                        fault_plan=FaultPlan([StalledDispatch(at=0, times=1, stall_s=30.0,
                                                              rung="mesh")]))
         mesh_calls, mesh_fwd = [], eng_s._fwd
+        check(isinstance(mesh_fwd, JittedForward) and mesh_fwd._cache_size() == 1,
+              f"5f stall: the mesh rung is {mesh_fwd!r}, not one graph")
         eng_s._fwd = lambda xb: mesh_calls.append(1) or mesh_fwd(xb)
         torch.cuda.synchronize()
         before = sum(kconv.LAUNCHES.values())
@@ -2970,7 +2991,7 @@ def main() -> None:
         stall_wall = time.perf_counter() - t0
         torch.cuda.synchronize()
         n_after = sum(kconv.LAUNCHES.values()) - before
-        check(mesh_calls == [] and eng_s.rung == "fused"
+        check(mesh_calls == [] and eng_s.rung == "fused" and mesh_fwd._cache_size() == 1
               and [d["rung"] for d in eng_s.demotions] == ["mesh"]
               and "did not complete" in eng_s.demotions[0]["reason"],
               f"5f stall: rung {eng_s.rung}, demotions {eng_s.demotions}, mesh calls {mesh_calls}")
@@ -2982,18 +3003,23 @@ def main() -> None:
               f"StalledDispatch past its {MT_DISPATCH_TIMEOUT_S:.0f} s watchdog demotes to fused "
               f"in {stall_wall:.2f} s, the abandoned attempt launched nothing ({n_after} "
               "launches after it, all the fused rung's warmup and request)")
-        # The verifier's pipeline scope on both plans, exact and boxed.
+        # The verifier's pipeline scope on both plans, exact and boxed: each
+        # probe reads one replay of the mesh rung's graph.
         for what, (p3, _, _) in pipe_in.items():
             pr_ = make_pipeline_probe(p3, n_microbatches=PIPE_M, microbatch=BATCH // PIPE_M)
             errors = [f.render() for f in verify_plan(p3, scopes=("pipeline",), pipeline=pr_)
                       if f.is_error]
-            check(not errors and len(pr_.transfers) == (PIPE_STAGES - 1) * PIPE_M,
-                  f"5f verify_plan({what}, pipeline): {errors}, {len(pr_.transfers)} transfers")
+            n_conv = sum(name.startswith("stream_conv") for _, name, _ in pr_.launches)
+            check(not errors and len(pr_.transfers) == (PIPE_STAGES - 1) * PIPE_M
+                  and n_conv == PIPE_M * per_call[what],
+                  f"5f verify_plan({what}, pipeline): {errors}, {len(pr_.transfers)} transfers, "
+                  f"{n_conv} stage launches in the replay")
             boxed_ = verify_plan(p3, scopes=("pipeline",), pipeline=make_pipeline_probe(
                 p3, n_microbatches=PIPE_M, microbatch=BATCH // PIPE_M, edge_mode="boxed"))
             check([(f.rule, f.severity) for f in boxed_] == [("V103", "warning")],
                   f"5f boxed probe of {what}: {[f.render() for f in boxed_]}")
-            print(f"[5f] verify_plan({what}, scopes=('pipeline',)): no error, "
+            print(f"[5f] verify_plan({what}, scopes=('pipeline',)) on a replay of the rung's "
+                  f"graph: no error, {n_conv} stage launches, "
                   f"{len(pr_.transfers)} edge transfers in classes "
                   f"{sorted({t[0] for t in pr_.transfers})}; the boxed runner: one V103 warning "
                   f"({boxed_[0].message})")
@@ -3828,6 +3854,69 @@ def main() -> None:
                                    grains=SWEEP_MB, microbatches=SWEEP_M)
     print(f"[6] autotune_pipeline(cifar10 3-stage, 3 slots, the measured rows) ({smi}): "
           f"{pick.summary()}; on the fitted model alone: {model_pick.summary()}")
+
+    # The Engine's mesh rung, its eager closure (JittedForward.fn: the
+    # runner and the head, enqueued from Python) against its CUDA graph:
+    # the 3-stage fp32 plan on the stage mesh, B=256 as 4 x 64, serial and
+    # overlapped. A call's ms on CUDA events (MESH_ITERS calls queued) and
+    # on the host clock (each call synchronized), its kernels' device sum
+    # and union on the profiler's clock, then phase 5's burst
+    # through the Engine with either closure serving, in turns (eager,
+    # graph, graph, eager): frames/s over its busy time and over the wall.
+    from repro_torch.core.dhm.engine import JittedForward
+
+    def host_clock_ms(fn, iters=MESH_ITERS):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    for ov in (False, True):
+        eng_m = Engine(plan3, mesh=pipe_mesh, microbatch=BATCH // PIPE_M, n_microbatches=PIPE_M,
+                       overlap=ov, auto_flush=True, default_deadline_ms=10_000.0)
+        graph_m = eng_m._fwd
+        check(isinstance(graph_m, JittedForward) and graph_m._cache_size() == 1,
+              f"[6] mesh rung overlap={ov}: {graph_m!r}")
+
+        def eager_m(xb, fn_=graph_m.fn):
+            with torch.no_grad():
+                return fn_(xb)
+
+        closures = {"eager": eager_m, "graph": graph_m}
+        with torch.no_grad():
+            check(torch.equal(eager_m(x), graph_m(x)), f"[6] mesh rung overlap={ov}: graph != eager")
+        ms_ev = {k: time_ms(lambda f_=f_: f_(x), iters=MESH_ITERS) for k, f_ in closures.items()}
+        ms_host = {k: host_clock_ms(lambda f_=f_: f_(x)) for k, f_ in closures.items()}
+        kern = {k: kernel_union(lambda f_=f_: f_(x)) for k, f_ in closures.items()}
+        served = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            eng_m._fwd = closures[mode]
+            eng_m.reset_stats()
+            t0 = time.perf_counter()
+            reqs = [eng_m.submit(f) for f in frames]
+            for r in reqs:
+                r.result(timeout=120.0)
+            wall = time.perf_counter() - t0
+            st_m = eng_m.stats()
+            check(st_m.n_ok == len(frames) and st_m.n_errors == 0 and eng_m.rung == "mesh",
+                  f"[6] mesh rung {mode} overlap={ov}: {st_m.summary()}")
+            served[mode].append((st_m.frames_per_s, n_frames / wall))
+        eng_m.stop()
+        check(graph_m._cache_size() == 1, f"[6] mesh rung overlap={ov}: recaptured")
+        for mode in ("eager", "graph"):
+            print(f"[6] engine mesh rung {mode}, cifar10 fp32 3 stages, {PIPE_M} x "
+                  f"{BATCH // PIPE_M}, overlap={ov} ({smi}): {ms_ev[mode]:.4f} ms a call (CUDA "
+                  f"events, {MESH_ITERS} calls queued), {ms_host[mode]:.4f} ms (host clock, each "
+                  f"call synchronized); "
+                  + (f"kernels {kern[mode][2]:.0f} a call, device sum {kern[mode][0]:.4f} ms, union "
+                     f"{kern[mode][1]:.4f} ms (busy share {kern[mode][1] / ms_ev[mode]:.3f}); "
+                     if kern[mode][2] else "kernels' device time not measured (the profiler "
+                     "recorded none); ")
+                  + f"phase 5's burst ({n_frames} frames), two runs: "
+                  + ", ".join(f"{b:.0f} frames/s busy, {w:.0f} wall" for b, w in served[mode]))
 
     # 5j's LM training step and the scan's recomputed backward, last: the
     # heaviest profiles of the script.

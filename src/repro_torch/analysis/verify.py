@@ -11,8 +11,9 @@ own device and at a tiny batch, and reads what happened:
 - the ``resource`` scope costs the plan's fusion groups on the host, as
   the reference does, and on a card plan reads the shared memory each
   launch of the structure probe requested (V203);
-- the ``pipeline`` scope reads a :class:`PipelineProbe`: the plan's
-  pipelined runner run once on zero µbatches on a stage mesh
+- the ``pipeline`` scope reads a :class:`PipelineProbe`: the Engine's
+  mesh-rung closure (the plan's pipelined runner and head; on a card
+  plan its CUDA graph, replayed once) run on zero frames on a stage mesh
   (:func:`make_pipeline_probe`), with the edge transfers it logged on the
   probing thread; with no probe it finds nothing, as the reference's;
 - the ``structure`` scope runs one probe of ``batch`` (2) zero frames
@@ -332,12 +333,16 @@ def make_pipeline_probe(
     plan, *, mesh=None, n_microbatches: Optional[int] = None,
     microbatch: int = 2, overlap: bool = False, edge_mode: str = "auto",
 ) -> PipelineProbe:
-    """Build the plan's pipelined runner on a stage mesh and run it once
-    on zero µbatches, on the probing thread with the kernels' log open;
-    returns the :class:`PipelineProbe` the pipeline-scope invariants
-    consume. ``mesh`` defaults to an ``n_stages`` stage mesh on the
-    plan's device type (a CPU mesh needs no forced device count)."""
-    from repro_torch.core.dhm.engine import build_plan_pipeline, on_device
+    """Build the Engine's mesh-rung closure for the plan on a stage mesh
+    (``engine._mesh_forward``: the pipelined runner and the head) and run
+    it once on zero frames, on the probing thread with the kernels' log
+    open; returns the :class:`PipelineProbe` the pipeline-scope
+    invariants consume. On a card plan the closure is the rung's CUDA
+    graph, captured before the log opens, so the log holds the launches
+    and edge transfers of one replay: what the rung serves. ``mesh``
+    defaults to an ``n_stages`` stage mesh on the plan's device type (a
+    CPU mesh needs no forced device count)."""
+    from repro_torch.core.dhm.engine import JittedForward, _mesh_forward, on_device
     from repro_torch.core.dhm.pipeline import PipelineConfig
     from repro_torch.launch.mesh import make_mesh
 
@@ -350,14 +355,17 @@ def make_pipeline_probe(
         S, M, stage_axis=mesh.axis_names[0], overlap=overlap,
         edge_mode=edge_mode,
     )
-    runner = build_plan_pipeline(plan, mesh=mesh, cfg=cfg, microbatch=microbatch)
+    runner, fwd = _mesh_forward(plan, mesh, cfg, microbatch)
     h, w = plan.topo.input_shape
-    mbs = torch.zeros((M, microbatch, h, w, plan.topo.input_channels),
-                      dtype=torch.float32, device=dev)
-    with torch.inference_mode(), on_device(dev), probe.recording() as log:
-        runner(mbs)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    frames = torch.zeros((M * microbatch, h, w, plan.topo.input_channels),
+                         dtype=torch.float32, device=dev)
+    with on_device(dev):
+        if isinstance(fwd, JittedForward):
+            fwd.input_buffer(tuple(frames.shape))  # on the card, the capture
+        with probe.recording() as log:
+            fwd(frames)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
     return PipelineProbe(
         transfers=list(log.transfers), launches=list(log.launches),
         edge_plan=runner.edge_plan, cfg=cfg, mb_local=microbatch,

@@ -24,10 +24,11 @@ The counterpart of ``repro.core.dhm.engine``:
   retry-with-backoff; persistent failures demote the engine down a
   health-checked ladder (mesh pipeline, when a ``mesh`` is given ->
   fused plan -> per-layer plan). Every rung runs the plan's kernels;
-  there is no plain-version rung on the card. The fused and per-layer
-  rungs are :class:`JittedForward` closures, captured in the rung's
-  warmup probe; with ``donate`` (the default) the engine stages each
-  packed batch straight into the closure's input buffer.
+  there is no plain-version rung on the card. Every rung is a
+  :class:`JittedForward` closure, captured in the rung's warmup probe
+  (a mesh rung whose slots are not all on the plan's card excepted,
+  which runs eagerly); with ``donate`` (the default) the engine stages each packed
+  batch straight into the closure's input buffer.
   Failures surface as structured per-request errors — ``result()``
   raises, it never hangs. A seed-driven
   :class:`~repro_torch.core.dhm.faults.FaultPlan` injects failures
@@ -43,7 +44,9 @@ or demoted.
 On the ``mesh`` rung one group of ``microbatch * n_microbatches`` frames
 streams through the pipeline as ``n_microbatches`` µbatches, one stream
 per stage slot, and the head runs on the caller's stream after the last
-stage; ``n_microbatches="auto"`` (or a ``tuning``) takes the geometry
+stage; with every slot on the plan's card all of it is one CUDA graph (:func:`_mesh_forward`), the counterpart of the reference's
+jitted mesh closure, which donates its frames as the other rungs do;
+``n_microbatches="auto"`` (or a ``tuning``) takes the geometry
 from the throughput model's autotuner. The fault hooks reach the rung as
 any other: a device loss demotes without a retry, a stall past the
 watchdog raises ``CollectiveTimeout`` and demotes, and the abandoned
@@ -83,13 +86,15 @@ _CACHE_LOCK = threading.Lock()
 class _Captured:
     """One input shape of a :class:`JittedForward`: its static input and,
     on the card, the graph, its static output, the launches one replay
-    makes ((name, shared-memory bytes) each) and the event after the last
-    replay's output copy."""
+    makes ((name, shared-memory bytes) each), the pipeline's edge
+    transfers it makes and the event after the last replay's output
+    copy."""
 
     static_in: Optional[torch.Tensor] = None
     static_out: Optional[torch.Tensor] = None
     graph: Optional[object] = None  # torch.cuda.CUDAGraph
     launches: tuple = ()
+    transfers: tuple = ()
     done: Optional[object] = None  # torch.cuda.Event
 
 
@@ -111,8 +116,8 @@ class JittedForward:
     order on the same buffers as eagerly, so the logits are eager
     ``fn``'s bit for bit. A capture that fails raises: nothing falls back
     to the eager composition. A replay runs no wrapper, so the launches
-    the capture logged are counted again at each replay
-    (``kernels/probe.py``).
+    (and the pipeline's edge transfers) the capture logged are counted
+    again at each replay (``kernels/probe.py``).
 
     ``donate=True`` is the port's input donation: a caller that writes
     its batch into :meth:`input_buffer` and hands that buffer over gets a
@@ -161,7 +166,7 @@ class JittedForward:
             self._stream = torch.cuda.Stream(self.device)
         cap = cuda_graphs.capture(lambda: self.fn(static_in), self.device, self._stream)
         return _Captured(static_in=static_in, static_out=cap.out, graph=cap.graph,
-                         launches=cap.launches)
+                         launches=cap.launches, transfers=cap.transfers)
 
     def input_buffer(self, shape, dtype=torch.float32) -> torch.Tensor:
         """The static input for ``shape`` (captured first if new), free to
@@ -194,7 +199,7 @@ class JittedForward:
             if entry.done is None:
                 entry.done = torch.cuda.Event()
             entry.done.record(stream)
-            probe.replayed(entry.launches)
+            probe.replayed(entry.launches, entry.transfers)
             return out
 
 
@@ -250,6 +255,58 @@ def build_plan_pipeline(plan, *, mesh, cfg, microbatch=None):
         stage_fns, stage_params, mesh=mesh, cfg=cfg, io_specs=io_specs,
         microbatch=microbatch,
     )
+
+
+def _mesh_forward(plan, mesh, cfg, microbatch: int, *, donate: bool = False):
+    """The Engine's mesh rung as ``(runner, fwd)``: the plan's pipelined
+    runner, built once on the mesh's slots (each stage's params resident
+    there), and ``fwd(frames) -> logits``, the counterpart of the
+    reference's jitted mesh closure: the group reshaped into
+    ``cfg.n_microbatches`` µbatches of ``microbatch``, streamed through
+    the stages, then the head on the caller's stream.
+
+    ``fwd`` is a :class:`JittedForward` (:func:`_mesh_jitted`): on the card
+    one CUDA graph of the stage bodies on the slots' streams, the edge
+    hand-offs and the head, per input shape; on the CPU the eager
+    composition. Other runners on the same mesh share its slot streams:
+    their eager work holds the capture lock (``cuda_graphs.CAPTURE_LOCK``),
+    so none of it is recorded into the graph."""
+    runner = build_plan_pipeline(plan, mesh=mesh, cfg=cfg, microbatch=microbatch)
+    n_mb = cfg.n_microbatches
+
+    def _fwd(xb):
+        feats = runner.apply(runner.stacked_leaves,
+                             xb.reshape((n_mb, microbatch) + tuple(xb.shape[1:])))
+        return plan.head_fn(feats.reshape((n_mb * microbatch,) + tuple(feats.shape[2:])))
+
+    return runner, _mesh_jitted(_fwd, plan.device, mesh.devices, donate=donate)
+
+
+def _mesh_jitted(fn: Callable, device, slot_devices, *, donate: bool) -> Callable:
+    """``fn`` as a :class:`JittedForward` on ``device`` when every slot lies
+    on ``device``; else ``fn`` itself, run eagerly, with one warning naming
+    the devices: one CUDA graph cannot span cards."""
+
+    def _named(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        return str(d)
+
+    devices = sorted({_named(d) for d in slot_devices})
+    if devices != [_named(device)]:
+        _LOG.warning(
+            "the mesh rung's slots lie on %s and its plan on %s: one CUDA "
+            "graph cannot span devices, so the rung runs eagerly",
+            devices, _named(device),
+        )
+
+        def _eager(xb):
+            with torch.no_grad():
+                return fn(xb)
+
+        return _eager
+    return JittedForward(fn, device, donate=donate)
 
 
 def run_pipelined(
@@ -674,30 +731,21 @@ class Engine:
         return JittedForward(_fwd, plan.device, donate=self.donate)
 
     def _build_mesh_fwd(self) -> Callable:
-        """The mesh rung: the group reshaped into ``n_microbatches``
-        µbatches, streamed through the plan's stages on the mesh's slots
-        (each stage's params resident there, built once here), then the
-        head on the caller's stream. It runs eagerly: its stream per slot
-        and its fill and drain are not captured (no donation either)."""
+        """The mesh rung (:func:`_mesh_forward`): on one card a
+        :class:`JittedForward` with the engine's donation, captured in
+        the rung's warmup probe at the group shape and replayed for every
+        group after it."""
         from repro_torch.core.dhm.pipeline import PipelineConfig
 
-        plan = self.plan
-        mb, n_mb = self.microbatch, self.n_microbatches
         cfg = PipelineConfig(
-            plan.n_stages, n_mb, stage_axis=self.stage_axis,
+            self.plan.n_stages, self.n_microbatches, stage_axis=self.stage_axis,
             data_axis=self.data_axis, overlap=self.overlap,
             edge_mode=self.edge_mode,
         )
-        runner = build_plan_pipeline(plan, mesh=self.mesh, cfg=cfg, microbatch=mb)
-        self._runner = runner
-
-        def _fwd(xb):
-            with torch.inference_mode():
-                feats = runner.apply(runner.stacked_leaves,
-                                     xb.reshape((n_mb, mb) + tuple(xb.shape[1:])))
-                return plan.head_fn(feats.reshape((n_mb * mb,) + tuple(feats.shape[2:])))
-
-        return _fwd
+        self._runner, fwd = _mesh_forward(
+            self.plan, self.mesh, cfg, self.microbatch, donate=self.donate
+        )
+        return fwd
 
     def _activate_rung(self, idx: int, reason: Optional[str], cause=None) -> bool:
         """Walk the ladder from ``idx`` until a rung builds and passes its

@@ -36,6 +36,21 @@ caching allocator cannot hand its memory out while the reader runs; the
 caller's stream waits on the last stage's events before it reads the
 outputs. Nothing in the executor reads a value to the host.
 
+So ``apply`` can be captured into one CUDA graph from the caller's
+stream (the Engine's mesh rung, ``engine._mesh_forward``): the ``start``
+event forks every slot stream from the capturing stream; every slot and
+copy stream's last work is waited on by a receiver or, for the last
+stage, by the caller, which joins them all back before the capture ends;
+every allocation is made on a stream in the capture, so it comes from
+the graph's pool (a ``record_stream``-ed block freed during the capture
+returns to that pool once the capture has ended); and the shape checks
+are Python that runs at the warm-up and the capture, never at a replay.
+Work that another thread enqueues on a stream under capture is recorded
+into the graph, and every runner on a mesh shares its slot streams: an
+eager ``apply`` on CUDA holds ``cuda_graphs.CAPTURE_LOCK`` while it
+enqueues, so it waits for a capture in progress (and the runner being
+captured takes the re-entrant lock again).
+
 Two deliberate deviations from the reference:
 
 (a) fill and drain ticks launch nothing. The reference fires every stage
@@ -63,6 +78,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from repro_torch import cuda_graphs
 from repro_torch.kernels import probe
 
 
@@ -613,6 +629,12 @@ def build_pipeline(
             return buf, _recorded(stream)
 
     def _apply(leaves, microbatches):
+        if dev_type != "cuda":
+            return _enqueue(leaves, microbatches)
+        with cuda_graphs.CAPTURE_LOCK:  # no capture records this run
+            return _enqueue(leaves, microbatches)
+
+    def _enqueue(leaves, microbatches):
         if microbatches.shape[0] != M:
             raise ValueError(
                 f"expected {M} microbatches, got {microbatches.shape[0]}"

@@ -8,7 +8,9 @@ step, ``launch/steps.py`` ``JittedDecode``) record their kernels into a
 1. ``fn()`` runs once eagerly on a side stream that has waited for the
    caller's: the warm-up builds the kernels, sets their shared memory and
    allocates the library workspaces outside the capture. Its launches are
-   real and counted, and its output is returned.
+   real and counted, and its output is returned. It runs under the lock
+   of step 3: the side stream comes from PyTorch's pool and may be one
+   that another thread is capturing on.
 2. Python's garbage collector is off until the capture has ended: a
    graph freed by a collection on the capturing thread (a plan and its
    cached closures form a reference cycle) tears down inside the capture
@@ -18,11 +20,22 @@ step, ``launch/steps.py`` ``JittedDecode``) record their kernels into a
    ``kernels/probe.py`` log open, ``fn()`` is captured in
    ``thread_local`` mode into a private memory pool; the launches the
    wrappers logged are taken back from the counts (``probe.uncount``),
-   since a capture launches nothing.
+   since a capture launches nothing. The launches and the pipeline's edge
+   transfers the log holds are what each replay logs again
+   (``probe.replayed``).
 4. A capture that raises is ended and the first error raised: nothing
    falls back to the eager ``fn``.
 
 The caller's stream then waits for the side stream.
+
+PyTorch hands out the streams of its pool in turn, so a stream under
+capture may be one that other code uses too (a mesh's slot streams are
+shared by every runner built on the mesh). Eager work that the port
+enqueues on such a stream holds :data:`CAPTURE_LOCK`, so no capture
+records it: the warm-up here, the pipeline runner
+(``core/dhm/pipeline.py``) and the loader's copies onto slot streams
+(``data/loader.py``). The lock is re-entrant: a runner captured takes it
+again inside the capture.
 """
 from __future__ import annotations
 
@@ -35,18 +48,20 @@ import torch
 
 from repro_torch.kernels import probe
 
-CAPTURE_LOCK = threading.Lock()
+CAPTURE_LOCK = threading.RLock()
 
 
 @dataclasses.dataclass
 class Capture:
     """A captured ``fn``: the graph, its static output, the launches one
-    replay makes ((kernel name, shared-memory bytes) each) and the
-    warm-up call's own output."""
+    replay makes ((kernel name, shared-memory bytes) each), the edge
+    transfers it makes ((edge class, (src, dst) stages, buffer shape)
+    each) and the warm-up call's own output."""
 
     graph: object  # torch.cuda.CUDAGraph
     out: object
     launches: tuple
+    transfers: tuple
     warm: object
 
 
@@ -56,29 +71,31 @@ def capture(fn: Callable, device, side) -> Capture:
     static buffers the caller owns."""
     caller = torch.cuda.current_stream(device)
     side.wait_stream(caller)
-    with torch.cuda.stream(side):
-        warm = fn()  # the warm-up: real launches, counted
-    graph = torch.cuda.CUDAGraph()
-    gc_on = gc.isenabled()
-    gc.disable()
-    try:
-        with CAPTURE_LOCK, torch.cuda.stream(side), probe.recording() as log:
-            graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
-                                capture_error_mode="thread_local")
-            try:
-                out = fn()
-            except BaseException:
+    with CAPTURE_LOCK:
+        with torch.cuda.stream(side):
+            warm = fn()  # the warm-up: real launches, counted
+        graph = torch.cuda.CUDAGraph()
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side), probe.recording() as log:
+                graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
+                                    capture_error_mode="thread_local")
                 try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture is void already; the first error says why
-                raise
-            finally:
-                probe.uncount(log.launches)
-            graph.capture_end()
-    finally:
-        if gc_on:
-            gc.enable()
+                    out = fn()
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture is void already; the first error says why
+                    raise
+                finally:
+                    probe.uncount(log.launches)
+                graph.capture_end()
+        finally:
+            if gc_on:
+                gc.enable()
     caller.wait_stream(side)
     return Capture(graph=graph, out=out, warm=warm,
-                   launches=tuple((name, smem) for _, name, smem in log.launches))
+                   launches=tuple((name, smem) for _, name, smem in log.launches),
+                   transfers=tuple(log.transfers))

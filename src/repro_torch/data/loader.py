@@ -15,13 +15,13 @@ stream first.
 from __future__ import annotations
 
 import collections
-import contextlib
 import math
 from typing import Iterator, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch import cuda_graphs
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.launch.mesh import Mesh, data_axes
 
@@ -30,7 +30,10 @@ def _put(array, device: torch.device, stream=None) -> torch.Tensor:
     t = torch.as_tensor(np.asarray(array))
     if device.type != "cuda":
         return t.to(device, copy=True)
-    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+    if stream is None:
+        return t.pin_memory().to(device, non_blocking=True)
+    # A slot's stream may be under capture on another thread: hold the lock.
+    with cuda_graphs.CAPTURE_LOCK, torch.cuda.stream(stream):
         return t.pin_memory().to(device, non_blocking=True)
 
 

@@ -24,6 +24,8 @@ that log here are registered (:func:`counted`): a capture records its
 launches under :func:`recording` and takes back their counts
 (:func:`uncount`), since a capture launches nothing, and each replay
 adds them again, to the counts and to the open log (:func:`replayed`).
+A replay of the Engine's mesh rung also makes the pipeline's edge
+hand-offs its capture recorded: it logs them again too.
 """
 from __future__ import annotations
 
@@ -117,12 +119,15 @@ def uncount(launches) -> None:
         _TABLES[name][name] -= 1
 
 
-def replayed(launches) -> None:
+def replayed(launches, transfers=()) -> None:
     """Count the launches one replay of a captured graph makes,
     ``(name, smem)`` each, as the wrappers count theirs: in ``LAUNCHES``
-    and in the calling thread's open log."""
+    and in the calling thread's open log; and log the edge transfers it
+    makes, ``(edge class, (src, dst), shape)`` each, there too."""
     log = active()
     for name, smem in launches:
         _TABLES[name][name] += 1
         if log is not None:
             log.launches.append((log.phase, name, int(smem)))
+    if log is not None:
+        log.transfers.extend(transfers)

@@ -19,8 +19,9 @@ the eager step bit for bit: its logits and every leaf of its cache.
 Covered: falcon-mamba through the scan kernel, a recurrentgemma ring
 wrapped after a prompt longer than its window, a MoE config, a
 pow2-packed stack, the donated cache read and written in place, new
-weights recaptured in place of the old graph, the scan's launches counted at each replay, and
-a capture that fails.
+weights recaptured in place of the old graph, new weights at freed
+addresses followed, the scan's launches counted at each replay, and a
+capture that fails.
 """
 import pytest
 
@@ -188,13 +189,17 @@ def test_new_weights_capture_anew_and_are_followed(card):
     cfg, params, toks, cache, start = _model("qwen2.5-3b", card)
     decode = S.jit_decode_step(cfg)
     tok = toks[:, PROMPT:PROMPT + 1]
-    graphs = []
+    graphs, held = [], []
     with torch.no_grad():
         first, _ = decode(params, cache, tok, start)
         graphs.append(next(iter(decode._graphs.values())).graph)
         for scale in (1.25, 0.75):
+            # Each swap's weights are held to the end, so the next swap's lie
+            # elsewhere: weights allocated where freed ones lay replay the
+            # key's graph as it is, reading them there, with no recapture.
             swapped = tree_map(lambda t: t * scale if t.is_floating_point() else t.clone(),
                                params)
+            held.append(swapped)
             want, _ = T.decode_step(swapped, cfg, tok, cache, start)
             got, _ = decode(swapped, cache, tok, start)
             again, _ = decode(swapped, cache, tok, start)
@@ -202,10 +207,30 @@ def test_new_weights_capture_anew_and_are_followed(card):
             assert torch.equal(got, want) and torch.equal(again, want)
             assert not torch.equal(got, first)
             graphs.append(next(iter(decode._graphs.values())).graph)
-            del swapped
         back, _ = decode(params, cache, tok, start)
     assert decode._cache_size() == 1 and torch.equal(back, first)
     assert len({id(g) for g in graphs}) == len(graphs)
+
+
+def test_weights_allocated_where_freed_ones_lay_are_followed(card):
+    """Each swap's weights are freed before the next swap's are made with
+    the same shapes, so the allocator may hand out the freed addresses
+    again: the key's storage then matches and the graph replays as it is,
+    reading the new values there; where it does not, the key recaptures.
+    Either way each answer is the eager step's on the weights of the call."""
+    cfg, params, toks, cache, start = _model("qwen2.5-3b", card)
+    decode = S.jit_decode_step(cfg)
+    tok = toks[:, PROMPT:PROMPT + 1]
+    with torch.no_grad():
+        for scale in (1.25, 0.75, 1.5, 0.5):
+            swapped = tree_map(lambda t: t * scale if t.is_floating_point() else t.clone(),
+                               params)
+            got, _ = decode(swapped, cache, tok, start)
+            again, _ = decode(swapped, cache, tok, start)
+            want, _ = T.decode_step(swapped, cfg, tok, cache, start)
+            assert torch.equal(got, want) and torch.equal(again, want), scale
+            del swapped
+    assert decode._cache_size() == 1
 
 
 def test_a_failed_capture_raises(card, monkeypatch):

@@ -143,11 +143,15 @@ def test_record_stream_keeps_a_slow_readers_input_alive(card):
 
 
 def test_pipeline_scope_on_the_card(card):
-    for plan in _plans(card).values():
+    for kind, plan in _plans(card).items():
         probe_ = make_pipeline_probe(plan, microbatch=MB)
         assert verify_plan(plan, scopes=("pipeline",), pipeline=probe_) == []
         assert len(probe_.transfers) == 2 * probe_.cfg.n_microbatches
-        assert len(probe_.launches) == probe_.cfg.n_microbatches * planned_launches(plan)
+        # The probe replays the mesh rung's graph: the stage bodies, then the head.
+        stage = [n for _, n, _ in probe_.launches if n.startswith("stream_conv")]
+        head = [n for _, n, _ in probe_.launches if not n.startswith("stream_conv")]
+        assert len(stage) == probe_.cfg.n_microbatches * planned_launches(plan)
+        assert head == (["pow2_matmul_int"] * 2 if kind == "int8" else [])
         boxed = make_pipeline_probe(plan, microbatch=MB, edge_mode="boxed")
         findings = verify_plan(plan, scopes=("pipeline",), pipeline=boxed)
         assert [(f.rule, f.severity) for f in findings] == [("V103", "warning")]
