@@ -91,7 +91,27 @@ Phases (each asserts or exits non-zero):
      classify_model on the trained lenet5; ms per training step and
      frames/s (fp32 and QAT 8), and the forward's device time against the
      backward's (profiler); the stream-conv kernels launch once per group a
-     forward, no plain version is called, the phase takes under 60 s;
+     forward, no plain version is called, the phase takes under 60 s
+     (its 60 lenet5 steps and pow2 steps run through train_cnn, so
+     through the graph of 5n);
+  5n. the CNN train step as one CUDA graph per (topology, quant mode,
+     batch) (paper/train_cnn.py jit_train_step): (e) the QAT exponent's
+     formula on the card equal to the CPU's at every float32 within 1,024
+     ulps of each power of two, torch.ldexp exact; for lenet5 and cifar10
+     at full width, B=128, in fp32, QAT 8/8, QAT 4/4 and pow2: (a) 20
+     graph steps bit for bit 20 eager train_steps from the same init on
+     the same batches (params, both moments, step, loss, grad norm); (b)
+     one capture a key, the caller's trees unchanged, the launches over
+     the 20 steps equal to the eager steps' (the warm-up an eager step,
+     each replay its capture's), memory_allocated flat over 100 replays
+     (QAT 8/8); (c) an eager step under set_sync_debug_mode("error")
+     raises nothing; (d) a replay logs the forward's stream-conv (and in
+     pow2 the pow2) launches; (f) train_cnn lenet5 through the graph, 10
+     steps, losses within rtol 1e-4 of the CPU's run; (g) the cifar10
+     ResilientTrainer of 5g through the graph, bit for bit the clean run;
+     (h) eager against graph ms a step (host clock, CUDA events), frames/s
+     and the card's busy share (profiler); no plain version is called,
+     under 120 s;
   5h. the static gate and the CNN examples on the card: the analysis
      CLI's run_verify over the five topologies x fp32 / quant / int8 in
      the plan, structure and resource scopes and the pipelined probe
@@ -226,7 +246,8 @@ phase 5d and read just after it, zeroed just before phase 5e's
 traffic and read just after it, and zeroed just before phase 5f's
 pipelined runs and read just after them (``launches_5f`` in the record),
 and zeroed just before phase 5g's training runs and read just after them
-(``launches_5g``), zeroed just before phase 5h's verification and
+(``launches_5g``), zeroed just before phase 5n's steps and read at its
+end (``launches_5n``), zeroed just before phase 5h's verification and
 examples and read just after them (``launches_5h``), and zeroed just
 before phase 5i and read just after it (``launches_5i``, all 0), and
 zeroed just before phase 5j's kernel runs and read at its end
@@ -243,6 +264,7 @@ Imports nothing of JAX and nothing of the reference package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -327,6 +349,20 @@ POW2_TRAIN_STEPS = 10
 RESILIENT_STEPS, RESILIENT_CKPT, RESILIENT_FAILS = 30, 5, (7, 19, 23)
 TRAIN_TIMED_STEPS, TRAIN_PROFILED = 10, 3
 PHASE_5G_LIMIT_S = 60.0
+# Phase 5n, the CNN train step as CUDA graphs: the topologies and quant
+# modes, the steps held bit for bit against the eager step (at
+# TRAIN_BATCH), the schedule's warmup, the replays over which memory is
+# held flat, train_cnn's steps against the CPU's, the profiled steps of
+# the busy share, and the phase's time limit.
+GRAPH_TRAIN_TOPOS = ("lenet5", "cifar10")
+GRAPH_TRAIN_MODES = (("fp32", {}), ("QAT 8/8", dict(weight_bits=8, act_bits=8)),
+                     ("QAT 4/4", dict(weight_bits=4, act_bits=4)),
+                     ("pow2", dict(pow2_weights=True)))
+GRAPH_TRAIN_STEPS, GRAPH_TRAIN_WARMUP = 20, 5
+GRAPH_TRAIN_REPLAYS = 100
+GRAPH_TRAIN_CNN_STEPS = 10
+GRAPH_TRAIN_PROFILED = 2
+PHASE_5N_LIMIT_S = 120.0
 # Phase 5h: the static gate's matrix and the two CNN examples, and its
 # time limit.
 PHASE_5H_LIMIT_S = 120.0
@@ -444,7 +480,7 @@ def regroup_topologies(cnn) -> dict:
 
 def precise_convs():
     """cuDNN off, TF32 off: the numerics of the training backward
-    (``kernels/stream_conv/ops.py`` ``_backward_numerics``)."""
+    (``kernels/backends.py`` ``backward_numerics``)."""
     import torch
 
     return torch.backends.cudnn.flags(enabled=False, benchmark=False, deterministic=True,
@@ -541,6 +577,7 @@ def count_plain_versions() -> tuple:
 def phase_5g(smi: str) -> dict:
     """Training on the card (phase 5g). Returns the launches of the
     training path's window."""
+    import contextlib
     import tempfile
 
     import numpy as np
@@ -550,9 +587,9 @@ def phase_5g(smi: str) -> dict:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core.dhm import compile_dhm
     from repro_torch.data import make_image_dataset
+    from repro_torch.kernels.backends import cudnn_backward
     from repro_torch.kernels.pow2_matmul import pow2 as kpow2
     from repro_torch.kernels.stream_conv import conv as kconv
-    from repro_torch.kernels.stream_conv import ops as kconv_ops
     from repro_torch.kernels.stream_conv.epilogue import stream_quant_spec
     from repro_torch.models.cnn import ALL_TOPOLOGIES, init_cnn
     from repro_torch.optim import AdamWConfig, adamw_init, linear_warmup_cosine
@@ -595,13 +632,8 @@ def phase_5g(smi: str) -> dict:
         return max(float((a.cpu() - b).norm() / b.norm()) for a, b in zip(grads, truth))
 
     port_err = rel_err(training_grads(lenet, init["lenet5"], xs, ys, {})[0])
-    numerics = kconv_ops._backward_numerics
-    kconv_ops._backward_numerics = lambda t: torch.backends.cudnn.flags(
-        enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
-    try:
+    with cudnn_backward():
         cudnn_err = rel_err(training_grads(lenet, init["lenet5"], xs, ys, {})[0])
-    finally:
-        kconv_ops._backward_numerics = numerics
     cpu_err = rel_err(training_grads(lenet, init["lenet5"], xs.cpu(), ys.cpu(), {})[0])
     check(port_err <= 1e-5, f"5g lenet5 B={PRECISION_BATCH}: relative L2 {port_err} against float64")
     print(f"[5g] backward precision, lenet5 B={PRECISION_BATCH} (normal frames) against a float64 "
@@ -785,11 +817,8 @@ def phase_5g(smi: str) -> dict:
             # convolution (the port's) and on cuDNN (deterministic, TF32
             # off), host clock.
             grad_ms = {}
-            numerics = kconv_ops._backward_numerics
-            for what, ctx in (("port", numerics), ("cuDNN", lambda t: torch.backends.cudnn.flags(
-                    enabled=True, benchmark=False, deterministic=True, allow_tf32=False))):
-                kconv_ops._backward_numerics = ctx
-                try:
+            for what, ctx in (("port", contextlib.nullcontext), ("cuDNN", cudnn_backward)):
+                with ctx():
                     training_grads(topos[n], st[0], xb, yb, q)
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -797,8 +826,6 @@ def phase_5g(smi: str) -> dict:
                         training_grads(topos[n], st[0], xb, yb, q)
                     torch.cuda.synchronize()
                     grad_ms[what] = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
-                finally:
-                    kconv_ops._backward_numerics = numerics
             print(f"[5g] {n} loss and gradient at B={TRAIN_BATCH} ({smi}): {grad_ms['port']:.3f} ms "
                   f"with the backward's convs on PyTorch's CUDA convolution, {grad_ms['cuDNN']:.3f} "
                   "ms on cuDNN (deterministic, TF32 off), host clock")
@@ -807,6 +834,266 @@ def phase_5g(smi: str) -> dict:
     print(f"[5g] training path launches: { {k: v for k, v in launches.items() if v} }; plain "
           f"versions called 0 times; phase {elapsed:.1f} s ({t_checks:.1f} s of checks, "
           f"{elapsed - t_checks:.1f} s of timing)")
+    return launches
+
+
+def phase_5n(smi: str) -> dict:
+    """The CNN train step as CUDA graphs on the card (phase 5n,
+    ``paper/train_cnn.py`` ``jit_train_step``). Returns the launches of
+    the phase's window."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.quant.fixed_point import ceil_log2_each
+    from repro_torch.data import make_image_dataset
+    from repro_torch.kernels import probe
+    from repro_torch.kernels.pow2_matmul import pow2 as kpow2
+    from repro_torch.kernels.stream_conv import conv as kconv
+    from repro_torch.models.cnn import ALL_TOPOLOGIES, init_cnn
+    from repro_torch.optim import AdamWConfig, adamw_init, linear_warmup_cosine
+    from repro_torch.paper.train_cnn import jit_train_step, train_cnn, train_step
+    from repro_torch.runtime import FaultInjector, ResilientTrainer
+    from repro_torch.tree_util import tree_flatten
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = AdamWConfig(weight_decay=0.01)
+    sched = linear_warmup_cosine(3e-3, warmup_steps=GRAPH_TRAIN_WARMUP,
+                                 total_steps=GRAPH_TRAIN_STEPS)
+
+    def leaves(*trees):
+        return [t for tree in trees for t in tree_flatten(tree)[0]]
+
+    def counts():
+        return {**kconv.LAUNCHES, **kpow2.LAUNCHES}
+
+    # (e) the QAT exponent's formula on the card against the CPU's at every
+    # float32 within 1,024 ulps of each power of two, and the scale's ldexp.
+    k = np.arange(-126, 128)
+    grid = ((k + 127) << 23)[:, None] + np.arange(-1024, 1025)[None, :]
+    v = torch.from_numpy(grid.reshape(-1).astype(np.int32).view(np.float32))
+    got_e = ceil_log2_each(v.to(dev)).cpu()
+    apart = torch.nonzero(got_e.view(torch.int32) != ceil_log2_each(v).view(torch.int32)).flatten()
+    e = torch.arange(-149, 128, dtype=torch.float32)
+    ldexp_ok = torch.equal(torch.ldexp(torch.ones_like(e), e),
+                           torch.ldexp(torch.ones_like(e).to(dev), e.to(dev)).cpu())
+    check(apart.numel() == 0 and ldexp_ok,
+          f"5n exponent: {apart.numel()} of {v.numel()} values apart from the CPU's "
+          f"(first {[(float(v[i]), float(got_e[i])) for i in apart[:5]]}); ldexp exact {ldexp_ok}")
+
+    # The formula on the float32 log of each device, as a record of where
+    # the card's logf and the CPU's part: 2^k + u ulps, the card's exponent
+    # and the CPU's.
+    def f32_log_formula(t):
+        inv_ln2 = torch.full((), 1.0 / math.log(2.0), dtype=torch.float32, device=t.device)
+        return torch.ceil(torch.log(torch.clamp(t, min=1e-12)) * inv_ln2)
+
+    card32, cpu32 = f32_log_formula(v.to(dev)).cpu(), f32_log_formula(v)
+    off = torch.nonzero(card32 != cpu32).flatten().tolist()
+    flat = grid.reshape(-1)
+    where = [f"2^{int(k[i // 2049])}{int(flat[i] - ((k[i // 2049] + 127) << 23)):+d}:"
+             f"{int(card32[i])}/{int(cpu32[i])}" for i in off]
+    print(f"[5n] (e) the QAT exponent (ceil_log2_each: the steps of ceil(log(max(v, 1e-12)) * "
+          f"float32(1/ln 2)) at or below v) on the card equals the CPU's at all {v.numel()} float32 "
+          f"values within 1,024 ulps of 2^-126..2^127; torch.ldexp(1, e) exact for e in [-149, "
+          f"127]. The formula on each device's float32 log parts at {len(off)} of them "
+          "(2^k+ulps:card/CPU): " + " ".join(where))
+
+    names = GRAPH_TRAIN_TOPOS
+    topos = {n: ALL_TOPOLOGIES[n] for n in names}
+    data = {n: make_image_dataset(hw=t.square_input_hw(), channels=t.input_channels, seed=SEED)
+            for n, t in topos.items()}
+    init = {n: init_cnn(torch.Generator().manual_seed(SEED), t, device=dev) for n, t in topos.items()}
+    batches = {}
+    for n in names:
+        xt, yt = data[n].x_train.to(dev), data[n].y_train.to(dev)
+        rng = np.random.default_rng(SEED + 2)
+        idx = [torch.from_numpy(rng.integers(0, xt.shape[0], TRAIN_BATCH)).to(dev)
+               for _ in range(GRAPH_TRAIN_STEPS)]
+        batches[n] = [(xt[i], yt[i]) for i in idx]
+    step_t = [torch.full((), s, dtype=torch.int32, device=dev) for s in range(GRAPH_TRAIN_STEPS)]
+    # (f)'s reference, before the counts are zeroed: train_cnn on the CPU
+    # (the plain versions) from the same init on the same data.
+    lenet = topos["lenet5"]
+    ds = make_image_dataset(hw=28, channels=1, seed=0, n_train_per_class=TRAIN_PER_CLASS)
+    p0 = init_cnn(torch.Generator().manual_seed(SEED + 1), lenet, device="cpu")
+    on_cpu = train_cnn(lenet, steps=GRAPH_TRAIN_CNN_STEPS, dataset=ds, init_params=p0,
+                       log_every=1, device="cpu")
+    torch.cuda.synchronize()
+
+    plain, restore_plain = count_plain_versions()
+    kconv.reset_launch_counts()
+    kpow2.reset_launch_counts()
+    rows = []
+    try:
+        for n in names:
+            for m, q in GRAPH_TRAIN_MODES:
+                opt0 = adamw_init(init[n], cfg)
+                kept = [t.clone() for t in leaves(init[n], opt0)]
+                runs = {}
+                for how in ("eager", "graph"):
+                    step_fn = jit_train_step(topos[n], cfg, sched, **q) if how == "graph" else None
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    before = counts()
+                    p, o, out = init[n], opt0, []
+                    for s, (xb, yb) in enumerate(batches[n]):
+                        if s == 1:  # step 0: the eager builds, the graph's warm-up and capture
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            start.record()
+                        if step_fn is None:
+                            p, o, loss, gnorm = train_step(p, o, xb, yb, sched(step_t[s]),
+                                                           topo=topos[n], cfg=cfg, **q)
+                        else:
+                            p, o, loss, gnorm = step_fn(p, o, xb, yb, s)
+                        out.append(leaves(p, o) + [loss, gnorm])
+                    end.record()
+                    torch.cuda.synchronize()
+                    host = (time.perf_counter() - t0) * 1e3 / (GRAPH_TRAIN_STEPS - 1)
+                    after = counts()
+                    runs[how] = dict(out=out, fn=step_fn, host=host,
+                                     events=start.elapsed_time(end) / (GRAPH_TRAIN_STEPS - 1),
+                                     launches={k_: after[k_] - before[k_] for k_ in after
+                                               if after[k_] != before[k_]})
+                eager, graph = runs["eager"], runs["graph"]
+                step_fn = graph["fn"]
+                # (a) every step bit for bit: params, both moments, the step
+                # count, the loss and the gradient norm.
+                apart = [s for s, (a, b) in enumerate(zip(graph["out"], eager["out"]))
+                         if not all(x_.dtype == y_.dtype and torch.equal(x_, y_) for x_, y_ in zip(a, b))]
+                check(not apart, f"5n {n} {m}: graph steps {apart} differ from the eager steps")
+                # (b) one capture; the caller's trees unchanged (a step's input
+                # is the previous step's output, held above bit for bit).
+                check(step_fn._cache_size() == 1, f"5n {n} {m}: {step_fn._cache_size()} captures")
+                check(all(torch.equal(a, b) for a, b in zip(leaves(init[n], opt0), kept)),
+                      f"5n {n} {m}: the graph wrote the caller's initial trees")
+                # The warm-up counts as an eager step, each replay as its capture.
+                check(graph["launches"] == eager["launches"] and eager["launches"],
+                      f"5n {n} {m}: launches over {GRAPH_TRAIN_STEPS} steps, graph "
+                      f"{graph['launches']} against eager {eager['launches']}")
+                # (d) a replay logs the forward's kernels.
+                xb0, yb0 = batches[n][0]
+                with probe.recording() as log:
+                    step_fn(init[n], opt0, xb0, yb0, 1)
+                logged = sorted({name_ for _, name_, _ in log.launches})
+                want_p2 = bool(q.get("pow2_weights"))
+                check(any(x_.startswith("stream_conv") for x_ in logged)
+                      and ("pow2_matmul" in logged) == want_p2,
+                      f"5n {n} {m}: a replay logged {logged}")
+                # (c) an eager step synchronises nothing.
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    train_step(init[n], opt0, xb0, yb0, sched(step_t[1]), topo=topos[n], cfg=cfg, **q)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                # (h) the card's busy time a step, eager and graph.
+                # A reading the profiler could not take is None (not measured).
+                busy = {}
+                for how, fn_ in (("eager", lambda: train_step(
+                        init[n], opt0, xb0, yb0, sched(step_t[1]), topo=topos[n], cfg=cfg, **q)),
+                                 ("graph", lambda: step_fn(init[n], opt0, xb0, yb0, 1))):
+                    ms_, by_kernel = device_busy_ms(fn_, GRAPH_TRAIN_PROFILED)
+                    busy[how] = None if EVENTS_ROW in by_kernel else ms_
+                per_step = sum(eager["launches"].values()) // GRAPH_TRAIN_STEPS
+                rows.append((n, m, eager, graph, busy))
+                print(f"[5n] {n} {m} B={TRAIN_BATCH}: {GRAPH_TRAIN_STEPS} graph steps bit for bit the "
+                      f"eager steps (params, m, v, step, loss, grad norm), one capture, the caller's "
+                      f"trees unchanged; {per_step} port-kernel launches a step, a replay logged "
+                      f"{logged}; no synchronisation in an eager step")
+                if m == "QAT 8/8":
+                    # (b) memory over 100 replays.
+                    kept_out = step_fn(init[n], opt0, xb0, yb0, 2)
+                    torch.cuda.synchronize()
+                    mem0 = torch.cuda.memory_allocated(dev)
+                    for r in range(GRAPH_TRAIN_REPLAYS):
+                        kept_out = step_fn(init[n], opt0, xb0, yb0, r)
+                    torch.cuda.synchronize()
+                    mem1 = torch.cuda.memory_allocated(dev)
+                    del kept_out
+                    check(mem1 == mem0 and step_fn._cache_size() == 1,
+                          f"5n {n} {m}: memory_allocated {mem0} -> {mem1} over "
+                          f"{GRAPH_TRAIN_REPLAYS} replays")
+                    print(f"[5n] {n} {m}: memory_allocated {mem0} B before and after "
+                          f"{GRAPH_TRAIN_REPLAYS} replays, one capture")
+                del runs, eager, graph, step_fn
+
+        # (f) train_cnn through the graph on the card against the CPU's run.
+        on_card = train_cnn(lenet, steps=GRAPH_TRAIN_CNN_STEPS, dataset=ds, init_params=p0,
+                            log_every=1, device=dev)
+        lc, lh = ([h["loss"] for h in r.history] for r in (on_card, on_cpu))
+        worst = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        check(len(lc) == GRAPH_TRAIN_CNN_STEPS and worst <= FP32_RTOL,
+              f"5n train_cnn lenet5: card losses {lc} against the CPU's {lh}")
+        print(f"[5n] (f) train_cnn lenet5 fp32, {GRAPH_TRAIN_CNN_STEPS} steps through the graph: "
+              f"losses {lc[0]:.6f} -> {lc[-1]:.6f}, largest relative deviation from the CPU's "
+              f"{worst:.2e} (gate {FP32_RTOL}); test accuracy {on_card.float_accuracy:.4f} "
+              f"(CPU {on_cpu.float_accuracy:.4f})")
+
+        # (g) the resilient trainer through the graph on cifar10, 5g's faults.
+        topo = topos["cifar10"]
+        xt, yt = data["cifar10"].x_train.to(dev), data["cifar10"].y_train.to(dev)
+        rsched = linear_warmup_cosine(3e-3, warmup_steps=20, total_steps=RESILIENT_STEPS)
+
+        def batch_fn(step):
+            idx = np.random.default_rng(SEED + step).integers(0, xt.shape[0], TRAIN_BATCH)
+            idx = torch.from_numpy(idx).to(dev)
+            return xt[idx], yt[idx]
+
+        state0 = (init["cifar10"], adamw_init(init["cifar10"], cfg))
+        kept = [t.clone() for t in leaves(*state0)]
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        finals = {}
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as ckdir:
+            for what, fails in (("clean", ()), ("faulty", RESILIENT_FAILS)):
+                jitted = jit_train_step(topo, cfg, rsched)
+
+                def step_fn(state, b, step, jitted=jitted):
+                    params, opt, loss, _ = jitted(*state, *b, step)
+                    return (params, opt), {"loss": float(loss)}
+
+                tr = ResilientTrainer(step_fn, batch_fn,
+                                      CheckpointManager(os.path.join(ckdir, what)),
+                                      ckpt_every=RESILIENT_CKPT,
+                                      fault_injector=FaultInjector(fail_at_steps=fails))
+                state, metrics = tr.run(state0, num_steps=RESILIENT_STEPS)
+                finals[what] = (state, metrics, tr.restarts, jitted._cache_size())
+        (c_state, c_m, _, c_keys), (f_state, f_m, f_restarts, f_keys) = finals["clean"], finals["faulty"]
+        same = all(torch.equal(a, b) for a, b in zip(leaves(*f_state), leaves(*c_state)))
+        check(f_restarts == len(RESILIENT_FAILS) and same and int(f_state[1].step) == RESILIENT_STEPS
+              and c_keys == f_keys == 1
+              and all(torch.equal(a, b) for a, b in zip(leaves(*state0), kept)),
+              f"5n resilient cifar10 through the graph: {f_restarts} restarts, bit for bit {same}")
+        print(f"[5n] (g) cifar10 ResilientTrainer through the graph, {RESILIENT_STEPS} steps at "
+              f"B={TRAIN_BATCH}, checkpoints every {RESILIENT_CKPT}, failures at {RESILIENT_FAILS}: "
+              f"{f_restarts} restarts, final params and state bit for bit the clean run's, one "
+              f"capture each; last loss {f_m['loss']:.4f} (clean {c_m['loss']:.4f})")
+        torch.cuda.synchronize()
+    finally:
+        restore_plain()
+    launches = counts()
+    check(all(v_ == 0 for v_ in plain.values()), f"phase 5n called plain versions: {plain}")
+    check(launches["stream_conv_pyramid"] > 0 and launches["pow2_matmul"] > 0,
+          f"the train graph path's launches: {launches}")
+    def busy_text(ms_, events_ms):
+        if ms_ is None:
+            return "busy not measured (the profiler lost records)"
+        return f"busy {ms_:.4f} ms (share {ms_ / events_ms:.3f})"
+
+    for n, m, eager, graph, busy in rows:
+        print(f"[5n] (h) {n} {m} training step at B={TRAIN_BATCH} ({smi}): eager "
+              f"{eager['host']:.3f} ms (host clock), {eager['events']:.3f} ms (CUDA events), "
+              f"{TRAIN_BATCH / eager['host'] * 1e3:.0f} frames/s, "
+              f"{busy_text(busy['eager'], eager['events'])}; graph {graph['host']:.3f} ms, "
+              f"{graph['events']:.3f} ms, {TRAIN_BATCH / graph['host'] * 1e3:.0f} frames/s, "
+              f"{busy_text(busy['graph'], graph['events'])}; {GRAPH_TRAIN_STEPS - 1} steps each")
+    elapsed = time.perf_counter() - t_phase
+    check(elapsed < PHASE_5N_LIMIT_S, f"phase 5n took {elapsed:.1f} s")
+    print(f"[5n] train graph path launches: { {k_: v_ for k_, v_ in launches.items() if v_} }; "
+          f"plain versions called 0 times; phase {elapsed:.1f} s")
     return launches
 
 
@@ -3038,6 +3325,9 @@ def main() -> None:
     # -- 5g. training on the card ------------------------------------------------
     train_launches = phase_5g(smi)
 
+    # -- 5n. the CNN train step as CUDA graphs --------------------------------------
+    train_graph_launches = phase_5n(smi)
+
     # -- 5h. the static gate and the CNN examples --------------------------------
     static_launches = phase_5h(smi)
 
@@ -3939,6 +4229,7 @@ def main() -> None:
         rec["launches_5k"] = dryrun_launches.get(rec["name"], 0)
         rec["launches_5l"] = jitted_launches.get(rec["name"], 0)
         rec["launches_5m"] = decode_graph_launches.get(rec["name"], 0)
+        rec["launches_5n"] = train_graph_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

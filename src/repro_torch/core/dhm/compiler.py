@@ -429,8 +429,11 @@ def _bake_conv_params(conv_params, quant: QuantSpec, device) -> tuple:
     Returns ``(baked_params, w_scales)``. Under ``quant.int8_compute`` the
     weights bake to int8 CODES on the grid ``fake_quant_dynamic`` would
     use (``codes * scale == fake_quant_dynamic(w, bits)`` exactly) and
-    ``w_scales`` carries each layer's static pow2 scale; otherwise
-    ``w_scales`` is None."""
+    ``w_scales`` carries each layer's static pow2 scale (read on the
+    host: the int8 plan is forward-only); otherwise ``w_scales`` is None
+    and the bake reads no value on the host, so a training step that
+    compiles its plan can be captured in a CUDA graph
+    (``paper/train_cnn.py`` ``JittedTrainStep``)."""
     out, w_scales = [], []
     for i, p in enumerate(conv_params):
         w = p["w"].to(device, torch.float32).contiguous()

@@ -29,6 +29,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels.backends import constant_on
+
 # Number of non-zero magnitude levels per sign (3 magnitude bits, m=1..7).
 POW2_LEVELS = 7
 POW2_ZERO_CODE = 0
@@ -58,17 +60,12 @@ _POW2_MAGNITUDES = torch.tensor(
     [0.0] + [2.0 ** (m - 1) for m in range(1, POW2_LEVELS + 1)],
     dtype=torch.float32,
 )
-_MAGNITUDES_ON: dict = {}  # device -> _POW2_MAGNITUDES there
 
 
 def _magnitudes(device) -> torch.Tensor:
-    """``_POW2_MAGNITUDES`` on ``device``, copied there once: a decode
-    step captured in a CUDA graph may copy nothing from the host, and its
-    eager warm-up makes the copy first."""
-    table = _MAGNITUDES_ON.get(device)
-    if table is None:
-        table = _MAGNITUDES_ON[device] = _POW2_MAGNITUDES.to(device)
-    return table
+    """``_POW2_MAGNITUDES`` on ``device``, copied there once
+    (``backends.constant_on``)."""
+    return constant_on("pow2 magnitudes", device, lambda: _POW2_MAGNITUDES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,9 +143,10 @@ def pow2_codes(w: torch.Tensor, *, channel_axis: int = -1):
     mag = normalized.abs()
     # e = round(log2(mag)) clipped to [0, 6], as the reference rounds it:
     # the number of thresholds at or below mag.
-    e = torch.bucketize(mag, _E_THRESHOLDS.to(mag.device), right=True)
+    e = torch.bucketize(mag, constant_on("pow2 e thresholds", mag.device, lambda: _E_THRESHOLDS),
+                        right=True)
     # Underflow to zero: values closer to 0 than to scale*2^0 in log space.
-    is_zero = mag < _ZERO_THRESHOLD.to(mag.device)
+    is_zero = mag < constant_on("pow2 zero threshold", mag.device, lambda: _ZERO_THRESHOLD)
     m = torch.where(is_zero, torch.zeros_like(e), e + 1)
     sign_bit = (normalized < 0).to(m.dtype) << 3
     codes = torch.where(m == 0, torch.zeros_like(m), sign_bit | m)

@@ -2,7 +2,8 @@
 
 The port's counterparts of the reference's ``jax.jit`` closures (the
 plan's forward, ``core/dhm/engine.py`` ``JittedForward``; the LM decode
-step, ``launch/steps.py`` ``JittedDecode``) record their kernels into a
+step, ``launch/steps.py`` ``JittedDecode``; the CNN train step,
+``paper/train_cnn.py`` ``JittedTrainStep``) record their kernels into a
 ``torch.cuda.CUDAGraph`` with :func:`capture`:
 
 1. ``fn()`` runs once eagerly on a side stream that has waited for the
@@ -27,6 +28,19 @@ step, ``launch/steps.py`` ``JittedDecode``) record their kernels into a
    falls back to the eager ``fn``.
 
 The caller's stream then waits for the side stream.
+
+A captured train step holds a backward. ``torch.autograd.grad`` runs it
+on autograd's device thread, each node on the stream of its forward op:
+the side stream, under capture, so its kernels are recorded (in
+``thread_local`` mode a launch from another thread onto the capturing
+stream is captured, and the caching allocator sends its allocations to
+the graph's pool by the stream's capture). The stream-conv groups'
+backward, a nested ``torch.autograd.grad`` of the recomputed plain
+composition under ``kernels/backends.py`` ``backward_numerics``
+(PyTorch's own convolution: im2col and cuBLAS), runs there too; the
+warm-up allocates that thread's cuBLAS workspace for the side stream.
+One warm-up is enough: on an H100 every key of ``chip_smoke.py`` phase
+5n captured at its first call and replays bit for bit the eager step.
 
 PyTorch hands out the streams of its pool in turn, so a stream under
 capture may be one that other code uses too (a mesh's slot streams are

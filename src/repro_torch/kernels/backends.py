@@ -57,6 +57,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_CONSTANTS_ON: dict = {}  # (key, device) -> a host constant there
+
+
+def constant_on(key, device, make) -> torch.Tensor:
+    """The host constant ``make()`` (a tensor) on ``device``, copied there
+    once and kept under ``key``: a step captured in a CUDA graph may copy
+    nothing from the host, and its eager warm-up makes the copy first."""
+    t = _CONSTANTS_ON.get((key, device))
+    if t is None:
+        t = _CONSTANTS_ON[key, device] = make().to(device)
+    return t
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -69,6 +82,9 @@ def sm_count(device: torch.device) -> int:
     return _sm_count(torch.cuda.current_device() if dev.index is None else dev.index)
 
 
+_BACKWARD_ON_CUDNN = False
+
+
 @contextlib.contextmanager
 def backward_numerics(t: torch.Tensor):
     """IEEE fp32 and deterministic convolutions for a recomputed backward
@@ -78,16 +94,33 @@ def backward_numerics(t: torch.Tensor):
     allow_tf32=False``, cuDNN picks for lenet5's first layer at B=16 an
     algorithm whose gradients sit 5.8e-4 (relative L2) from a float64
     composition, where this path sits at 4.5e-7 (``chip_smoke.py`` phase
-    5g prints both); it costs a slower backward. On the CPU nothing
-    changes."""
+    5g prints both); it costs a slower backward. Inside
+    :func:`cudnn_backward` the convolutions run on cuDNN instead, with
+    the same flags. On the CPU nothing changes."""
     if not t.is_cuda:
         yield
         return
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        with torch.backends.cudnn.flags(enabled=False, benchmark=False,
+        with torch.backends.cudnn.flags(enabled=_BACKWARD_ON_CUDNN, benchmark=False,
                                         deterministic=True, allow_tf32=False):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@contextlib.contextmanager
+def cudnn_backward():
+    """Within the block, :func:`backward_numerics` runs the recomputed
+    backward's convolutions on cuDNN (``deterministic=True``, TF32 off),
+    for comparing the two. The switch is process-wide, not per thread:
+    autograd runs a backward on its own device thread. A CUDA graph
+    records the numerics in force at its capture, so capture none inside
+    the block."""
+    global _BACKWARD_ON_CUDNN
+    prev, _BACKWARD_ON_CUDNN = _BACKWARD_ON_CUDNN, True
+    try:
+        yield
+    finally:
+        _BACKWARD_ON_CUDNN = prev

@@ -28,8 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import probe
-from repro_torch.kernels.backends import backward_numerics as _backward_numerics
-from repro_torch.kernels.backends import on_cuda
+from repro_torch.kernels.backends import backward_numerics, on_cuda
 from repro_torch.kernels.stream_conv.conv import (
     stream_conv_fused_cuda,
     stream_conv_pyramid_cuda,
@@ -133,8 +132,8 @@ class _GroupGrad(torch.autograd.Function):
     which sends a tied pool window's gradient to its first element and
     masks the clipped fake-quant elements as the reference's autodiff does,
     and returns ``torch.autograd.grad`` of it, on the card under
-    ``_backward_numerics``. It calls ``ref.py`` directly, not through a
-    wrapper, so no plain-version dispatch is logged.
+    ``backends.backward_numerics``. It calls ``ref.py`` directly, not
+    through a wrapper, so no plain-version dispatch is logged.
     """
 
     @staticmethod
@@ -149,7 +148,7 @@ class _GroupGrad(torch.autograd.Function):
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[3:]
         n = (len(saved) - 1) // 2
-        with torch.enable_grad(), _backward_numerics(g):
+        with torch.enable_grad(), backward_numerics(g):
             leaves = [t.detach().requires_grad_(r) for t, r in zip(saved, need)]
             y = _ref.stream_conv_pyramid_ref(
                 leaves[0], leaves[1 : 1 + n], leaves[1 + n :],

@@ -55,7 +55,9 @@ def adamw_init(params: Any, cfg: AdamWConfig) -> OptState:
 @torch.no_grad()
 def adamw_update(grads: Any, state: OptState, params: Any, cfg: AdamWConfig, lr):
     """One AdamW step. Returns (new_params, new_state); nothing is updated
-    in place."""
+    in place. ``lr`` is a number or a 0-d tensor, used where it lives: a
+    schedule's value on the card (``schedules.py``) keeps the step free of
+    host reads, so a CUDA graph of it reads each step's rate."""
     step = state.step + 1
     t = step.to(torch.float32)
     # torch.full, not torch.tensor: the same ops on every device, meta

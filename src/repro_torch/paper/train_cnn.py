@@ -7,23 +7,30 @@ DHM plan, whose conv groups run the stream-conv kernels on the card; the
 gradient is autograd through them (``kernels/stream_conv/ops.py``). Loss,
 optimizer, schedule and batch draw are the reference's
 (``repro.paper.train_cnn``): from the same initial parameters and the
-same dataset arrays both packages see the same batches. Artifacts are
-cached under ``$REPRO_RESULTS_DIR/cnn/`` (default ``results/cnn/``), in
-files of their own (``<name>.torch.pkl``).
+same dataset arrays both packages see the same batches. ``train_cnn``
+runs its steps through :func:`jit_train_step`, the counterpart of the
+reference's jitted ``step_fn``: on the card one CUDA graph of the whole
+step per (topology, quant mode, batch shape). Artifacts are cached under
+``$REPRO_RESULTS_DIR/cnn/`` (default ``results/cnn/``), in files of their
+own (``<name>.torch.pkl``).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import pickle
+import threading
 import zlib
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import cuda_graphs
+from repro_torch.core.dhm import QuantSpec, compile_dhm
 from repro_torch.data import make_image_dataset
+from repro_torch.kernels import probe
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.models.cnn import CNNTopology, PAPER_TOPOLOGIES, cnn_apply, init_cnn
 from repro_torch.optim import (
@@ -66,8 +73,10 @@ def _loss_fn(params, topo, batch_x, batch_y, weight_bits, act_bits,
 def train_step(params, opt_state, x, y, lr, *, topo, cfg: AdamWConfig,
                weight_bits=None, act_bits=None, pow2_weights=False):
     """One step: the loss and its gradient through ``cnn_apply``, clipping
-    at global norm 1.0, one AdamW update. Returns ``(params, opt_state,
-    loss, grad_norm)``; the params come back as new tensors."""
+    at global norm 1.0, one AdamW update at ``lr`` (a number, or a 0-d
+    tensor used where it lives: a schedule's value on the card keeps the
+    step free of host reads). Returns ``(params, opt_state, loss,
+    grad_norm)``; the params come back as new tensors."""
     leaves, treedef = tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in leaves]
     loss = _loss_fn(treedef.unflatten(leaves), topo, x, y, weight_bits,
@@ -80,18 +89,193 @@ def train_step(params, opt_state, x, y, lr, *, topo, cfg: AdamWConfig,
     return params, opt_state, loss.detach(), gnorm
 
 
+def _copy(dsts: list, srcs: list) -> None:
+    """``dst.copy_(src)`` for each pair, as one multi-tensor copy per dtype."""
+    groups: dict = {}
+    for d, s in zip(dsts, srcs):
+        pair = groups.setdefault(d.dtype, ([], []))
+        pair[0].append(d)
+        pair[1].append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+def _clone(leaves: list) -> list:
+    """New tensors with ``leaves``' values (multi-tensor copies)."""
+    out = [torch.empty_like(t) for t in leaves]
+    _copy(out, leaves)
+    return out
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    """One key of a :class:`JittedTrainStep`: its static inputs (the
+    params and optimizer-state leaves, the batch and the 0-d int32 step)
+    and, on the card, the graph, its static outputs (the new params and
+    state leaves, the loss and the gradient norm), the launches one replay
+    makes ((name, shared-memory bytes) each) and the event after the last
+    call's output copies."""
+
+    params: object
+    opt_state: object
+    x: torch.Tensor
+    y: torch.Tensor
+    step: torch.Tensor
+    leaves: list
+    graph: Optional[object] = None  # torch.cuda.CUDAGraph
+    out: list = dataclasses.field(default_factory=list)
+    launches: tuple = ()
+    done: Optional[object] = None  # torch.cuda.Event
+
+
+class JittedTrainStep:
+    """``step(params, opt_state, x, y, step) -> (params, opt_state, loss,
+    grad_norm)``, the training step as one captured executable per
+    (topology, quant mode, batch shape): the counterpart of the
+    reference's ``jax.jit`` of its local ``step_fn``
+    (``repro.paper.train_cnn``), built by :func:`jit_train_step`.
+
+    The key is x's and y's shapes and dtypes and the params' and optimizer
+    state's tree structure, shapes and dtypes (the topology and the quant
+    mode are the object's own). Each key holds static params, optimizer
+    state (``step``, ``m``, ``v``), x, y and a 0-d int32 step; every call
+    copies the caller's trees and batch in (multi-tensor copies) and sets
+    the step: a host int by a device-side ``fill_``, a tensor by a device
+    copy, so it is never read on the host, and ``sched`` computes the
+    learning rate from it on the device.
+
+    On the card, the first call of a key runs the eager step on those
+    buffers once on a side stream (that call's result), then captures the
+    same step (``repro_torch/cuda_graphs.py``): the loss through
+    ``cnn_apply`` (the plan compiled at capture, its weight bake recorded,
+    so each replay bakes that step's weights), ``torch.autograd.grad``
+    through the stream-conv groups' and the pow2 head's autograd
+    Functions, clipping, ``sched(step)`` and AdamW. The backward runs on
+    autograd's device thread, on the stream of each forward op, the
+    capture's: it is recorded too. Every later call replays the graph and
+    returns new tensors cloned from its static outputs. The kernels run
+    in the same order on the same shapes as the eager :func:`train_step`
+    with ``lr=sched(step)`` on the same device, so the results are its
+    bit for bit. A capture that fails raises: nothing falls back to the
+    eager step. A replay runs no wrapper, so the launches the capture
+    logged (the forward's stream-conv and pow2 kernels) are counted again
+    at each replay (``kernels/probe.py``).
+
+    Nothing is donated, as the reference's jit donates nothing: the
+    caller's trees are never written, and the trees a call returns stay
+    valid after later calls (``ResilientTrainer`` restarts from the state
+    it was given).
+
+    On the CPU, each call is the eager step on the same static buffers
+    (same surface; ``_cache_size()`` counts the keys run).
+
+    The static buffers are shared: ``lock`` (reentrant) is held around
+    staging, the step and the output copies.
+    """
+
+    def __init__(self, topo: CNNTopology, cfg: AdamWConfig, sched: Callable, *,
+                 weight_bits=None, act_bits=None, pow2_weights=False):
+        self.topo, self.cfg, self.sched = topo, cfg, sched
+        self.quant = dict(weight_bits=weight_bits, act_bits=act_bits,
+                          pow2_weights=pow2_weights)
+        self.lock = threading.RLock()
+        self._graphs: dict = {}  # key -> _StepGraph
+        self._stream = None  # the side stream of warm-ups and captures
+
+    def _cache_size(self) -> int:
+        """The keys captured (on the CPU: run) so far."""
+        return len(self._graphs)
+
+    def _run(self, entry: _StepGraph) -> list:
+        """The step on ``entry``'s static inputs: the new params and state
+        leaves, then the loss and the gradient norm."""
+        params, opt_state, loss, gnorm = train_step(
+            entry.params, entry.opt_state, entry.x, entry.y, self.sched(entry.step),
+            topo=self.topo, cfg=self.cfg, **self.quant,
+        )
+        return tree_flatten(params)[0] + tree_flatten(opt_state)[0] + [loss, gnorm]
+
+    def __call__(self, params, opt_state, x, y, step):
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        with self.lock, torch.inference_mode(False), torch.enable_grad():
+            p_leaves, p_def = tree_flatten(params)
+            s_leaves, s_def = tree_flatten(opt_state)
+            dev = p_leaves[0].device
+            key = (dev, p_def, s_def,
+                   tuple((tuple(t.shape), t.dtype) for t in p_leaves + s_leaves),
+                   tuple(x.shape), x.dtype, tuple(y.shape), y.dtype)
+            on_card = dev.type == "cuda"
+            entry = self._graphs.get(key)
+            fresh = entry is None
+            if fresh:
+                static_p = tree_map(torch.empty_like, params)
+                static_s = tree_map(torch.empty_like, opt_state)
+                entry = _StepGraph(
+                    params=static_p, opt_state=static_s,
+                    x=torch.empty(x.shape, dtype=x.dtype, device=dev),
+                    y=torch.empty(y.shape, dtype=y.dtype, device=dev),
+                    step=torch.zeros((), dtype=torch.int32, device=dev),
+                    leaves=tree_flatten(static_p)[0] + tree_flatten(static_s)[0])
+            stream = torch.cuda.current_stream(dev) if on_card else None
+            if entry.done is not None:
+                stream.wait_event(entry.done)
+            _copy(entry.leaves + [entry.x, entry.y], p_leaves + s_leaves + [x, y])
+            if isinstance(step, torch.Tensor):
+                entry.step.copy_(step.reshape(()))
+            else:
+                entry.step.fill_(int(step))
+
+            if not on_card:
+                leaves = self._run(entry)
+            elif entry.graph is None:
+                if self._stream is None:
+                    self._stream = torch.cuda.Stream(dev)
+                cap = cuda_graphs.capture(lambda: self._run(entry), dev, self._stream)
+                entry.graph, entry.out, entry.launches = cap.graph, cap.out, cap.launches
+                leaves = cap.warm
+                for t in leaves:
+                    t.record_stream(stream)
+            else:
+                entry.graph.replay()
+                probe.replayed(entry.launches)
+                leaves = _clone(entry.out)
+            if fresh:
+                self._graphs[key] = entry
+            if on_card:
+                if entry.done is None:
+                    entry.done = torch.cuda.Event()
+                entry.done.record(stream)
+            n_p, n_s = len(p_leaves), len(s_leaves)
+            return (p_def.unflatten(leaves[:n_p]), s_def.unflatten(leaves[n_p:n_p + n_s]),
+                    leaves[-2], leaves[-1])
+
+
+def jit_train_step(topo: CNNTopology, cfg: AdamWConfig, sched: Callable, *,
+                   weight_bits=None, act_bits=None, pow2_weights=False) -> JittedTrainStep:
+    """The jitted training step of ``topo`` under one quant mode: the
+    counterpart of the reference's ``@jax.jit`` ``step_fn`` (loss,
+    gradient, clipping, ``sched(step)`` and AdamW as one executable). A
+    new object, which keeps one CUDA graph per batch shape it is called
+    with, as the reference's closure keeps its executables."""
+    return JittedTrainStep(topo, cfg, sched, weight_bits=weight_bits, act_bits=act_bits,
+                           pow2_weights=pow2_weights)
+
+
 def evaluate(params, topo, x, y, *, weight_bits=None, act_bits=None,
              pow2_weights=False, batch=256):
-    """Classification accuracy over a split (on the params' device)."""
+    """Classification accuracy over a split (on the params' device): one
+    plan compiled for ``params``, the batches through ``plan(x)`` (on the
+    card its graph, one per batch shape)."""
     dev = tree_flatten(params)[0][0].device
     correct = 0
     with torch.inference_mode():
+        plan = compile_dhm(
+            topo, params, device=dev,
+            quant=QuantSpec(weight_bits=weight_bits, act_bits=act_bits,
+                            pow2_weights=pow2_weights),
+        )
         for i in range(0, x.shape[0], batch):
-            logits = cnn_apply(
-                params, topo, _as_tensor(x[i : i + batch], dev, torch.float32),
-                weight_bits=weight_bits, act_bits=act_bits,
-                pow2_weights=pow2_weights,
-            )
+            logits = plan(_as_tensor(x[i : i + batch], dev, torch.float32))
             yb = _as_tensor(y[i : i + batch], dev)
             correct += int(torch.sum(torch.argmax(logits, -1) == yb))
     return correct / x.shape[0]
@@ -117,8 +301,8 @@ def train_cnn(
     warmup over 20 steps then cosine from ``peak_lr``) on ``dataset`` (the
     synthetic task for ``seed`` if None), from ``init_params`` (a fresh
     ``init_cnn`` from ``seed + 1`` if None), on ``device`` (the card unless
-    ``"cpu"``). Batch indices come from ``np.random.default_rng(seed + 2)``
-    as in the reference."""
+    ``"cpu"``), each step through :func:`jit_train_step`. Batch indices
+    come from ``np.random.default_rng(seed + 2)`` as in the reference."""
     dev = resolve_device(device)
     ds = dataset or make_image_dataset(
         hw=topo.square_input_hw(), channels=topo.input_channels, seed=seed
@@ -133,15 +317,13 @@ def train_cnn(
     y_train = _as_tensor(ds.y_train, dev)
     n = x_train.shape[0]
 
+    step_fn = jit_train_step(topo, cfg, sched, weight_bits=weight_bits,
+                             act_bits=act_bits, pow2_weights=pow2_weights)
     rng = np.random.default_rng(seed + 2)
     history = []
     for s in range(steps):
         idx = torch.from_numpy(rng.integers(0, n, size=batch_size)).to(dev)
-        params, state, loss, _ = train_step(
-            params, state, x_train[idx], y_train[idx], sched(s), topo=topo,
-            cfg=cfg, weight_bits=weight_bits, act_bits=act_bits,
-            pow2_weights=pow2_weights,
-        )
+        params, state, loss, _ = step_fn(params, state, x_train[idx], y_train[idx], s)
         if s % log_every == 0 or s == steps - 1:
             history.append({"step": s, "loss": float(loss)})
             if verbose:

@@ -12,7 +12,7 @@ use):
 This file imports no JAX: the machine with the card has none.
 
 The plain composition on the card is differentiated with cuDNN off, as
-the Function's backward is (``ops._backward_numerics``): under
+the Function's backward is (``backends.backward_numerics``): under
 ``deterministic=True, allow_tf32=False`` cuDNN picks, for lenet5's first
 layer at B=16, an algorithm whose gradients sit 5.8e-4 (relative L2) from
 a float64 composition (``chip_smoke.py`` phase 5g prints the figure).
