@@ -156,10 +156,42 @@ Phases (each asserts or exits non-zero):
      leaf finite and nonzero but for expert slices no token reached;
      (d) examples/torch/quickstart.py, serve.py (also with --pow2 and
      with --arch falcon-mamba-7b: its decode through the jitted step's
-     graph) and train_lm.py at their default sizes print OK; (e) the
-     scan kernel launches, the plain scan is never called; under 180 s.
-     falcon-mamba's bf16 weights that phase 6 times are set aside during
-     the phase and drawn again after it from the same seed;
+     graph) and train_lm.py at their default sizes print OK (5o (e):
+     quickstart's 30 and train_lm's 20 steps each through one
+     JittedTrainStep key, one capture, every later step a replay); (e)
+     the scan kernel launches, the plain scan is never called; under 180
+     s. falcon-mamba's bf16 weights that phase 6 times are set aside
+     during the phase and 5o and drawn again after them from the same
+     seed;
+  5o. the LM train step as one CUDA graph per (batch, trees)
+     (launch/steps.py JittedTrainStep): (a) falcon-mamba-7b at 5j (b)'s
+     configuration (4 layers at full width, bf16, remat 'full', AdamW
+     with the f32 master copy, B=4, S=512) through jit_train_step, the
+     params and optimizer state donated and each call's trees handed
+     back: two eager steps from one state bit for bit, then 10 graph
+     steps side by side with 10 eager make_train_step steps from the same
+     init on the same 10 batches, every leaf bit for bit (params, master,
+     m, v, step; loss, ce, aux, grad norm), ssm_scan counted 2 a layer at
+     every jitted call (the forward and remat's recompute on autograd's
+     thread), one capture, no leaf staged after the first call,
+     memory_allocated unchanged across every replay, the memory reckoned
+     beside max_memory_allocated; (d) an eager step and a replay under
+     set_sync_debug_mode("error") raise nothing; (b) train_lm.py's 100m
+     preset at full width (12 layers, d 768, vocab 32,768, S 512, B 8,
+     f32), its step through its JittedTrainStep (no donation,
+     sched(step) on the card) for 20 steps bit for bit its eager
+     closure, the trees handed in unchanged; (c) the nine other families
+     at 5j (c)'s depth and dtype through jit_train_step, 2 graph steps
+     against 2 eager steps (bit for bit; the MoE families within a
+     relative L2 of 1e-4): side by side where the eager run and the
+     graph key fit the card together by the printed reckoning, else a
+     dense family whose eager step fits alone in turn, the eager run
+     first and its exact bit checksums held against the graph's after
+     it, where the state twice and the eager step's measured peak above
+     it fit; an MoE family whose state
+     does not fit side by side runs scaled_down() instead; each family
+     left out printed with its reckoning; (e) in 5j (d); (f) in phase 6;
+     the plain scan never called, under 120 s;
   5l. the plan's jitted closure (jitted_forward(), one CUDA graph of the
      kernels per input shape): cifar10 at full width on fresh plans, the
      fp32 fused plan, its vmem_budget=0 plan, plans (a), (b) and (c), at
@@ -233,9 +265,12 @@ Phases (each asserts or exits non-zero):
      scan's forward against its recomputed backward at the step's shape,
      with the backward's peak memory, and the step's forward, backward
      and optimizer on CUDA events and on the profiler, with its busy
-     share (the heaviest profiles last: after one, the profiler has
-     dropped records of later sessions); every line with the card's name
-     and power limit;
+     share; then 5o (f): ms a step eager against the graph on the host
+     clock and on CUDA events, tokens/s and the busy share under the
+     profiler, of 5o (a)'s step, the 100m preset's and quickstart.py's
+     (the heaviest profiles last: after one, the profiler has dropped
+     records of later sessions); every line with the card's name and
+     power limit;
   7. print the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 The launch counts are zeroed just before phase 4 and read just after
@@ -251,7 +286,8 @@ end (``launches_5n``), zeroed just before phase 5h's verification and
 examples and read just after them (``launches_5h``), and zeroed just
 before phase 5i and read just after it (``launches_5i``, all 0), and
 zeroed just before phase 5j's kernel runs and read at its end
-(``launches_5j``), zeroed just before phase 5l's captures and read after
+(``launches_5j``), zeroed just before phase 5o and read at its end
+(``launches_5o``), zeroed just before phase 5l's captures and read after
 its Router (``launches_5l``), zeroed just before phase 5m (a) and read
 just after it (``launches_5m``; 5m (b) runs in 5i's window and launches
 no port kernel there), and zeroed just before phase 5k's steps on
@@ -408,6 +444,26 @@ LM_GRAD_REL_L2 = 1e-4
 # themselves are held at LM_GRAD_REL_L2.
 MB_PARAM_OFF_SHARE = 2e-4
 PHASE_5J_LIMIT_S = 180.0
+# Phase 5o, the LM train step as one CUDA graph per (batch, trees): the
+# graph steps of (a) (5j (b)'s configuration, a new batch each step) and
+# of (b) (examples/torch/train_lm.py's 100m preset at its default 20
+# steps), (c)'s steps a family at 5j (c)'s gate depth; the relative L2
+# error within which an MoE family's leaves may sit from the eager
+# step's (the backward of MoE's dispatch and combine gathers repeats
+# indices: a scatter_add_ that sums in its atomics' order; the gradients'
+# gate); the card's room held back from (c)'s reckoning; the steps each
+# timing of (f) averages (phase 6) and the profiled repetitions; the
+# phase's time limit.
+GRAPH_LM_STEPS = 10
+GRAPH_100M_PRESET, GRAPH_100M_STEPS = "100m", 20
+GRAPH_FAM_STEPS = 2
+MOE_GRAPH_REL_L2 = LM_GRAD_REL_L2
+GRAPH_FAM_MARGIN = 4e9
+GRAPH_LM_TIMED, GRAPH_LM_PROFILED = 5, 2
+PHASE_5O_LIMIT_S = 120.0
+# Phase 6, what cuda_graphs.capture's release before a capture would cost
+# a decode graph: the turns, each with the release and without it.
+RELEASE_TURNS = 3
 # 8-bit QAT gradients against another device's or another order's sums:
 # each tensor within this relative L2 error, the features equal but for
 # at most QUANT_MAX_STEP_SHARE elements one quant step apart (a float64
@@ -1097,24 +1153,35 @@ def phase_5n(smi: str) -> dict:
     return launches
 
 
-def run_example(phase: str, file: str, argv) -> float:
-    """``examples/torch/<file>``'s ``main(argv)`` in this process, its
-    output echoed under ``[phase]``; fails unless it ends with ``OK``.
-    Returns its seconds (host clock, the card synchronized)."""
-    import contextlib
+def load_example(file: str):
+    """``examples/torch/<file>`` as a module (not run)."""
     import importlib.util
-    import io
-
-    import torch
 
     spec = importlib.util.spec_from_file_location(f"example_{file[:-3]}",
                                                   os.path.join(ROOT, "examples", "torch", file))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(phase: str, file: str, argv, returned=None) -> float:
+    """``examples/torch/<file>``'s ``main(argv)`` in this process, its
+    output echoed under ``[phase]``; fails unless it ends with ``OK``.
+    Returns its seconds (host clock, the card synchronized); what
+    ``main`` returns is appended to the list ``returned`` if one is
+    given."""
+    import contextlib
+    import io
+
+    import torch
+
+    mod = load_example(file)
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        mod.main(argv)
+        out = mod.main(argv)
+    if returned is not None:
+        returned.append(out)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     lines = buf.getvalue().splitlines()
@@ -1718,15 +1785,29 @@ def phase_5j(smi: str) -> dict:
             del params, grads, toks, kw, h, logits, w
             torch.cuda.empty_cache()
 
-        # (d) the three LM examples at their default sizes.
+        # (d) the three LM examples at their default sizes; 5o (e): the two
+        # that train run their steps through one graph, replayed.
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        jitted = {}
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as ckpt:
-            ex_s = {"quickstart.py": run_example("5j", "quickstart.py", []),
+            ex_s = {"quickstart.py": run_example("5j", "quickstart.py", [],
+                                                 jitted.setdefault("quickstart.py", [])),
                     "serve.py": run_example("5j", "serve.py", []),
                     "serve.py --pow2": run_example("5j", "serve.py", ["--pow2"]),
                     "serve.py --arch falcon-mamba-7b": run_example(
                         "5j", "serve.py", ["--arch", "falcon-mamba-7b"]),
-                    "train_lm.py": run_example("5j", "train_lm.py", ["--ckpt-dir", ckpt])}
+                    "train_lm.py": run_example("5j", "train_lm.py", ["--ckpt-dir", ckpt],
+                                               jitted.setdefault("train_lm.py", []))}
+        for file, n_steps in (("quickstart.py", 30), ("train_lm.py", 20)):
+            step_fn = jitted[file][0]
+            check(step_fn._cache_size() == 1 and step_fn.captures == 1
+                  and step_fn.replays == n_steps - 1 and not step_fn.donate,
+                  f"5o (e) {file}: {step_fn._cache_size()} keys, {step_fn.captures} captures, "
+                  f"{step_fn.replays} replays over {n_steps} steps")
+            print(f"[5o] (e) examples/torch/{file} at its default size: its {n_steps} steps "
+                  f"through one JittedTrainStep key (donate=False), 1 capture, "
+                  f"{step_fn.replays} replays")
+        del jitted, step_fn
     finally:
         mssm.ssm_scan = kernel_scan
         kssm_ops.ssm_scan_ref = dispatch_plain
@@ -1741,6 +1822,579 @@ def phase_5j(smi: str) -> dict:
           + f"; launches { {k: v for k, v in window.items() if v} }; the plain scan called 0 "
           f"times; phase {elapsed:.1f} s ({smi})")
     return window
+
+
+def meta_params(cfg):
+    """``cfg``'s parameter tree on ``meta`` (shapes and dtypes only), what
+    ``jit_train_step`` reckons the optimizer state's shapes from."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import params_shapes
+
+    return params_shapes(cfg, make_mesh((1, 1), ("data", "model"), device="cpu"))[0]
+
+
+def lm_train_lockstep(tag, jitted, eager, init, batches, moe=False) -> dict:
+    """Phase 5o's gate on one configuration. ``init()`` draws (params,
+    optimizer state) on the card; ``eager(params, opt, batch, step)`` is
+    the eager step. First two eager steps from that state on
+    ``batches[0]`` agree bit for bit (within ``MOE_GRAPH_REL_L2`` where
+    ``moe``). Then ``jitted`` (the trees each call returns handed back to
+    the next) and ``eager`` (its own trees) run side by side from it over
+    ``batches``, step s given to the graph as the int s and to the eager
+    step as a 0-d int32 tensor on the card: every leaf of the params, the
+    optimizer state (step, m, v, master) and the metrics bit for bit (MoE:
+    within ``MOE_GRAPH_REL_L2`` relative L2). Without donation the trees
+    handed to the first call are held unchanged. Returns the scan
+    launches of each jitted call, ``memory_allocated`` before each jitted
+    call (after a collection) and what the call added to it (a replay
+    adds nothing: its outputs replace the last call's), the state's
+    bytes, the eager step's peak above it, the peak
+    allocated and reserved above the start while the two run side by
+    side, the worst MoE error, the leaves of the state and the host ms
+    of each call."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.tree_util import tree_leaves
+
+    dev = torch.device("cuda")
+    gc_collect_and_empty()
+    base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    p0, o0 = init()
+    torch.cuda.synchronize()
+    state_b = torch.cuda.memory_allocated() - base
+    steps = [torch.full((), s, dtype=torch.int32, device=dev) for s in range(len(batches))]
+
+    def apart(got, want):
+        """The leaves that differ, and the largest relative L2 error among
+        them."""
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+        return bad, max((rel_l2(got[i].float(), want[i].float()) for i in bad), default=0.0)
+
+    torch.cuda.reset_peak_memory_stats()
+    first = tree_leaves(eager(p0, o0, batches[0], steps[0]))
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base - state_b
+    bad, worst = apart(first, tree_leaves(eager(p0, o0, batches[0], steps[0])))
+    del first
+    check(not bad or (moe and worst <= MOE_GRAPH_REL_L2),
+          f"5o {tag}: two eager steps from one state differ at leaves {bad[:8]} (relative L2 "
+          f"{worst:.3e})")
+    eager_worst = worst
+    gc_collect_and_empty()
+    torch.cuda.reset_peak_memory_stats()
+    given = [] if jitted.donate else tree_leaves((p0, o0))
+    kept = [t.clone() for t in given]
+    pg, og, pe, oe = p0, o0, p0, o0
+    del p0, o0
+    scans, mem, grew, g_ms, e_ms = [], [], [], [], []
+    for s, batch in enumerate(batches):
+        gc.collect()  # the eager step's cyclic garbage, freed at no fixed time
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        before = kscan.LAUNCHES["ssm_scan"]
+        t0 = time.perf_counter()
+        pg, og, mg = jitted(pg, og, batch, s)
+        torch.cuda.synchronize()
+        g_ms.append((time.perf_counter() - t0) * 1e3)
+        grew.append(torch.cuda.memory_allocated() - mem[-1])
+        scans.append(kscan.LAUNCHES["ssm_scan"] - before)
+        t0 = time.perf_counter()
+        pe, oe, me = eager(pe, oe, batch, steps[s])
+        torch.cuda.synchronize()
+        e_ms.append((time.perf_counter() - t0) * 1e3)
+        got, want = tree_leaves((pg, og, mg)), tree_leaves((pe, oe, me))
+        check(len(got) == len(want), f"5o {tag} step {s}: {len(got)} leaves against {len(want)}")
+        bad, err = apart(got, want)
+        worst = max(worst, err)
+        check(not bad or (moe and err <= MOE_GRAPH_REL_L2),
+              f"5o {tag} step {s}: leaves {bad[:8]} of {len(got)} differ from the eager step's "
+              f"(relative L2 {err:.3e})")
+        del got, want
+    check(all(torch.equal(a, b) for a, b in zip(given, kept)),
+          f"5o {tag}: the graph wrote the trees handed to its first call")
+    del given, kept
+    out = dict(scans=scans, mem=mem, grew=grew, state=state_b, eager_peak=eager_peak,
+               peak=torch.cuda.max_memory_allocated() - base,
+               reserved=torch.cuda.max_memory_reserved() - base_reserved,
+               worst=worst, eager_worst=eager_worst, n_leaves=len(tree_leaves((pg, og))),
+               g_ms=g_ms, e_ms=e_ms, final=(pe, oe, pg, og))
+    return out
+
+
+def bit_digest(tree):
+    """Per leaf of ``tree``, two exact int64 checksums of its bits on the
+    card: the sum of its elements' bit patterns and that sum weighted by
+    position mod 65,521. Trees equal bit for bit have equal digests; a
+    leaf whose bits differ anywhere changes them but for a chance
+    cancellation."""
+    import torch
+
+    from repro_torch.tree_util import tree_leaves
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in tree_leaves(tree):
+        bits = t.detach().reshape(-1).view(ints[t.element_size()])
+        total = weighted = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, bits.numel(), 1 << 24):
+            chunk = bits[i:i + (1 << 24)].long()
+            pos = torch.arange(i, i + chunk.numel(), device=t.device) % 65521 + 1
+            total, weighted = total + chunk.sum(), weighted + (chunk * pos).sum()
+        out.append(torch.stack([total, weighted]))
+    return torch.stack(out)
+
+
+def lm_train_in_turn(tag, jitted, eager, init, batches) -> dict:
+    """Phase 5o (c)'s gate on a configuration whose eager run and graph key
+    do not fit the card side by side: the eager run first, then the
+    graph's, each from ``init()`` (seeded: the two draws are checked
+    equal), one on the card at a time. Two eager steps from that state on
+    ``batches[0]`` agree bit for bit; then ``eager`` runs over
+    ``batches`` keeping exact checksums of every leaf (:func:`bit_digest`)
+    of its params, optimizer state and metrics, its trees are freed, and
+    ``jitted`` (donating; each call's trees handed back) runs over the
+    same batches, every leaf's checksums equal to the eager step's. The
+    graph runs only where the card holds two copies of the state (the
+    caller's and the key's) beside the eager step's measured peak above
+    it (what the graph's pool holds) and ``GRAPH_FAM_MARGIN``; else the
+    result holds ``left_out``, the reason. Returns what
+    :func:`lm_train_lockstep` returns, but ``final``."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.tree_util import tree_leaves
+
+    dev = torch.device("cuda")
+    gc_collect_and_empty()
+    base = torch.cuda.memory_allocated()
+    steps = [torch.full((), s, dtype=torch.int32, device=dev) for s in range(len(batches))]
+    p, o = init()
+    torch.cuda.synchronize()
+    state_b = torch.cuda.memory_allocated() - base
+    d_init = bit_digest((p, o))
+    torch.cuda.reset_peak_memory_stats()
+    d_first = bit_digest(eager(p, o, batches[0], steps[0]))
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base - state_b
+    d_again = bit_digest(eager(p, o, batches[0], steps[0]))
+    check(torch.equal(d_first, d_again),
+          f"5o {tag}: two eager steps from one state differ at leaves "
+          f"{torch.nonzero((d_first != d_again).any(-1)).flatten().tolist()[:8]}")
+    want, e_ms = [], []
+    for s, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        p, o, m = eager(p, o, batch, steps[s])
+        torch.cuda.synchronize()
+        e_ms.append((time.perf_counter() - t0) * 1e3)
+        want.append(bit_digest((p, o, m)))
+    del p, o, m
+    gc_collect_and_empty()
+    room = torch.cuda.mem_get_info()[0] - GRAPH_FAM_MARGIN
+    need = 2 * state_b + eager_peak
+    out = dict(state=state_b, eager_peak=eager_peak, need=need, room=room, worst=0.0,
+               eager_worst=0.0, e_ms=e_ms)
+    if need > room:
+        out["left_out"] = (f"the caller's state, the key's and the eager step's peak above it "
+                           f"{need / 1e9:.2f} GB against {room / 1e9:.2f} GB free less "
+                           f"{GRAPH_FAM_MARGIN / 1e9:.0f}")
+        return out
+    torch.cuda.reset_peak_memory_stats()
+    pg, og = init()
+    check(torch.equal(bit_digest((pg, og)), d_init), f"5o {tag}: two seeded inits differ")
+    scans, mem, grew, g_ms = [], [], [], []
+    for s, batch in enumerate(batches):
+        gc.collect()
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        before = kscan.LAUNCHES["ssm_scan"]
+        t0 = time.perf_counter()
+        pg, og, mg = jitted(pg, og, batch, s)
+        torch.cuda.synchronize()
+        g_ms.append((time.perf_counter() - t0) * 1e3)
+        grew.append(torch.cuda.memory_allocated() - mem[-1])
+        scans.append(kscan.LAUNCHES["ssm_scan"] - before)
+        got = bit_digest((pg, og, mg))
+        check(got.shape == want[s].shape,
+              f"5o {tag} step {s}: {got.shape[0]} leaves against {want[s].shape[0]}")
+        bad = torch.nonzero((got != want[s]).any(-1)).flatten().tolist()
+        check(not bad, f"5o {tag} step {s}: leaves {bad[:8]} of {got.shape[0]} differ from "
+                       f"the eager step's (their bit checksums)")
+    out.update(scans=scans, mem=mem, grew=grew, g_ms=g_ms,
+               peak=torch.cuda.max_memory_allocated() - base,
+               n_leaves=len(tree_leaves((pg, og))))
+    return out
+
+
+def gc_collect_and_empty() -> None:
+    """Free what Python still holds and return the cached blocks to the
+    card, so that a graph's private pool finds room."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_5o(smi: str) -> dict:
+    """The LM train step as one CUDA graph per (batch, trees) on the card
+    (phase 5o: ``launch/steps.py`` ``jit_train_step`` and the LM examples'
+    ``JittedTrainStep``). Returns the launches of the phase's window."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStreamConfig, synthetic_token_batches
+    from repro_torch.kernels.pow2_matmul import pow2 as kpow2
+    from repro_torch.kernels.ssm_scan import ops as kssm_ops
+    from repro_torch.kernels.ssm_scan import scan as kscan
+    from repro_torch.kernels.stream_conv import conv as kconv
+    from repro_torch.kernels.stream_conv import legacy as klegacy
+    from repro_torch.launch.steps import JittedTrainStep, jit_train_step, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.accounting import param_bytes, param_count
+    from repro_torch.optim import AdamWConfig, adamw_init, linear_warmup_cosine
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 10)
+    mods = (kconv, kpow2, kscan, klegacy)
+    t_phase = time.perf_counter()
+    dispatch_plain = kssm_ops.ssm_scan_ref
+    plain_calls = [0]
+
+    def counted_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return dispatch_plain(*args, **kwargs)
+
+    def graph_checks(tag, jitted, res, n_steps, scans_per_step, staged):
+        check(jitted._cache_size() == 1 and jitted.captures == 1
+              and jitted.replays == n_steps - 1,
+              f"5o {tag}: {jitted._cache_size()} keys, {jitted.captures} captures, "
+              f"{jitted.replays} replays over {n_steps} calls")
+        check(res["scans"] == [scans_per_step] * n_steps,
+              f"5o {tag}: ssm_scan counted {res['scans']} at the jitted calls (eager counts "
+              f"{scans_per_step} a step)")
+        check(jitted.staged == staged, f"5o {tag}: {jitted.staged} leaves staged, not {staged}")
+        check(not any(res["grew"][1:]),
+              f"5o {tag}: memory_allocated added by each jitted call {res['grew']}")
+
+    def ms_text(res):
+        g, e = sorted(res["g_ms"][1:]), sorted(res["e_ms"][1:])
+        return (f"graph {g[len(g) // 2]:.3f} ms a step (the first call, warm-up and capture, "
+                f"{res['g_ms'][0]:.1f}), eager {e[len(e) // 2]:.3f} (host clock, synchronized, "
+                f"medians of calls 2-{len(res['g_ms'])}, side by side)")
+
+    for m in mods:
+        m.reset_launch_counts()
+    kssm_ops.ssm_scan_ref = counted_plain
+    try:
+        # (a) falcon-mamba-7b at full width, 5j (b)'s configuration, through
+        # jit_train_step (donated; the returned trees handed back).
+        cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LM_TRAIN_LAYERS)
+        opt_cfg = AdamWConfig(keep_master_copy=True)
+        n, pb = param_count(cfg), param_bytes(cfg)
+        state_est = pb + 12 * n  # weights, f32 master, m and v
+        peak_est = state_est + 2 * pb  # the new state, the gradients and their clipped copies
+        stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_LEN,
+                                   batch_size=LM_TRAIN_BATCH)
+        it = synthetic_token_batches(stream, seed=SEED)
+        batches = [{"tokens": torch.from_numpy(next(it)["tokens"]).to(dev)}
+                   for _ in range(GRAPH_LM_STEPS)]
+        jitted, _ = jit_train_step(cfg, None, meta_params(cfg), batches[0], opt_cfg=opt_cfg)
+        train = make_train_step(cfg, opt_cfg=opt_cfg)
+
+        def init_a():
+            params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+            return params, adamw_init(params, opt_cfg)
+
+        print(f"[5o] (a) {LM_ARCH} reckoning: {n:,} params; the state (bf16 weights, f32 master, "
+              f"m, v) {state_est / 1e9:.2f} GB, a step's peak above it at most "
+              f"{peak_est / 1e9:.2f} GB (the new state, the gradients and their clipped copies); "
+              f"the eager run and the graph's key (its static state and its pool) side by side "
+              f"{2 * (state_est + peak_est) / 1e9:.2f} GB")
+        start_mem = torch.cuda.memory_allocated()
+        res = lm_train_lockstep("(a)", jitted, lambda p, o, b, s: train(p, o, b), init_a, batches)
+        graph_checks("(a)", jitted, res, GRAPH_LM_STEPS, 2 * LM_TRAIN_LAYERS, res["n_leaves"])
+        pe, oe, pg, og = res.pop("final")
+        check(pg is jitted._graphs[next(iter(jitted._graphs))].params,
+              "5o (a): the donated step did not return its static params")
+        replays = jitted.replays
+        # (d) no synchronisation in an eager step, nor in a replay.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            train(pe, oe, batches[0])
+            jitted(pg, og, batches[0], GRAPH_LM_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"[5o] (a) {LM_ARCH} bf16, {LM_TRAIN_LAYERS} layers at full width, B={LM_TRAIN_BATCH}, "
+              f"S={LM_TRAIN_LEN}, remat '{cfg.remat}', AdamW with the f32 master copy, through "
+              f"jit_train_step (donated, each call's trees handed back): two eager steps from one "
+              f"state bit for bit; {GRAPH_LM_STEPS} graph steps bit for bit {GRAPH_LM_STEPS} eager "
+              f"make_train_step steps on {GRAPH_LM_STEPS} batches ({res['n_leaves']} leaves of "
+              f"params, master, m, v and step; loss, ce, aux, grad norm); one capture, "
+              f"{replays} replays; ssm_scan counted {res['scans'][0]} at every jitted call "
+              f"(2 a layer: the forward and remat's recompute on autograd's thread), as eager "
+              f"counts it; {res['n_leaves']} leaves staged at the first call, none after; "
+              f"memory_allocated unchanged across every replay ({min(res['mem'][1:])}-"
+              f"{max(res['mem'][1:])} B before them, the eager side's garbage apart); (d) an "
+              f"eager step and a "
+              f"replay under set_sync_debug_mode('error'): nothing raised. Memory: the state "
+              f"{res['state'] / 1e9:.2f} GB (reckoned {state_est / 1e9:.2f}), the eager step's "
+              f"peak above it {res['eager_peak'] / 1e9:.2f} GB (at most {peak_est / 1e9:.2f}), "
+              f"side by side max_memory_allocated {res['peak'] / 1e9:.2f} GB and "
+              f"max_memory_reserved {res['reserved'] / 1e9:.2f} GB above the part's start "
+              f"(reckoned {2 * (state_est + peak_est) / 1e9:.2f}; the graph's pool is reserved, "
+              f"not allocated), {start_mem / 1e9:.2f} GB allocated before it; {ms_text(res)} "
+              f"({smi})")
+        del pe, oe, pg, og, jitted, train, batches, res
+        gc_collect_and_empty()
+
+        # (b) examples/torch/train_lm.py's 100m preset at full width: its
+        # step through its JittedTrainStep (no donation, sched(step) on the
+        # card) against its eager closure.
+        ex = load_example("train_lm.py")
+        cfg = ex.make_cfg(GRAPH_100M_PRESET)
+        *_, seq, batch = ex.PRESETS[GRAPH_100M_PRESET]
+        opt_cfg = AdamWConfig(weight_decay=0.01)
+        sched = linear_warmup_cosine(1e-3, warmup_steps=20, total_steps=GRAPH_100M_STEPS)
+        eager = ex.make_train_step(cfg, opt_cfg, sched)
+        jitted = JittedTrainStep(eager, donate=False)
+        stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch)
+        batches = [{"tokens": torch.from_numpy(next(synthetic_token_batches(
+            stream, seed=1000 + s))["tokens"]).to(dev)} for s in range(GRAPH_100M_STEPS)]
+
+        def init_b():
+            params = T.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+            return params, adamw_init(params, opt_cfg)
+
+        res = lm_train_lockstep("(b)", jitted, eager, init_b, batches)
+        graph_checks("(b)", jitted, res, GRAPH_100M_STEPS, 0, GRAPH_100M_STEPS * res["n_leaves"])
+        pe = res.pop("final")[0]
+        print(f"[5o] (b) train_lm.py --preset {GRAPH_100M_PRESET} at full width "
+              f"({param_count(cfg):,} params, {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+              f"{cfg.vocab_size:,}, S {seq}, B {batch}, {cfg.dtype}, remat '{cfg.remat}'), "
+              f"{GRAPH_100M_STEPS} steps with sched(step) on the card through its JittedTrainStep "
+              f"(donate=False): two eager steps bit for bit; every graph step bit for bit the "
+              f"example's eager closure (params, m, v, step, loss, grad norm), the trees handed "
+              f"in unchanged; one capture, {jitted.replays} replays; memory_allocated unchanged "
+              f"across every replay; state {res['state'] / 1e9:.3f} GB, max "
+              f"allocated {res['peak'] / 1e9:.2f} GB; {ms_text(res)} ({smi})")
+        del pe, jitted, eager, batches, res, ex
+        gc_collect_and_empty()
+
+        # (c) the nine other families at 5j (c)'s gate depth and dtype,
+        # through jit_train_step: side by side with the eager run where
+        # both fit the card, else the eager run first and the graph's
+        # after it, by the bits' checksums (lm_train_in_turn). An MoE
+        # family (held within MOE_GRAPH_REL_L2, so side by side) whose
+        # state does not fit at full width runs scaled_down() instead.
+        def reckon(cfg, room):
+            """The optimizer's config, the state's and a step's peak's bytes
+            reckoned, and the reckoning as text."""
+            master = cfg.dtype != "float32"
+            n, pb = param_count(cfg), param_bytes(cfg)
+            state_est = pb + (12 if master else 8) * n
+            peak_est = state_est + 2 * pb
+            return (AdamWConfig(keep_master_copy=master), state_est, peak_est,
+                    f"{cfg.dtype}, {n:,} params: state {state_est / 1e9:.2f} GB, a step's "
+                    f"peak above it at most {peak_est / 1e9:.2f}, side by side "
+                    f"{2 * (state_est + peak_est) / 1e9:.2f} GB, in turn "
+                    f"{(2 * state_est + peak_est) / 1e9:.2f} (the eager step alone "
+                    f"{(state_est + peak_est) / 1e9:.2f}), against {room / 1e9:.2f} GB free "
+                    f"less {GRAPH_FAM_MARGIN / 1e9:.0f}")
+
+        for name, gate_depth, _, _ in FAMILIES:
+            t0 = time.perf_counter()
+            fam = get_arch(name)
+            cfg = dataclasses.replace(fam, n_layers=gate_depth, dtype="float32")
+            if 2 * param_bytes(cfg) > FAM_TRAIN_FP32_BYTES:
+                cfg = dataclasses.replace(fam, n_layers=gate_depth)
+            moe = bool(cfg.n_experts)
+            gc_collect_and_empty()
+            room = torch.cuda.mem_get_info()[0] - GRAPH_FAM_MARGIN
+            opt_cfg, state_est, peak_est, reckoning = reckon(cfg, room)
+            width = f"{gate_depth} layers at full width"
+            side_by_side = 2 * (state_est + peak_est) <= room
+            if not side_by_side and (moe or state_est + peak_est > room):
+                how = ("the eager run and the graph's key do not fit side by side" if moe
+                       else "the eager step alone does not fit")
+                print(f"[5o] (c) {name}, {gate_depth} layers at full width: left out, {how} "
+                      f"({reckoning})")
+                if not moe:
+                    continue
+                cfg = fam.scaled_down()
+                opt_cfg, state_est, peak_est, reckoning = reckon(cfg, room)
+                width = (f"scaled_down() ({cfg.n_layers} layers, d {cfg.d_model}, "
+                         f"{cfg.n_experts} experts, top {cfg.top_k})")
+                side_by_side = True
+            toks = []
+            for _ in range(GRAPH_FAM_STEPS):
+                tk, kw, n_pre = family_inputs(cfg, FAM_TRAIN_BATCH, FAM_TRAIN_LEN + 1, gen, dev)
+                toks.append({"tokens": tk, **kw})
+            jitted, _ = jit_train_step(cfg, None, meta_params(cfg), toks[0], opt_cfg=opt_cfg)
+            train = make_train_step(cfg, opt_cfg=opt_cfg)
+
+            def init_c(cfg=cfg, opt_cfg=opt_cfg):
+                params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                                       device=dev)
+                return params, adamw_init(params, opt_cfg)
+
+            def eager_c(p, o, b, s, train=train):
+                return train(p, o, b)
+
+            if side_by_side:
+                res = lm_train_lockstep(f"(c) {name}", jitted, eager_c, init_c, toks, moe=moe)
+                res.pop("final")
+                run = "side by side"
+            else:
+                res = lm_train_in_turn(f"(c) {name}", jitted, eager_c, init_c, toks)
+                run = "in turn, by the bits' checksums"
+                if "left_out" in res:
+                    print(f"[5o] (c) {name}, {width}: the eager steps ran ({GRAPH_FAM_STEPS}, "
+                          f"two from one state bit for bit; state {res['state'] / 1e9:.2f} GB, "
+                          f"the eager step's peak above it {res['eager_peak'] / 1e9:.2f} GB); "
+                          f"the graph left out: {res['left_out']} ({reckoning})")
+                    del jitted, train, toks, res
+                    gc_collect_and_empty()
+                    continue
+            graph_checks(f"(c) {name}", jitted, res, GRAPH_FAM_STEPS, 0, res["n_leaves"])
+            how = (f"within relative L2 {res['worst']:.3e} (gate {MOE_GRAPH_REL_L2}; two eager "
+                   f"steps {res['eager_worst']:.3e})" if moe else "bit for bit")
+            print(f"[5o] (c) {name}, {width}, B={FAM_TRAIN_BATCH}, S={FAM_TRAIN_LEN}"
+                  f"{f' + {n_pre} prefix' if n_pre else ''} ({reckoning}), {run}: "
+                  f"{GRAPH_FAM_STEPS} graph steps {how} the eager steps; one capture; state "
+                  f"{res['state'] / 1e9:.2f} GB, the eager step's peak above it "
+                  f"{res['eager_peak'] / 1e9:.2f} GB, max allocated {res['peak'] / 1e9:.2f} GB; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            del jitted, train, toks, res
+            gc_collect_and_empty()
+    finally:
+        kssm_ops.ssm_scan_ref = dispatch_plain
+    window = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    check(window["ssm_scan"] > 0, f"phase 5o launches: {window}")
+    check(plain_calls[0] == 0, f"phase 5o called the plain scan {plain_calls[0]} times")
+    elapsed = time.perf_counter() - t_phase
+    check(elapsed < PHASE_5O_LIMIT_S, f"phase 5o took {elapsed:.1f} s")
+    print(f"[5o] LM train graphs: launches { {k: v for k, v in window.items() if v} }; the plain "
+          f"scan called 0 times; phase {elapsed:.1f} s ({smi})")
+    return window
+
+
+def time_lm_train_graphs(smi: str) -> None:
+    """Phase 5o (f), in phase 6 after the other training profiles: ms a
+    step eager against the graph, on the host clock and on CUDA events,
+    tokens/s, and the card's busy share under the profiler, for 5o (a)'s
+    falcon-mamba-7b step (jit_train_step, donated), train_lm.py's 100m
+    preset and quickstart.py's step (their JittedTrainStep, no donation).
+    Each eager step runs from the same state every time (its outputs
+    dropped); each graph call hands back what the last one returned."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStreamConfig, synthetic_token_batches
+    from repro_torch.launch.steps import JittedTrainStep, jit_train_step, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init, linear_warmup_cosine
+
+    dev = torch.device("cuda")
+
+    def falcon():
+        cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LM_TRAIN_LAYERS)
+        opt_cfg = AdamWConfig(keep_master_copy=True)
+        train = make_train_step(cfg, opt_cfg=opt_cfg)
+        jitted, _ = jit_train_step(cfg, None, meta_params(cfg), None, opt_cfg=opt_cfg)
+        params = T.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+        return (f"5o (a) {LM_ARCH} ({LM_TRAIN_LAYERS} layers, B={LM_TRAIN_BATCH}, "
+                f"S={LM_TRAIN_LEN}, {cfg.dtype})", lambda p, o, b, s: train(p, o, b), jitted,
+                params, adamw_init(params, opt_cfg), LM_TRAIN_BATCH, LM_TRAIN_LEN, cfg.vocab_size)
+
+    def preset_100m():
+        ex = load_example("train_lm.py")
+        cfg = ex.make_cfg(GRAPH_100M_PRESET)
+        *_, seq, batch = ex.PRESETS[GRAPH_100M_PRESET]
+        opt_cfg = AdamWConfig(weight_decay=0.01)
+        eager = ex.make_train_step(cfg, opt_cfg, linear_warmup_cosine(
+            1e-3, warmup_steps=20, total_steps=GRAPH_100M_STEPS))
+        params = T.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+        return (f"5o (b) train_lm.py --preset {GRAPH_100M_PRESET} (B={batch}, S={seq}, "
+                f"{cfg.dtype})",
+                eager, JittedTrainStep(eager, donate=False), params,
+                adamw_init(params, opt_cfg), batch, seq, cfg.vocab_size)
+
+    def quickstart():
+        ex = load_example("quickstart.py")
+        cfg = ex.make_cfg()
+        opt_cfg = AdamWConfig(weight_decay=0.01)
+        eager = ex.make_train_step(cfg, opt_cfg)
+        params = T.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+        return (f"quickstart.py's step (B=16, S=64, {cfg.dtype})", eager,
+                JittedTrainStep(eager, donate=False), params, adamw_init(params, opt_cfg), 16, 64,
+                cfg.vocab_size)
+
+    for build in (falcon, preset_100m, quickstart):
+        gc_collect_and_empty()
+        what, eager, jitted, params, opt, b, s, vocab = build()
+        stream = TokenStreamConfig(vocab_size=vocab, seq_len=s, batch_size=b)
+        batch = {"tokens": torch.from_numpy(
+            next(synthetic_token_batches(stream, seed=SEED))["tokens"]).to(dev)}
+        step_t = torch.full((), 1, dtype=torch.int32, device=dev)
+        state = [params, opt]
+        del params, opt
+
+        def eager_call():
+            return eager(state[0], state[1], batch, step_t)
+
+        def graph_call():
+            out = jitted(state[0], state[1], batch, 1)
+            if jitted.donate:
+                state[0], state[1] = out[0], out[1]
+            return out
+
+        rows = {}
+        for how, fn in (("eager", eager_call), ("graph", graph_call)):
+            gc_collect_and_empty()
+            fn()  # the builds; the graph's warm-up and capture
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_LM_TIMED):
+                fn()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3 / GRAPH_LM_TIMED
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(GRAPH_LM_TIMED):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            events = start.elapsed_time(end) / GRAPH_LM_TIMED
+            busy, by_kernel = device_busy_ms(fn, GRAPH_LM_PROFILED)
+            rows[how] = (host, events, None if EVENTS_ROW in by_kernel else busy)
+        check(jitted.captures == 1, f"5o (f) {what}: {jitted.captures} captures")
+
+        def row(how):
+            host, events, busy = rows[how]
+            share = ("busy not measured (the profiler lost records)" if busy is None
+                     else f"busy {busy:.3f} ms (share {busy / events:.3f} of the events' span)")
+            return (f"{how} {host:.3f} ms (host clock), {events:.3f} ms (CUDA events), "
+                    f"{b * s / host * 1e3:.0f} tokens/s, {share}")
+
+        print(f"[6] 5o (f) {what} ({smi}): {row('eager')}; {row('graph')}; means of "
+              f"{GRAPH_LM_TIMED} steps after one, the profiler over {GRAPH_LM_PROFILED}")
+        del eager, jitted, state, batch
+    gc_collect_and_empty()
 
 
 def phase_5k(smi: str) -> dict:
@@ -3336,10 +3990,14 @@ def main() -> None:
 
     # -- 5j. LM training ---------------------------------------------------------------
     # The bf16 falcon-mamba weights phase 6 times are set aside for the
-    # phase's fp32 families and drawn again after it, from the same seed.
+    # phase's fp32 families and 5o's trees side by side, and drawn again
+    # after 5o, from the same seed.
     del params16
     torch.cuda.empty_cache()
     lm_train_launches = phase_5j(smi)
+
+    # -- 5o. the LM train step as one CUDA graph per (batch, trees) -------------
+    lm_train_graph_launches = phase_5o(smi)
     params16 = T.init_params(torch.Generator(device=dev).manual_seed(SEED), lm_cfg)
 
     # -- 5l. the plan's jitted closure: CUDA graphs of the kernels ----------------
@@ -3947,11 +4605,58 @@ def main() -> None:
               f"{bound_ms:.3f} ms; {share} ({smi})")
         graph_s.append(time.perf_counter() - t0)
 
+    # What the capture sequence's release (cuda_graphs.capture's
+    # release=True, the train steps': after the warm-up, a synchronize,
+    # gc.collect and torch.cuda.empty_cache) would cost a serving graph,
+    # whose capture skips it: a new decode key's first call (its eager
+    # warm-up and the capture) and the eager decode step right after it,
+    # which finds the allocator's cache emptied, with the release and
+    # without it, in turns, on the host clock.
+    def capture_release_cost(name, params_, cfg_, tok_, cache_, index):
+        import functools
+
+        from repro_torch import cuda_graphs
+        from repro_torch.launch.steps import jit_decode_step
+
+        pos = torch.full((), index, dtype=torch.long, device=dev)
+        rows = {True: [], False: []}
+        plain_capture = cuda_graphs.capture
+        with torch.no_grad():
+            for release in (True, False) * RELEASE_TURNS:
+                jd = jit_decode_step(cfg_)
+                T.decode_step(params_, cfg_, tok_, cache_, index)  # the cache warm
+                torch.cuda.synchronize()
+                if release:
+                    cuda_graphs.capture = functools.partial(plain_capture, release=True)
+                try:
+                    t0 = time.perf_counter()
+                    jd(params_, cache_, tok_, pos)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                finally:
+                    cuda_graphs.capture = plain_capture
+                T.decode_step(params_, cfg_, tok_, cache_, index)
+                torch.cuda.synchronize()
+                rows[release].append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+                check(jd._cache_size() == 1, f"release cost {name}: {jd._cache_size()} keys")
+                jd.clear()
+                del jd
+
+        def text(release):
+            first = ", ".join(f"{a:.3f}" for a, _ in rows[release])
+            after = ", ".join(f"{b:.3f}" for _, b in rows[release])
+            return f"first call {first} ms, the eager step after it {after} ms"
+
+        print(f"[6] capture release, {name} decode graph B={LM_BATCH} bf16, {RELEASE_TURNS} turns "
+              f"(host clock; {smi}): with the release {text(True)}; without it (the serving "
+              f"graphs' capture) {text(False)}")
+
     device_breakdown(f"prefill {LM_BATCH}x{LM_PROMPT}",
                      lambda: T.prefill(params16, lm_cfg, prompts, max_len=LM_PROMPT + LM_NEW), 1)
     device_breakdown("decode step", lambda: T.decode_step(*dec_args), 2)
     decode_graph_times(LM_ARCH, params16, lm_cfg, tok, lm_cache, LM_PROMPT + LM_NEW, dec_ms,
                        dec_bound)
+    capture_release_cost(LM_ARCH, params16, lm_cfg, tok, lm_cache, LM_PROMPT + LM_NEW)
 
     # Two of phase 5i's families at full depth in bf16: prefill of 4 x 512
     # tokens and a decode step on CUDA events, and where their device time
@@ -4208,9 +4913,14 @@ def main() -> None:
                   + f"phase 5's burst ({n_frames} frames), two runs: "
                   + ", ".join(f"{b:.0f} frames/s busy, {w:.0f} wall" for b, w in served[mode]))
 
-    # 5j's LM training step and the scan's recomputed backward, last: the
-    # heaviest profiles of the script.
+    # 5j's LM training step and the scan's recomputed backward, then 5o
+    # (f)'s LM train steps eager against their graphs, last: the heaviest
+    # profiles of the script. The bf16 falcon-mamba serving state is freed
+    # first: nothing after reads it.
+    del params16, lm_cache, lm_logits, dec_args, tok, prompts
+    gc_collect_and_empty()
     time_lm_training(smi)
+    time_lm_train_graphs(smi)
 
     # -- 5k. the dry run, after every profile: it needs no profiler, and a
     # profile after it (the pipeline sweep) once recorded no kernel.
@@ -4230,6 +4940,7 @@ def main() -> None:
         rec["launches_5l"] = jitted_launches.get(rec["name"], 0)
         rec["launches_5m"] = decode_graph_launches.get(rec["name"], 0)
         rec["launches_5n"] = train_graph_launches.get(rec["name"], 0)
+        rec["launches_5o"] = lm_train_graph_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

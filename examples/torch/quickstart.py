@@ -3,7 +3,9 @@ steps, apply the paper's pow2 (constant-specialized-multiplier)
 quantization, and serve tokens.
 
 The counterpart of ``examples/quickstart.py``, plus ``--device`` (the
-card unless ``cpu``).
+card unless ``cpu``). Its jitted step is a ``JittedTrainStep`` of the
+eager step, nothing donated: on the card one CUDA graph, replayed from
+the second step on; on the CPU the eager step.
 
     PYTHONPATH=src python examples/torch/quickstart.py
     PYTHONPATH=src python examples/torch/quickstart.py --device cpu
@@ -16,19 +18,43 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core.quant.pow2 import pow2_codes
 from repro_torch.data import TokenStreamConfig, synthetic_token_batches
+from repro_torch.launch.steps import JittedTrainStep
 from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, clip_by_global_norm
 from repro_torch.tree_util import tree_flatten
 
 
-def main(argv=None) -> None:
+def make_cfg():
+    """A reduced qwen2.5 — same family, small enough for a quick run."""
+    return get_arch("qwen2.5-3b").scaled_down(n_layers=4, d_model=128, vocab_size=512)
+
+
+def make_train_step(cfg, opt_cfg: AdamWConfig):
+    """The quickstart's eager train step ``(params, opt, batch, step) ->
+    (params, opt, loss)`` at a constant learning rate of 1e-3 (``step``
+    unused)."""
+
+    def train_step(params, opt, batch, _step):
+        leaves, treedef = tree_flatten(params)
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        loss, _ = T.train_loss(treedef.unflatten(leaves), cfg, batch, vocab_chunk=256)
+        grads, _ = clip_by_global_norm(
+            treedef.unflatten(list(torch.autograd.grad(loss, leaves))), 1.0)
+        params, opt = adamw_update(grads, opt, params, opt_cfg, 1e-3)
+        return params, opt, loss.detach()
+
+    return train_step
+
+
+def main(argv=None) -> JittedTrainStep:
+    """Run the quickstart; returns its jitted train step (for a caller
+    that checks its captures)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", help="the card (default) or cpu")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
 
-    # A reduced qwen2.5 — same family, small enough for a quick run.
-    cfg = get_arch("qwen2.5-3b").scaled_down(n_layers=4, d_model=128, vocab_size=512)
+    cfg = make_cfg()
     print(f"arch={cfg.name} (reduced): {cfg.n_layers}L d={cfg.d_model} on {dev.type}")
 
     params = T.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
@@ -39,20 +65,11 @@ def main(argv=None) -> None:
     batches = synthetic_token_batches(stream_cfg, seed=0)
     print(f"token stream loss floor: {stream_cfg.loss_floor:.3f} nats")
 
-    def step(params, opt, tokens):
-        leaves, treedef = tree_flatten(params)
-        leaves = [t.detach().requires_grad_() for t in leaves]
-        loss, _ = T.train_loss(treedef.unflatten(leaves), cfg, {"tokens": tokens},
-                               vocab_chunk=256)
-        grads, _ = clip_by_global_norm(
-            treedef.unflatten(list(torch.autograd.grad(loss, leaves))), 1.0)
-        params, opt = adamw_update(grads, opt, params, opt_cfg, 1e-3)
-        return params, opt, loss.detach()
-
+    step = JittedTrainStep(make_train_step(cfg, opt_cfg), donate=False)
     t0 = time.perf_counter()
     for i in range(30):
         tokens = torch.from_numpy(next(batches)["tokens"]).to(dev)
-        params, opt, loss = step(params, opt, tokens)
+        params, opt, loss = step(params, opt, {"tokens": tokens})
         if i % 10 == 0 or i == 29:
             print(f"step {i:3d} loss {float(loss):.3f}")
     print(f"trained 30 steps in {time.perf_counter() - t0:.1f}s")
@@ -75,6 +92,7 @@ def main(argv=None) -> None:
         toks.append(int(tok[0, 0]))
     print("greedy continuation:", toks)
     print("OK")
+    return step
 
 
 if __name__ == "__main__":

@@ -3,7 +3,11 @@ train step -> AdamW -> checkpoint/restart, with fault tolerance and
 straggler monitoring.
 
 The counterpart of ``examples/train_lm.py``, with the same flags and
-``--device`` (the card unless ``cpu``). Checkpoints go to ``--ckpt-dir``
+``--device`` (the card unless ``cpu``). Its jitted step is a
+``JittedTrainStep`` of :func:`make_train_step`'s eager step, nothing
+donated (the trainer restarts from the trees it was given): on the card
+one CUDA graph, its learning rate ``sched(step)`` computed there from the
+step count; on the CPU the eager step. Checkpoints go to ``--ckpt-dir``
 (default ``$REPRO_RESULTS_DIR/train_lm_ckpt``, ``results/`` unset); a run
 resumes from the newest checkpoint there.
 
@@ -20,6 +24,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data import TokenStreamConfig, synthetic_token_batches
+from repro_torch.launch.steps import JittedTrainStep
 from repro_torch.models import transformer as T
 from repro_torch.models.accounting import param_count
 from repro_torch.optim import (
@@ -50,7 +55,27 @@ def make_cfg(preset: str) -> ArchConfig:
                       remat="none")
 
 
-def main(argv=None) -> None:
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, sched):
+    """The example's eager train step ``(params, opt, batch, step) ->
+    (params, opt, (loss, grad norm))``, its learning rate ``sched(step)``
+    on the step's device."""
+
+    def train_step(params, opt, batch, step):
+        leaves, treedef = tree_flatten(params)
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        loss, _ = T.train_loss(treedef.unflatten(leaves), cfg, batch,
+                               vocab_chunk=min(8192, cfg.vocab_size))
+        grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves)))
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        params, opt = adamw_update(grads, opt, params, opt_cfg, sched(step))
+        return params, opt, (loss.detach(), gnorm)
+
+    return train_step
+
+
+def main(argv=None) -> JittedTrainStep:
+    """Run the example; returns its jitted train step (for a caller that
+    checks its captures)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=PRESETS, default="smoke")
     ap.add_argument("--steps", type=int, default=20)
@@ -75,15 +100,7 @@ def main(argv=None) -> None:
     opt = adamw_init(params, opt_cfg)
     sched = linear_warmup_cosine(1e-3, warmup_steps=20, total_steps=args.steps)
 
-    def train_step(params, opt, tokens, step_idx):
-        leaves, treedef = tree_flatten(params)
-        leaves = [t.detach().requires_grad_() for t in leaves]
-        loss, _ = T.train_loss(treedef.unflatten(leaves), cfg, {"tokens": tokens},
-                               vocab_chunk=min(8192, cfg.vocab_size))
-        grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves)))
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
-        params, opt = adamw_update(grads, opt, params, opt_cfg, sched(step_idx))
-        return params, opt, loss.detach(), gnorm
+    train_step = JittedTrainStep(make_train_step(cfg, opt_cfg, sched), donate=False)
 
     def batch_fn(step):
         # Deterministic per-step stream => bitwise replay after restart.
@@ -96,7 +113,7 @@ def main(argv=None) -> None:
     def step_fn(state, tokens, step):
         params, opt = state
         t0 = time.perf_counter()
-        params, opt, loss, gnorm = train_step(params, opt, tokens, step)
+        params, opt, (loss, gnorm) = train_step(params, opt, {"tokens": tokens}, step)
         loss = float(loss)  # waits for the step
         losses.append(loss)
         dt = time.perf_counter() - t0
@@ -120,6 +137,7 @@ def main(argv=None) -> None:
           f"final loss {final} (floor {stream_cfg.loss_floor:.3f}), "
           f"restarts={trainer.restarts}, stragglers={len(trainer.straggler.flagged)}")
     print("OK")
+    return train_step
 
 
 if __name__ == "__main__":

@@ -144,5 +144,5 @@ def pow2_matmul_cuda(
         raise RuntimeError(f"pow2_matmul launch failed: CUDA error {err}")
     name = "pow2_matmul_int" if int_mode else "pow2_matmul"
     LAUNCHES[name] += 1
-    probe.launched(name, plan["recv_bytes"])
+    probe.launched(name, plan["recv_bytes"], stream)
     return out

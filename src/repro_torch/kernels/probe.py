@@ -26,6 +26,19 @@ launches under :func:`recording` and takes back their counts
 adds them again, to the counts and to the open log (:func:`replayed`).
 A replay of the Engine's mesh rung also makes the pipeline's edge
 hand-offs its capture recorded: it logs them again too.
+
+A capture's launches are not all made on the capturing thread. A
+captured train step runs its backward on autograd's device thread, on
+the stream of each forward op, the capturing one; a remat recompute
+there launches the forward's kernels again (falcon-mamba's ``ssm_scan``).
+That thread has no log open. So a capture also registers its log by the
+stream it records (:func:`capturing`), and a launcher reports the stream
+it launched on: a launch onto a stream under capture lands in that
+capture's log, from whatever thread, once, beside the launching thread's
+own log if that is another. A launch onto any other stream (a Router
+tenant's eager call from its own thread) never enters it. The table
+holds one entry at a time: ``cuda_graphs.capture`` registers under its
+process-wide ``CAPTURE_LOCK``.
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ from typing import Optional
 
 _local = threading.local()
 _TABLES: dict = {}  # kernel name -> the LAUNCHES dict that counts it
+_CAPTURES: dict = {}  # raw CUDA stream handle under capture -> its DispatchLog
 
 
 class DispatchLog:
@@ -66,6 +80,18 @@ def recording():
         _local.log = prev
 
 
+@contextlib.contextmanager
+def capturing(stream: int, log: DispatchLog):
+    """Route every launch onto ``stream`` (a raw CUDA stream handle, the
+    one each launcher launches on) into ``log`` for the duration of the
+    block, whichever thread makes it: the stream capture's log."""
+    _CAPTURES[stream] = log
+    try:
+        yield log
+    finally:
+        _CAPTURES.pop(stream, None)
+
+
 class dispatch:
     """``with dispatch(name, plain=...):`` around a wrapper's call of its
     kernel launcher or its plain version: logs the dispatch and marks the
@@ -87,12 +113,17 @@ class dispatch:
             self.log.depth -= 1
 
 
-def launched(name: str, smem: int) -> None:
+def launched(name: str, smem: int, stream: Optional[int] = None) -> None:
     """Log one launch of kernel ``name`` (beside its ``LAUNCHES`` count)
-    and the dynamic shared memory, in bytes, its launcher requested."""
+    and the dynamic shared memory, in bytes, its launcher requested, in
+    the calling thread's open log and, where ``stream`` (the raw handle
+    it launched on) is under capture, in the capture's log."""
     log = active()
     if log is not None:
         log.launches.append((log.phase, name, int(smem)))
+    cap = _CAPTURES.get(stream) if _CAPTURES and stream is not None else None
+    if cap is not None and cap is not log:
+        cap.launches.append((cap.phase, name, int(smem)))
 
 
 def transferred(edge_class: int, pair: tuple, shape: tuple) -> None:

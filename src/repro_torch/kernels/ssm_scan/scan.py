@@ -243,5 +243,5 @@ def ssm_scan_cuda(
     if err:
         raise RuntimeError(f"ssm_scan launch failed: CUDA error {err}")
     LAUNCHES["ssm_scan"] += 1
-    probe.launched("ssm_scan", plan["smem"])
+    probe.launched("ssm_scan", plan["smem"], stream)
     return y, h_last

@@ -725,7 +725,7 @@ def stream_conv_fused_cuda(
                 )
                 _raise_on(launch(ctypes.addressof(desc), g["smem"], stream), name)
                 LAUNCHES[name] += 1
-                probe.launched(name, g["smem"])
+                probe.launched(name, g["smem"], stream)
     return out
 
 
@@ -991,5 +991,5 @@ def stream_conv_pyramid_cuda(
         err = launch(ctypes.addressof(desc), smem, stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1
-    probe.launched(name, smem)
+    probe.launched(name, smem, stream)
     return out

@@ -86,9 +86,11 @@ def apply_opt(cfg: ArchConfig, opt: OptFlags) -> ArchConfig:
 
 def cell_step(cfg: ArchConfig, shape: ShapeConfig, mesh, opt: OptFlags = BASELINE):
     """(step, meta arguments, their spec tree) of one cell: the train step
-    of ``jit_train_step`` with ``opt.microbatches``, or the prefill or
-    decode step; decode takes the host int ``shape.seq_len - 1`` as its
-    index (not an argument: it has no bytes)."""
+    of ``jit_train_step`` with ``opt.microbatches`` (its ``eager`` step:
+    the op log is one eager step's, not its graph's static copies), or
+    the prefill or decode step; decode takes the host int
+    ``shape.seq_len - 1`` as its index (not an argument: it has no
+    bytes)."""
     params, _, p_specs = params_shapes(
         cfg, mesh, fsdp=shape.kind == "train" or not opt.tp_serving_params)
     inputs = input_specs(cfg, shape, mesh)
@@ -97,7 +99,8 @@ def cell_step(cfg: ArchConfig, shape: ShapeConfig, mesh, opt: OptFlags = BASELIN
                                          microbatches=opt.microbatches)
         o_specs = OptState(step=P(), m=param_specs(opt_state.m, mesh, fsdp=True),
                            v=param_specs(opt_state.v, mesh, fsdp=True), master=None)
-        return step, (params, opt_state, inputs), (p_specs, o_specs, batch_specs(inputs, mesh))
+        return (step.eager, (params, opt_state, inputs),
+                (p_specs, o_specs, batch_specs(inputs, mesh)))
     if shape.kind == "prefill":
         return (make_prefill_step(cfg, shape), (params, inputs),
                 (p_specs, batch_specs(inputs, mesh)))

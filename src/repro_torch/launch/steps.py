@@ -4,12 +4,13 @@ accumulation) and serve steps (prefill / single-token decode).
 
 The reference jits each step with explicit in/out shardings and donates
 the parameters and optimizer state. The port runs one card: the train
-and prefill steps are eager functions of tensor trees, nothing compiled
-and nothing donated (the updated trees are new tensors, as
-``adamw_update`` returns them). The decode step has a jitted form,
-:func:`jit_decode_step`: one CUDA graph per (batch, cache) with the
-cache donated. The layouts are still computed by
-``launch/sharding.py``.
+and prefill steps are eager functions of tensor trees (the updated trees
+are new tensors, as ``adamw_update`` returns them). The train step has a
+jitted form, :func:`jit_train_step` (a ``cuda_graphs.JittedTrainStep``:
+one CUDA graph per (batch, trees), the parameters and optimizer state
+donated), and so has the decode step, :func:`jit_decode_step` (one CUDA
+graph per (batch, cache) with the cache donated). The layouts are still
+computed by ``launch/sharding.py``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch import cuda_graphs
+from repro_torch.cuda_graphs import JittedTrainStep
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.kernels import probe
 from repro_torch.models.transformer import _decode_into
@@ -91,13 +93,22 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, lr: float = 3e-4,
 
 
 def jit_train_step(cfg: ArchConfig, mesh, params_sds, batch_sds, microbatches: int = 1, **kw):
-    """The train step and the optimizer state's shapes (``adamw_init`` over
-    the meta parameter tree ``params_sds``, as ``specs.params_shapes``
-    gives it). The reference jits the step with shardings and donation;
-    here the step runs eagerly (``batch_sds`` is the reference's argument:
-    an eager step takes any batch of that layout)."""
-    step = make_train_step(cfg, mesh, microbatches=microbatches, **kw)
-    return step, adamw_init(params_sds, AdamWConfig())
+    """The jitted train step and the optimizer state's shapes
+    (``adamw_init`` over the meta parameter tree ``params_sds``, as
+    ``specs.params_shapes`` gives it): the counterpart of the reference's
+    ``jax.jit`` of :func:`make_train_step` with ``donate_argnums=(0, 1)``.
+    The step is a ``cuda_graphs.JittedTrainStep`` of ``make_train_step``'s step
+    (which ignores the step count), donating the params and optimizer
+    state; its ``eager`` is that step itself, what the dry run traces.
+    ``batch_sds`` is the reference's argument (its shardings): the step is
+    keyed on the batch it is called with."""
+    eager = make_train_step(cfg, mesh, microbatches=microbatches, **kw)
+
+    def step(params, opt_state, batch, _step):
+        return eager(params, opt_state, batch)
+
+    return (JittedTrainStep(step, donate=True, eager=eager),
+            adamw_init(params_sds, AdamWConfig()))
 
 
 def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig):

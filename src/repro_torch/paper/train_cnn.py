@@ -19,7 +19,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import pickle
-import threading
 import zlib
 from typing import Callable, Optional
 
@@ -30,7 +29,6 @@ import torch.nn.functional as F
 from repro_torch import cuda_graphs
 from repro_torch.core.dhm import QuantSpec, compile_dhm
 from repro_torch.data import make_image_dataset
-from repro_torch.kernels import probe
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.models.cnn import CNNTopology, PAPER_TOPOLOGIES, cnn_apply, init_cnn
 from repro_torch.optim import (
@@ -89,165 +87,47 @@ def train_step(params, opt_state, x, y, lr, *, topo, cfg: AdamWConfig,
     return params, opt_state, loss.detach(), gnorm
 
 
-def _copy(dsts: list, srcs: list) -> None:
-    """``dst.copy_(src)`` for each pair, as one multi-tensor copy per dtype."""
-    groups: dict = {}
-    for d, s in zip(dsts, srcs):
-        pair = groups.setdefault(d.dtype, ([], []))
-        pair[0].append(d)
-        pair[1].append(s)
-    for ds, ss in groups.values():
-        torch._foreach_copy_(ds, ss)
-
-
-def _clone(leaves: list) -> list:
-    """New tensors with ``leaves``' values (multi-tensor copies)."""
-    out = [torch.empty_like(t) for t in leaves]
-    _copy(out, leaves)
-    return out
-
-
-@dataclasses.dataclass
-class _StepGraph:
-    """One key of a :class:`JittedTrainStep`: its static inputs (the
-    params and optimizer-state leaves, the batch and the 0-d int32 step)
-    and, on the card, the graph, its static outputs (the new params and
-    state leaves, the loss and the gradient norm), the launches one replay
-    makes ((name, shared-memory bytes) each) and the event after the last
-    call's output copies."""
-
-    params: object
-    opt_state: object
-    x: torch.Tensor
-    y: torch.Tensor
-    step: torch.Tensor
-    leaves: list
-    graph: Optional[object] = None  # torch.cuda.CUDAGraph
-    out: list = dataclasses.field(default_factory=list)
-    launches: tuple = ()
-    done: Optional[object] = None  # torch.cuda.Event
-
-
-class JittedTrainStep:
+class JittedTrainStep(cuda_graphs.JittedTrainStep):
     """``step(params, opt_state, x, y, step) -> (params, opt_state, loss,
     grad_norm)``, the training step as one captured executable per
     (topology, quant mode, batch shape): the counterpart of the
     reference's ``jax.jit`` of its local ``step_fn``
     (``repro.paper.train_cnn``), built by :func:`jit_train_step`.
 
-    The key is x's and y's shapes and dtypes and the params' and optimizer
-    state's tree structure, shapes and dtypes (the topology and the quant
-    mode are the object's own). Each key holds static params, optimizer
-    state (``step``, ``m``, ``v``), x, y and a 0-d int32 step; every call
-    copies the caller's trees and batch in (multi-tensor copies) and sets
-    the step: a host int by a device-side ``fill_``, a tensor by a device
-    copy, so it is never read on the host, and ``sched`` computes the
-    learning rate from it on the device.
-
-    On the card, the first call of a key runs the eager step on those
-    buffers once on a side stream (that call's result), then captures the
-    same step (``repro_torch/cuda_graphs.py``): the loss through
-    ``cnn_apply`` (the plan compiled at capture, its weight bake recorded,
-    so each replay bakes that step's weights), ``torch.autograd.grad``
+    A ``cuda_graphs.JittedTrainStep`` of :func:`train_step` at
+    ``lr=sched(step)`` on the batch ``{"x": x, "y": y}``, without
+    donation, as the reference's jit donates nothing: the caller's trees
+    are never written, and the trees a call returns stay valid after
+    later calls (``ResilientTrainer`` restarts from the state it was
+    given). The key is x's and y's shapes and dtypes and the params' and
+    optimizer state's (the topology and the quant mode are the object's
+    own); the step is never read on the host, and ``sched`` computes the
+    learning rate from it on the device. The capture records the loss
+    through ``cnn_apply`` (the plan compiled at capture, its weight bake
+    recorded, so each replay bakes that step's weights), the gradient
     through the stream-conv groups' and the pow2 head's autograd
-    Functions, clipping, ``sched(step)`` and AdamW. The backward runs on
-    autograd's device thread, on the stream of each forward op, the
-    capture's: it is recorded too. Every later call replays the graph and
-    returns new tensors cloned from its static outputs. The kernels run
-    in the same order on the same shapes as the eager :func:`train_step`
-    with ``lr=sched(step)`` on the same device, so the results are its
-    bit for bit. A capture that fails raises: nothing falls back to the
-    eager step. A replay runs no wrapper, so the launches the capture
-    logged (the forward's stream-conv and pow2 kernels) are counted again
-    at each replay (``kernels/probe.py``).
-
-    Nothing is donated, as the reference's jit donates nothing: the
-    caller's trees are never written, and the trees a call returns stay
-    valid after later calls (``ResilientTrainer`` restarts from the state
-    it was given).
-
-    On the CPU, each call is the eager step on the same static buffers
-    (same surface; ``_cache_size()`` counts the keys run).
-
-    The static buffers are shared: ``lock`` (reentrant) is held around
-    staging, the step and the output copies.
+    Functions, clipping, ``sched(step)`` and AdamW, so the results are
+    the eager step's bit for bit; a replay counts again the forward's
+    stream-conv and pow2 launches its capture logged.
     """
 
     def __init__(self, topo: CNNTopology, cfg: AdamWConfig, sched: Callable, *,
                  weight_bits=None, act_bits=None, pow2_weights=False):
-        self.topo, self.cfg, self.sched = topo, cfg, sched
-        self.quant = dict(weight_bits=weight_bits, act_bits=act_bits,
-                          pow2_weights=pow2_weights)
-        self.lock = threading.RLock()
-        self._graphs: dict = {}  # key -> _StepGraph
-        self._stream = None  # the side stream of warm-ups and captures
+        self.sched = sched
+        quant = dict(weight_bits=weight_bits, act_bits=act_bits, pow2_weights=pow2_weights)
 
-    def _cache_size(self) -> int:
-        """The keys captured (on the CPU: run) so far."""
-        return len(self._graphs)
+        def fn(params, opt_state, batch, step):
+            params, opt_state, loss, gnorm = train_step(
+                params, opt_state, batch["x"], batch["y"], sched(step), topo=topo, cfg=cfg,
+                **quant)
+            return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
-    def _run(self, entry: _StepGraph) -> list:
-        """The step on ``entry``'s static inputs: the new params and state
-        leaves, then the loss and the gradient norm."""
-        params, opt_state, loss, gnorm = train_step(
-            entry.params, entry.opt_state, entry.x, entry.y, self.sched(entry.step),
-            topo=self.topo, cfg=self.cfg, **self.quant,
-        )
-        return tree_flatten(params)[0] + tree_flatten(opt_state)[0] + [loss, gnorm]
+        super().__init__(fn, donate=False)
 
     def __call__(self, params, opt_state, x, y, step):
-        x, y = torch.as_tensor(x), torch.as_tensor(y)
-        with self.lock, torch.inference_mode(False), torch.enable_grad():
-            p_leaves, p_def = tree_flatten(params)
-            s_leaves, s_def = tree_flatten(opt_state)
-            dev = p_leaves[0].device
-            key = (dev, p_def, s_def,
-                   tuple((tuple(t.shape), t.dtype) for t in p_leaves + s_leaves),
-                   tuple(x.shape), x.dtype, tuple(y.shape), y.dtype)
-            on_card = dev.type == "cuda"
-            entry = self._graphs.get(key)
-            fresh = entry is None
-            if fresh:
-                static_p = tree_map(torch.empty_like, params)
-                static_s = tree_map(torch.empty_like, opt_state)
-                entry = _StepGraph(
-                    params=static_p, opt_state=static_s,
-                    x=torch.empty(x.shape, dtype=x.dtype, device=dev),
-                    y=torch.empty(y.shape, dtype=y.dtype, device=dev),
-                    step=torch.zeros((), dtype=torch.int32, device=dev),
-                    leaves=tree_flatten(static_p)[0] + tree_flatten(static_s)[0])
-            stream = torch.cuda.current_stream(dev) if on_card else None
-            if entry.done is not None:
-                stream.wait_event(entry.done)
-            _copy(entry.leaves + [entry.x, entry.y], p_leaves + s_leaves + [x, y])
-            if isinstance(step, torch.Tensor):
-                entry.step.copy_(step.reshape(()))
-            else:
-                entry.step.fill_(int(step))
-
-            if not on_card:
-                leaves = self._run(entry)
-            elif entry.graph is None:
-                if self._stream is None:
-                    self._stream = torch.cuda.Stream(dev)
-                cap = cuda_graphs.capture(lambda: self._run(entry), dev, self._stream)
-                entry.graph, entry.out, entry.launches = cap.graph, cap.out, cap.launches
-                leaves = cap.warm
-                for t in leaves:
-                    t.record_stream(stream)
-            else:
-                entry.graph.replay()
-                probe.replayed(entry.launches)
-                leaves = _clone(entry.out)
-            if fresh:
-                self._graphs[key] = entry
-            if on_card:
-                if entry.done is None:
-                    entry.done = torch.cuda.Event()
-                entry.done.record(stream)
-            n_p, n_s = len(p_leaves), len(s_leaves)
-            return (p_def.unflatten(leaves[:n_p]), s_def.unflatten(leaves[n_p:n_p + n_s]),
-                    leaves[-2], leaves[-1])
+        params, opt_state, metrics = super().__call__(
+            params, opt_state, {"x": torch.as_tensor(x), "y": torch.as_tensor(y)}, step)
+        return params, opt_state, metrics["loss"], metrics["grad_norm"]
 
 
 def jit_train_step(topo: CNNTopology, cfg: AdamWConfig, sched: Callable, *,

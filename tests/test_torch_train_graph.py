@@ -265,7 +265,8 @@ def test_returned_trees_share_no_storage_and_a_new_batch_shape_is_a_new_key():
     step_fn = jit_train_step(LENET5, kw["cfg"], linear_warmup_cosine(3e-3, 3, 10))
     p1, o1, _, _ = step_fn(params, opt, x, y, 0)
     entry = next(iter(step_fn._graphs.values()))
-    static = {t.untyped_storage().data_ptr() for t in entry.leaves + [entry.x, entry.y, entry.step]}
+    static = {t.untyped_storage().data_ptr()
+              for t in entry.leaves + entry.batch_leaves + [entry.step]}
     for t in _leaves(p1, o1):
         assert t.untyped_storage().data_ptr() not in static
     want1 = _leaves(*_eager_steps("fp32", 1, step_fn.sched)[0][:2])
