@@ -17,7 +17,11 @@ Phases (each asserts or exits non-zero):
   3c. hold the selective scan against its plain version at the
      falcon-mamba layer (Bz 4, S 512, D 8192, N 16) in bf16 and f32 with
      zero and carried state, at decode (S = 1), at N = 64 and at D of 200
-     and 8200, which no CTA's channels divide; and the seed conv at the
+     and 8200, which no CTA's channels divide; its gradient (the backward
+     kernel) against autograd of the reference's composition at the
+     training layer in bf16 and f32, with a carried state and h_last
+     read, at ragged D and S and at N 32 and 64 (SSM_BWD_CASES: each leaf
+     within relative L2 1e-4, two calls bit for bit); and the seed conv at the
      kernel bench's shape, at B=256, on an odd frame and on a frame whose
      ring runs in column strips;
   3d. the plans the reference serves and the card refused before: compile
@@ -139,10 +143,11 @@ Phases (each asserts or exits non-zero):
      kernel launches (these architectures run none), under 180 s;
   5j. LM training: (a) falcon-mamba-7b at full width, 2 layers, fp32,
      B=2, S=256: train_loss and every gradient leaf through the scan
-     kernel's autograd Function against autograd of the plain
-     composition on the card (each leaf finite, nonzero, within a
-     relative L2 error of 1e-4), remat='full' bit-equal with the kernel
-     launched twice a layer, µbatches 1 and 2: the accumulated
+     kernel's autograd Function (its backward the backward kernel, once
+     a layer) against autograd of the plain composition on the card
+     (each leaf finite, nonzero, within a relative L2 error of 1e-4),
+     remat='full' bit-equal with the scan launched twice a layer and its
+     backward once, µbatches 1 and 2: the accumulated
      gradients within the same 1e-4, and after make_train_step's AdamW
      step the losses within rtol 1e-5 and the parameters within atol
      1e-5 but for at most 2e-4 of the elements; (b) bf16 training, 4
@@ -159,7 +164,8 @@ Phases (each asserts or exits non-zero):
      graph) and train_lm.py at their default sizes print OK (5o (e):
      quickstart's 30 and train_lm's 20 steps each through one
      JittedTrainStep key, one capture, every later step a replay); (e)
-     the scan kernel launches, the plain scan is never called; under 180
+     the scan's kernels launch (the backward once a layer a step), their
+     plain versions are never called; under 180
      s. falcon-mamba's bf16 weights that phase 6 times are set aside
      during the phase and 5o and drawn again after them from the same
      seed;
@@ -173,7 +179,8 @@ Phases (each asserts or exits non-zero):
      init on the same 10 batches, every leaf bit for bit (params, master,
      m, v, step; loss, ce, aux, grad norm), ssm_scan counted 2 a layer at
      every jitted call (the forward and remat's recompute on autograd's
-     thread), one capture, no leaf staged after the first call,
+     thread) and ssm_scan_bwd 1, one capture, no leaf staged after the
+     first call,
      memory_allocated unchanged across every replay, the memory reckoned
      beside max_memory_allocated; (d) an eager step and a replay under
      set_sync_debug_mode("error") raise nothing; (b) train_lm.py's 100m
@@ -231,14 +238,14 @@ Phases (each asserts or exits non-zero):
      qwen2.5-3b and falcon-mamba-7b, every status ok, the op log's FLOPs
      equal to FlopCounterMode's, beside model_flops, with trace_s; then
      the same recorder over real steps on the card, falcon-mamba-7b bf16
-     training (5j's 4 layers, B=4, S=512, one step through the scan
-     kernel) and qwen2.5-3b bf16 prefill of 4 x 512 at full depth: the
+     training (5j's 4 layers, B=4, S=512, one step through the scan's
+     kernels) and qwen2.5-3b bf16 prefill of 4 x 512 at full depth: the
      card's log holds the meta trace's FLOPs and op counts per overload,
      the predicted peak (arguments + the log's peak live bytes) lies
      within 10 % of torch.cuda.max_memory_allocated above the cell's
      start, and the step timed without the recorder gives its TFLOP/s
-     beside the dense bf16 peak; the scan kernel launches, the plain
-     scan is never called;
+     beside the dense bf16 peak; the scan's kernels launch (the backward
+     once a layer), their plain versions are never called;
   6. time each kernel, its plain version and the library call with CUDA
      events at main-path shapes, beside the card's bound; the fp32 and
      int8 conv kernels, pow2_matmul, the seed conv and their library calls
@@ -250,7 +257,10 @@ Phases (each asserts or exits non-zero):
      and one serving micro-batch piece by piece, and the Engine's host
      split (submit, packing, watchdog, _stage, enqueue, _sync); the selective scan by
      its device time at the prefill, decode and one-sequence shapes, with
-     the lanes its plan takes; then the LM's prefill and
+     the lanes its plan takes, and its backward kernel at 5j's training
+     layer by its device time and on CUDA events beside its bound, the
+     plain backward and the forward kernel, with both backwards' peak
+     memory; then the LM's prefill and
      decode step, with their device time by kernel, and the same for
      recurrentgemma-9b and qwen2.5-3b in bf16 at full depth; then the pipeline
      sweep: the 3-stage fp32 plan on the stage mesh over M in {1, 2, 4, 8}
@@ -261,9 +271,7 @@ Phases (each asserts or exits non-zero):
      row and autotune_pipeline's pick; the Engine's mesh rung, its eager
      closure against its CUDA graph, serial and overlapped: ms a call on
      CUDA events and on the host clock, and the Engine's frames/s on
-     phase 5's burst; last, 5j's bf16 training step: the
-     scan's forward against its recomputed backward at the step's shape,
-     with the backward's peak memory, and the step's forward, backward
+     phase 5's burst; last, 5j's bf16 training step's forward, backward
      and optimizer on CUDA events and on the profiler, with its busy
      share; then 5o (f): ms a step eager against the graph on the host
      clock and on CUDA events, tokens/s and the busy share under the
@@ -350,6 +358,21 @@ SSM_CASES = (("prefill bf16", 4, 512, 8192, 16, "bfloat16", False),
 # The scan's shapes on the LM path and one sequence: (Bz, S) at D 8192,
 # N 16, bf16.
 SSM_SHAPES = (("prefill", 4, 512), ("decode", 4, 1), ("one sequence", 1, 512))
+# The scan's gradient against its plain version (autograd of the
+# reference's composition on the card): (what, Bz, S, D, N, dtype, h0,
+# the cotangent of h_last). Each leaf within a relative L2 error of
+# SSM_BWD_REL_L2 (the kernel sums the recurrence in another order; bf16
+# leaves round an f32 gradient that differs in its last bits), two calls
+# bit for bit.
+SSM_BWD_CASES = (("training layer bf16", 4, 512, 8192, 16, "bfloat16", False, False),
+                 ("training layer f32", 4, 512, 8192, 16, "float32", False, False),
+                 ("carried state and h_last read", 2, 256, 8192, 16, "float32", True, True),
+                 ("ragged D and S", 2, 37, 200, 16, "float32", True, True),
+                 ("ragged D 8200", 2, 33, 8200, 16, "bfloat16", True, False),
+                 ("N 32", 2, 300, 384, 32, "bfloat16", False, True),
+                 ("N 64", 2, 64, 1024, 64, "float32", True, True))
+SSM_BWD_REL_L2 = 1e-4
+SSM_BWD_LEAVES = ("dx", "ddt", "dB", "dC", "dA", "dD", "dh0")
 # The seed conv: the kernel bench's cifar10-conv1 shape (8 frames of
 # 32x32x3 SAME-padded to 36x36, K 5, N 32), the same at B=256, and an odd
 # frame: (B, H, W, C, N, K); and a frame whose ring of K + 1 rows exceeds a
@@ -1562,11 +1585,16 @@ def phase_5j(smi: str) -> dict:
     mods = (kconv, kpow2, kscan, klegacy)
     t_phase = time.perf_counter()
     kernel_scan, dispatch_plain = mssm.ssm_scan, kssm_ops.ssm_scan_ref
+    bwd_plain = kssm_ops.ssm_scan_bwd_ref
     plain_calls = [0]
 
     def counted_plain(*args, **kwargs):
         plain_calls[0] += 1
         return dispatch_plain(*args, **kwargs)
+
+    def counted_bwd_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return bwd_plain(*args, **kwargs)
 
     def plain_scan(x_, dt_, b_, c_, a_, d_skip_, h0_=None, **_):
         return ssm_scan_chunked_ref(x_, dt_, b_, c_, a_, d_skip_, h0_)
@@ -1576,6 +1604,7 @@ def phase_5j(smi: str) -> dict:
 
     arch = get_arch(LM_ARCH)
     kssm_ops.ssm_scan_ref = counted_plain
+    kssm_ops.ssm_scan_bwd_ref = counted_bwd_plain
     try:
         # (a) the fp32 gradient gate. The plain composition's loss and
         # gradients first (no kernel), then the counts are zeroed.
@@ -1596,8 +1625,10 @@ def phase_5j(smi: str) -> dict:
         t0 = time.perf_counter()
         loss, _, grads = lm_loss_and_grads(params, cfg32, batch)
         torch.cuda.synchronize()
-        check(kscan.LAUNCHES["ssm_scan"] == LM_TRAIN_GATE_LAYERS,
-              f"5j gate: ssm_scan launched {kscan.LAUNCHES['ssm_scan']} times")
+        check(kscan.LAUNCHES["ssm_scan"] == LM_TRAIN_GATE_LAYERS
+              and kscan.LAUNCHES["ssm_scan_bwd"] == LM_TRAIN_GATE_LAYERS,
+              f"5j gate: ssm_scan launched {kscan.LAUNCHES['ssm_scan']} times, ssm_scan_bwd "
+              f"{kscan.LAUNCHES['ssm_scan_bwd']}")
         check(abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss)),
               f"5j gate loss {float(loss)} against the plain composition's {float(want_loss)}")
         errs = []
@@ -1610,8 +1641,11 @@ def phase_5j(smi: str) -> dict:
         remat_loss, _, remat_grads = lm_loss_and_grads(
             params, dataclasses.replace(cfg32, remat="full"), batch)
         torch.cuda.synchronize()
-        check(kscan.LAUNCHES["ssm_scan"] == 3 * LM_TRAIN_GATE_LAYERS,
-              f"5j remat='full' launched ssm_scan {kscan.LAUNCHES['ssm_scan'] - 2} times")
+        check(kscan.LAUNCHES["ssm_scan"] == 3 * LM_TRAIN_GATE_LAYERS
+              and kscan.LAUNCHES["ssm_scan_bwd"] == 2 * LM_TRAIN_GATE_LAYERS,
+              f"5j remat='full' launched ssm_scan "
+              f"{kscan.LAUNCHES['ssm_scan'] - LM_TRAIN_GATE_LAYERS} times, ssm_scan_bwd "
+              f"{kscan.LAUNCHES['ssm_scan_bwd'] - LM_TRAIN_GATE_LAYERS}")
         check(torch.equal(remat_loss, loss) and all(torch.equal(a, b) for a, b in
                                                     zip(remat_grads, grads)),
               "5j remat='full' is not bit-equal to remat='none'")
@@ -1648,7 +1682,8 @@ def phase_5j(smi: str) -> dict:
               f"{float(loss):.6f} (plain composition {float(want_loss):.6f}), {len(errs)} gradient "
               f"leaves finite and nonzero, relative L2 against autograd of the plain composition "
               f"max {max(errs):.3e}, median {sorted(errs)[len(errs) // 2]:.3e} ({t_gate:.2f} s); "
-              f"remat='full' bit-equal, ssm_scan twice a layer; µbatches 2 against 1: "
+              f"the gradient through ssm_scan_bwd, once a layer; remat='full' bit-equal, "
+              f"ssm_scan twice a layer, ssm_scan_bwd once; µbatches 2 against 1: "
               f"gradients relative L2 max {mb_grad:.3e}, after make_train_step's AdamW step "
               f"the loss rtol {mb_loss:.2e}, {mb_off} of {n_el:,} parameters outside atol 1e-5, "
               f"max |delta| {mb_param:.3e} (learning rate 3e-4)")
@@ -1672,21 +1707,24 @@ def phase_5j(smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         step = make_train_step(cfg, opt_cfg=opt_cfg)
         losses, step_s = [], []
-        before = kscan.LAUNCHES["ssm_scan"]
+        before = dict(kscan.LAUNCHES)
         for _ in range(LM_TRAIN_STEPS):
             t0 = time.perf_counter()
             params, opt, metrics = step(params, opt, batch)
             losses.append(float(metrics["loss"]))
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
-        train_launches = kscan.LAUNCHES["ssm_scan"] - before
+        train_launches = kscan.LAUNCHES["ssm_scan"] - before["ssm_scan"]
+        bwd_launches = kscan.LAUNCHES["ssm_scan_bwd"] - before["ssm_scan_bwd"]
         peak = torch.cuda.max_memory_allocated() - base_mem - state_mem
         check(all(math.isfinite(x) for x in losses), f"5j bf16 losses {losses}")
         check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.5 and losses[-1] < losses[0],
               f"5j bf16 losses: first {losses[0]} (ln V {math.log(cfg.vocab_size):.3f}), "
               f"last {losses[-1]}")
-        check(train_launches == 2 * LM_TRAIN_LAYERS * LM_TRAIN_STEPS,
-              f"5j bf16 training launched ssm_scan {train_launches} times")
+        check(train_launches == 2 * LM_TRAIN_LAYERS * LM_TRAIN_STEPS
+              and bwd_launches == LM_TRAIN_LAYERS * LM_TRAIN_STEPS,
+              f"5j bf16 training launched ssm_scan {train_launches} times, ssm_scan_bwd "
+              f"{bwd_launches}")
         ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3
         n_tok = LM_TRAIN_BATCH * LM_TRAIN_LEN
         print(f"[5j] {LM_ARCH} bf16 training, {LM_TRAIN_LAYERS} of {arch.n_layers} layers at full "
@@ -1697,7 +1735,8 @@ def phase_5j(smi: str) -> dict:
               f"{math.log(cfg.vocab_size):.4f}) -> {losses[-1]:.4f}; {ms:.2f} ms a step (host "
               f"clock, synchronized, median of steps 2-{LM_TRAIN_STEPS}; the first "
               f"{step_s[0] * 1e3:.1f}), {n_tok / ms * 1e3:.0f} tokens/s; ssm_scan "
-              f"{train_launches} launches (2 a layer a step: the forward and remat's recompute); "
+              f"{train_launches} launches (2 a layer a step: the forward and remat's recompute), "
+              f"ssm_scan_bwd {bwd_launches} (1 a layer a step); "
               f"a step's peak allocated {peak / 1e9:.2f} GB above the weights and optimizer "
               f"state ({smi})")
 
@@ -1811,16 +1850,19 @@ def phase_5j(smi: str) -> dict:
     finally:
         mssm.ssm_scan = kernel_scan
         kssm_ops.ssm_scan_ref = dispatch_plain
-    # (e) the window's launches: the scan kernel ran, the plain scan never.
+        kssm_ops.ssm_scan_bwd_ref = bwd_plain
+    # (e) the window's launches: the scan's kernels ran, their plain
+    # versions never.
     window = launches()
-    check(window["ssm_scan"] > 0, f"phase 5j launches: {window}")
-    check(plain_calls[0] == 0, f"phase 5j called the plain scan {plain_calls[0]} times")
+    check(window["ssm_scan"] > 0 and window["ssm_scan_bwd"] > 0, f"phase 5j launches: {window}")
+    check(plain_calls[0] == 0,
+          f"phase 5j called the plain scan or its gradient {plain_calls[0]} times")
     elapsed = time.perf_counter() - t_phase
     check(elapsed < PHASE_5J_LIMIT_S, f"phase 5j took {elapsed:.1f} s")
     print(f"[5j] LM training: examples at their default sizes "
           + ", ".join(f"{f} {t:.2f} s" for f, t in ex_s.items())
-          + f"; launches { {k: v for k, v in window.items() if v} }; the plain scan called 0 "
-          f"times; phase {elapsed:.1f} s ({smi})")
+          + f"; launches { {k: v for k, v in window.items() if v} }; the plain scan and its "
+          f"gradient called 0 times; phase {elapsed:.1f} s ({smi})")
     return window
 
 
@@ -1844,8 +1886,9 @@ def lm_train_lockstep(tag, jitted, eager, init, batches, moe=False) -> dict:
     step as a 0-d int32 tensor on the card: every leaf of the params, the
     optimizer state (step, m, v, master) and the metrics bit for bit (MoE:
     within ``MOE_GRAPH_REL_L2`` relative L2). Without donation the trees
-    handed to the first call are held unchanged. Returns the scan
-    launches of each jitted call, ``memory_allocated`` before each jitted
+    handed to the first call are held unchanged. Returns the scan's and
+    its gradient's launches of each jitted call, ``memory_allocated``
+    before each jitted
     call (after a collection) and what the call added to it (a replay
     adds nothing: its outputs replace the last call's), the state's
     bytes, the eager step's peak above it, the peak
@@ -1891,18 +1934,19 @@ def lm_train_lockstep(tag, jitted, eager, init, batches, moe=False) -> dict:
     kept = [t.clone() for t in given]
     pg, og, pe, oe = p0, o0, p0, o0
     del p0, o0
-    scans, mem, grew, g_ms, e_ms = [], [], [], [], []
+    scans, bwds, mem, grew, g_ms, e_ms = [], [], [], [], [], []
     for s, batch in enumerate(batches):
         gc.collect()  # the eager step's cyclic garbage, freed at no fixed time
         torch.cuda.synchronize()
         mem.append(torch.cuda.memory_allocated())
-        before = kscan.LAUNCHES["ssm_scan"]
+        before = dict(kscan.LAUNCHES)
         t0 = time.perf_counter()
         pg, og, mg = jitted(pg, og, batch, s)
         torch.cuda.synchronize()
         g_ms.append((time.perf_counter() - t0) * 1e3)
         grew.append(torch.cuda.memory_allocated() - mem[-1])
-        scans.append(kscan.LAUNCHES["ssm_scan"] - before)
+        scans.append(kscan.LAUNCHES["ssm_scan"] - before["ssm_scan"])
+        bwds.append(kscan.LAUNCHES["ssm_scan_bwd"] - before["ssm_scan_bwd"])
         t0 = time.perf_counter()
         pe, oe, me = eager(pe, oe, batch, steps[s])
         torch.cuda.synchronize()
@@ -1918,7 +1962,7 @@ def lm_train_lockstep(tag, jitted, eager, init, batches, moe=False) -> dict:
     check(all(torch.equal(a, b) for a, b in zip(given, kept)),
           f"5o {tag}: the graph wrote the trees handed to its first call")
     del given, kept
-    out = dict(scans=scans, mem=mem, grew=grew, state=state_b, eager_peak=eager_peak,
+    out = dict(scans=scans, bwds=bwds, mem=mem, grew=grew, state=state_b, eager_peak=eager_peak,
                peak=torch.cuda.max_memory_allocated() - base,
                reserved=torch.cuda.max_memory_reserved() - base_reserved,
                worst=worst, eager_worst=eager_worst, n_leaves=len(tree_leaves((pg, og))),
@@ -2008,25 +2052,26 @@ def lm_train_in_turn(tag, jitted, eager, init, batches) -> dict:
     torch.cuda.reset_peak_memory_stats()
     pg, og = init()
     check(torch.equal(bit_digest((pg, og)), d_init), f"5o {tag}: two seeded inits differ")
-    scans, mem, grew, g_ms = [], [], [], []
+    scans, bwds, mem, grew, g_ms = [], [], [], [], []
     for s, batch in enumerate(batches):
         gc.collect()
         torch.cuda.synchronize()
         mem.append(torch.cuda.memory_allocated())
-        before = kscan.LAUNCHES["ssm_scan"]
+        before = dict(kscan.LAUNCHES)
         t0 = time.perf_counter()
         pg, og, mg = jitted(pg, og, batch, s)
         torch.cuda.synchronize()
         g_ms.append((time.perf_counter() - t0) * 1e3)
         grew.append(torch.cuda.memory_allocated() - mem[-1])
-        scans.append(kscan.LAUNCHES["ssm_scan"] - before)
+        scans.append(kscan.LAUNCHES["ssm_scan"] - before["ssm_scan"])
+        bwds.append(kscan.LAUNCHES["ssm_scan_bwd"] - before["ssm_scan_bwd"])
         got = bit_digest((pg, og, mg))
         check(got.shape == want[s].shape,
               f"5o {tag} step {s}: {got.shape[0]} leaves against {want[s].shape[0]}")
         bad = torch.nonzero((got != want[s]).any(-1)).flatten().tolist()
         check(not bad, f"5o {tag} step {s}: leaves {bad[:8]} of {got.shape[0]} differ from "
                        f"the eager step's (their bit checksums)")
-    out.update(scans=scans, mem=mem, grew=grew, g_ms=g_ms,
+    out.update(scans=scans, bwds=bwds, mem=mem, grew=grew, g_ms=g_ms,
                peak=torch.cuda.max_memory_allocated() - base,
                n_leaves=len(tree_leaves((pg, og))))
     return out
@@ -2068,14 +2113,18 @@ def phase_5o(smi: str) -> dict:
     gen = torch.Generator().manual_seed(SEED + 10)
     mods = (kconv, kpow2, kscan, klegacy)
     t_phase = time.perf_counter()
-    dispatch_plain = kssm_ops.ssm_scan_ref
+    dispatch_plain, bwd_plain = kssm_ops.ssm_scan_ref, kssm_ops.ssm_scan_bwd_ref
     plain_calls = [0]
 
     def counted_plain(*args, **kwargs):
         plain_calls[0] += 1
         return dispatch_plain(*args, **kwargs)
 
-    def graph_checks(tag, jitted, res, n_steps, scans_per_step, staged):
+    def counted_bwd_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return bwd_plain(*args, **kwargs)
+
+    def graph_checks(tag, jitted, res, n_steps, scans_per_step, bwds_per_step, staged):
         check(jitted._cache_size() == 1 and jitted.captures == 1
               and jitted.replays == n_steps - 1,
               f"5o {tag}: {jitted._cache_size()} keys, {jitted.captures} captures, "
@@ -2083,6 +2132,9 @@ def phase_5o(smi: str) -> dict:
         check(res["scans"] == [scans_per_step] * n_steps,
               f"5o {tag}: ssm_scan counted {res['scans']} at the jitted calls (eager counts "
               f"{scans_per_step} a step)")
+        check(res["bwds"] == [bwds_per_step] * n_steps,
+              f"5o {tag}: ssm_scan_bwd counted {res['bwds']} at the jitted calls (eager counts "
+              f"{bwds_per_step} a step)")
         check(jitted.staged == staged, f"5o {tag}: {jitted.staged} leaves staged, not {staged}")
         check(not any(res["grew"][1:]),
               f"5o {tag}: memory_allocated added by each jitted call {res['grew']}")
@@ -2096,6 +2148,7 @@ def phase_5o(smi: str) -> dict:
     for m in mods:
         m.reset_launch_counts()
     kssm_ops.ssm_scan_ref = counted_plain
+    kssm_ops.ssm_scan_bwd_ref = counted_bwd_plain
     try:
         # (a) falcon-mamba-7b at full width, 5j (b)'s configuration, through
         # jit_train_step (donated; the returned trees handed back).
@@ -2123,7 +2176,8 @@ def phase_5o(smi: str) -> dict:
               f"{2 * (state_est + peak_est) / 1e9:.2f} GB")
         start_mem = torch.cuda.memory_allocated()
         res = lm_train_lockstep("(a)", jitted, lambda p, o, b, s: train(p, o, b), init_a, batches)
-        graph_checks("(a)", jitted, res, GRAPH_LM_STEPS, 2 * LM_TRAIN_LAYERS, res["n_leaves"])
+        graph_checks("(a)", jitted, res, GRAPH_LM_STEPS, 2 * LM_TRAIN_LAYERS, LM_TRAIN_LAYERS,
+                     res["n_leaves"])
         pe, oe, pg, og = res.pop("final")
         check(pg is jitted._graphs[next(iter(jitted._graphs))].params,
               "5o (a): the donated step did not return its static params")
@@ -2144,8 +2198,9 @@ def phase_5o(smi: str) -> dict:
               f"make_train_step steps on {GRAPH_LM_STEPS} batches ({res['n_leaves']} leaves of "
               f"params, master, m, v and step; loss, ce, aux, grad norm); one capture, "
               f"{replays} replays; ssm_scan counted {res['scans'][0]} at every jitted call "
-              f"(2 a layer: the forward and remat's recompute on autograd's thread), as eager "
-              f"counts it; {res['n_leaves']} leaves staged at the first call, none after; "
+              f"(2 a layer: the forward and remat's recompute on autograd's thread) and "
+              f"ssm_scan_bwd {res['bwds'][0]} (1 a layer), as eager counts them; "
+              f"{res['n_leaves']} leaves staged at the first call, none after; "
               f"memory_allocated unchanged across every replay ({min(res['mem'][1:])}-"
               f"{max(res['mem'][1:])} B before them, the eager side's garbage apart); (d) an "
               f"eager step and a "
@@ -2179,7 +2234,7 @@ def phase_5o(smi: str) -> dict:
             return params, adamw_init(params, opt_cfg)
 
         res = lm_train_lockstep("(b)", jitted, eager, init_b, batches)
-        graph_checks("(b)", jitted, res, GRAPH_100M_STEPS, 0, GRAPH_100M_STEPS * res["n_leaves"])
+        graph_checks("(b)", jitted, res, GRAPH_100M_STEPS, 0, 0, GRAPH_100M_STEPS * res["n_leaves"])
         pe = res.pop("final")[0]
         print(f"[5o] (b) train_lm.py --preset {GRAPH_100M_PRESET} at full width "
               f"({param_count(cfg):,} params, {cfg.n_layers} layers, d {cfg.d_model}, vocab "
@@ -2268,7 +2323,7 @@ def phase_5o(smi: str) -> dict:
                     del jitted, train, toks, res
                     gc_collect_and_empty()
                     continue
-            graph_checks(f"(c) {name}", jitted, res, GRAPH_FAM_STEPS, 0, res["n_leaves"])
+            graph_checks(f"(c) {name}", jitted, res, GRAPH_FAM_STEPS, 0, 0, res["n_leaves"])
             how = (f"within relative L2 {res['worst']:.3e} (gate {MOE_GRAPH_REL_L2}; two eager "
                    f"steps {res['eager_worst']:.3e})" if moe else "bit for bit")
             print(f"[5o] (c) {name}, {width}, B={FAM_TRAIN_BATCH}, S={FAM_TRAIN_LEN}"
@@ -2281,13 +2336,15 @@ def phase_5o(smi: str) -> dict:
             gc_collect_and_empty()
     finally:
         kssm_ops.ssm_scan_ref = dispatch_plain
+        kssm_ops.ssm_scan_bwd_ref = bwd_plain
     window = {k: v for m in mods for k, v in m.LAUNCHES.items()}
-    check(window["ssm_scan"] > 0, f"phase 5o launches: {window}")
-    check(plain_calls[0] == 0, f"phase 5o called the plain scan {plain_calls[0]} times")
+    check(window["ssm_scan"] > 0 and window["ssm_scan_bwd"] > 0, f"phase 5o launches: {window}")
+    check(plain_calls[0] == 0,
+          f"phase 5o called the plain scan or its gradient {plain_calls[0]} times")
     elapsed = time.perf_counter() - t_phase
     check(elapsed < PHASE_5O_LIMIT_S, f"phase 5o took {elapsed:.1f} s")
     print(f"[5o] LM train graphs: launches { {k: v for k, v in window.items() if v} }; the plain "
-          f"scan called 0 times; phase {elapsed:.1f} s ({smi})")
+          f"scan and its gradient called 0 times; phase {elapsed:.1f} s ({smi})")
     return window
 
 
@@ -2363,7 +2420,7 @@ def time_lm_train_graphs(smi: str) -> None:
                 state[0], state[1] = out[0], out[1]
             return out
 
-        rows = {}
+        rows, kernel_ms = {}, {}
         for how, fn in (("eager", eager_call), ("graph", graph_call)):
             gc_collect_and_empty()
             fn()  # the builds; the graph's warm-up and capture
@@ -2382,6 +2439,7 @@ def time_lm_train_graphs(smi: str) -> None:
             events = start.elapsed_time(end) / GRAPH_LM_TIMED
             busy, by_kernel = device_busy_ms(fn, GRAPH_LM_PROFILED)
             rows[how] = (host, events, None if EVENTS_ROW in by_kernel else busy)
+            kernel_ms[how] = by_kernel
         check(jitted.captures == 1, f"5o (f) {what}: {jitted.captures} captures")
 
         def row(how):
@@ -2393,6 +2451,13 @@ def time_lm_train_graphs(smi: str) -> None:
 
         print(f"[6] 5o (f) {what} ({smi}): {row('eager')}; {row('graph')}; means of "
               f"{GRAPH_LM_TIMED} steps after one, the profiler over {GRAPH_LM_PROFILED}")
+        if not any(EVENTS_ROW in k for k in kernel_ms.values()):
+            # Where the graph's kernels spend more (or less) than eager's.
+            diff = {k: kernel_ms["graph"].get(k, 0.0) - kernel_ms["eager"].get(k, 0.0)
+                    for k in set(kernel_ms["graph"]) | set(kernel_ms["eager"])}
+            print(f"[6] 5o (f) {what}: graph minus eager device ms by kernel, largest first: "
+                  + "; ".join(f"{v:+.3f} {k[:70]}" for k, v in
+                              sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:5]))
         del eager, jitted, state, batch
     gc_collect_and_empty()
 
@@ -2455,14 +2520,20 @@ def phase_5k(smi: str) -> dict:
     # the recorder.
     mesh = make_production_mesh(device="cpu")
     dispatch_plain, plain_calls = kssm_ops.ssm_scan_ref, [0]
+    bwd_plain = kssm_ops.ssm_scan_bwd_ref
 
     def counted_plain(*args, **kwargs):
         plain_calls[0] += 1
         return dispatch_plain(*args, **kwargs)
 
+    def counted_bwd_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return bwd_plain(*args, **kwargs)
+
     for m in mods:
         m.reset_launch_counts()
     kssm_ops.ssm_scan_ref = counted_plain
+    kssm_ops.ssm_scan_bwd_ref = counted_bwd_plain
     try:
         for arch, layers, b, s, kind in DRY_CUDA_CELLS:
             cfg = get_arch(arch)
@@ -2482,11 +2553,12 @@ def phase_5k(smi: str) -> dict:
                   f"5k {arch}: arguments {arg_bytes} B on the card, {dryrun.tree_bytes(meta_args)} "
                   f"B on meta")
             torch.cuda.reset_peak_memory_stats()
-            before = kscan.LAUNCHES["ssm_scan"]
+            before = dict(kscan.LAUNCHES)
             out, rec, counter = record(step, *args, device=dev)
             torch.cuda.synchronize()
             measured = torch.cuda.max_memory_allocated() - base
-            launched = kscan.LAUNCHES["ssm_scan"] - before
+            launched = kscan.LAUNCHES["ssm_scan"] - before["ssm_scan"]
+            bwd_launched = kscan.LAUNCHES["ssm_scan_bwd"] - before["ssm_scan_bwd"]
             del out
             got = analyze_hlo(rec.instrs)
             check(got.flops == want.flops and counter == tr.counter_flops,
@@ -2500,7 +2572,9 @@ def phase_5k(smi: str) -> dict:
             check(abs(off) <= DRY_PEAK_RTOL,
                   f"5k {arch} {kind}: predicted peak {predicted} B, the allocator's {measured} B")
             if arch == "falcon-mamba-7b":
-                check(launched == 2 * cfg.n_layers, f"5k {arch}: ssm_scan launched {launched} times")
+                check(launched == 2 * cfg.n_layers and bwd_launched == cfg.n_layers,
+                      f"5k {arch}: ssm_scan launched {launched} times, ssm_scan_bwd "
+                      f"{bwd_launched}")
             gc.collect()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2516,7 +2590,8 @@ def phase_5k(smi: str) -> dict:
                   f"predicted {predicted / 1e9:.3f} GB (arguments {arg_bytes / 1e9:.3f} + live "
                   f"{tr.peak_live_bytes / 1e9:.3f}; the card's log {rec.peak_live_bytes / 1e9:.3f}), "
                   f"max_memory_allocated {measured / 1e9:.3f} GB ({off * 100:+.2f} %); "
-                  f"ssm_scan launched {launched} times; the step without the recorder "
+                  f"ssm_scan launched {launched} times, ssm_scan_bwd {bwd_launched}; the step "
+                  f"without the recorder "
                   f"{step_s * 1e3:.2f} ms (host clock, synchronized): {rate / 1e12:.2f} TFLOP/s, "
                   f"{rate / PEAK_BF16_FLOPS * 100:.2f} % of the dense bf16 peak "
                   f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {got.hbm_bytes / step_s / 1e12:.3f} TB/s of "
@@ -2529,13 +2604,15 @@ def phase_5k(smi: str) -> dict:
             torch.cuda.empty_cache()
     finally:
         kssm_ops.ssm_scan_ref = dispatch_plain
+        kssm_ops.ssm_scan_bwd_ref = bwd_plain
     window = {k: v for m in mods for k, v in m.LAUNCHES.items()}
-    check(window["ssm_scan"] > 0, f"phase 5k launches: {window}")
-    check(plain_calls[0] == 0, f"phase 5k called the plain scan {plain_calls[0]} times")
+    check(window["ssm_scan"] > 0 and window["ssm_scan_bwd"] > 0, f"phase 5k launches: {window}")
+    check(plain_calls[0] == 0,
+          f"phase 5k called the plain scan or its gradient {plain_calls[0]} times")
     elapsed = time.perf_counter() - t_phase
     check(elapsed < PHASE_5K_LIMIT_S, f"phase 5k took {elapsed:.1f} s")
     print(f"[5k] dry run: launches { {k: v for k, v in window.items() if v} }; the plain scan "
-          f"called 0 times; phase {elapsed:.1f} s ({smi})")
+          f"and its gradient called 0 times; phase {elapsed:.1f} s ({smi})")
     return window
 
 
@@ -2746,22 +2823,36 @@ def phase_5l(smi: str, topo, cparams, x, xq, frames, quants) -> dict:
     return launches
 
 
+def ssm_bwd_bound(bz, s, d, n, elem) -> tuple:
+    """The least time the card could take for the scan's gradient at
+    (Bz, S, D, N) with x, B and C of ``elem`` bytes (no h0, h_last unread,
+    as in training): the largest of its bytes (x, dt, g_y, dx, ddt per
+    element; B, C, dB, dC per step; A, dA, D_skip, dD) over the memory
+    rate, one exponential a state and step (exp(dt A), which both the
+    states and the adjoint need) over the SFU rate, and 20 FLOPs a state
+    and step (the state's update 4, the reverse step 16) over the fp32
+    peak. Returns (ms, what binds it, (bytes, exp, FLOPs) ms)."""
+    nbytes = (bz * s * d * (2 * elem + 3 * 4) + 4 * bz * s * n * elem + 2 * d * n * 4
+              + 2 * d * 4)
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_exp = bz * s * d * n / (SFU_PER_CLOCK_PER_SM * N_SMS * BOOST_CLOCK_HZ)
+    t_ops = 20 * bz * s * d * n / PEAK_FP32_FLOPS
+    by = "bytes" if t_bytes >= max(t_exp, t_ops) else "operations"
+    return max(t_bytes, t_exp, t_ops) * 1e3, by, (t_bytes * 1e3, t_exp * 1e3, t_ops * 1e3)
+
+
 def time_lm_training(smi: str) -> None:
     """Phase 6's LM training rows: where a step of phase 5j's bf16 training
     (falcon-mamba-7b, LM_TRAIN_LAYERS layers, B x S) spends the card's
-    time, and the scan's forward against its recomputed backward at that
-    shape with the backward's peak memory. The heaviest profiles come
-    last: after one, the profiler has dropped records of later sessions."""
+    time. The heaviest profiles come last: after one, the profiler has
+    dropped records of later sessions."""
     import dataclasses
-    import math
 
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.data import TokenStreamConfig, synthetic_token_batches
-    from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.launch.steps import VOCAB_CHUNK, make_train_step
-    from repro_torch.models import ssm as mssm
     from repro_torch.models import transformer as T
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, clip_by_global_norm
     from repro_torch.tree_util import tree_flatten
@@ -2779,52 +2870,6 @@ def time_lm_training(smi: str) -> None:
     for _ in range(2):
         params, opt, _ = step(params, opt, batch)
     torch.cuda.synchronize()
-
-    # The scan alone at the training shape: its inputs captured from one
-    # forward; the forward kernel against the recomputed backward.
-    captured = []
-    kernel_scan = mssm.ssm_scan
-
-    def capture(*args, **kwargs):
-        if not captured:
-            captured.append(tuple(None if a is None else a.detach() for a in args))
-        return kernel_scan(*args, **kwargs)
-
-    mssm.ssm_scan = capture
-    try:
-        with torch.no_grad():
-            T.train_loss(params, cfg, batch, vocab_chunk=VOCAB_CHUNK)
-    finally:
-        mssm.ssm_scan = kernel_scan
-    s_in = captured[0]
-    g_y = torch.randn(tuple(s_in[0].shape), generator=torch.Generator().manual_seed(SEED)).to(dev)
-
-    def scan_fwd_only():
-        with torch.no_grad():
-            return ssm_scan(*s_in)
-
-    def scan_fwd_bwd():
-        leaves = [t.detach().requires_grad_() for t in s_in[:6]]
-        y, _ = ssm_scan(*leaves)
-        return torch.autograd.grad(y, leaves, g_y)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before_bwd = torch.cuda.memory_allocated()
-    scan_fwd_bwd()
-    torch.cuda.synchronize()
-    bwd_peak = torch.cuda.max_memory_allocated() - before_bwd
-    s_fwd, f_rows = device_busy_ms(scan_fwd_only, LM_TRAIN_PROFILED)
-    s_fb, s_rows = device_busy_ms(scan_fwd_bwd, LM_TRAIN_PROFILED)
-    shape = tuple(s_in[0].shape) + (s_in[2].shape[-1],)
-    print(f"[6] the scan at 5j's training shape (Bz, S, D, N) = {shape}, x {s_in[0].dtype} "
-          f"({smi}, {'CUDA events' if EVENTS_ROW in f_rows else 'profiler'}): forward (the "
-          f"kernel) {s_fwd:.4f} ms device; forward and recomputed backward (the reference's "
-          f"composition under autograd, {len(s_rows)} kernel names) {s_fb:.4f} ms, the "
-          f"backward {s_fb - s_fwd:.4f} ms ({(s_fb - s_fwd) / s_fwd:.0f}x the forward); the "
-          f"backward's peak {bwd_peak / 1e9:.2f} GB above its inputs (a (Bz, S, D, N) f32 "
-          f"tensor is {math.prod(shape) * 4 / 1e9:.2f} GB)")
-    del captured, s_in, g_y
 
     # A step's parts on CUDA events (the device's span of each), then on
     # the profiler: the forward, the forward and backward, the whole step.
@@ -2991,6 +3036,7 @@ def main() -> None:
     from repro_torch.kernels.ssm_scan import ops as kssm_ops
     from repro_torch.kernels.ssm_scan import scan as kscan
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
     from repro_torch.kernels.stream_conv import conv as kconv
     from repro_torch.kernels.stream_conv import ops as kconv_ops
     from repro_torch.kernels.stream_conv import legacy as klegacy
@@ -3032,7 +3078,8 @@ def main() -> None:
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _nvcc.build(["stream_conv", "pow2_matmul", "ssm_scan", "stream_conv_seed"])
+    logs = _nvcc.build(["stream_conv", "pow2_matmul", "ssm_scan", "ssm_scan_bwd",
+                        "stream_conv_seed"])
     print(f"[2] nvcc build: {time.perf_counter() - t0:.1f} s"
           + ("" if logs else " (library already built in this checkout)"))
     for name, log in logs.items():
@@ -3041,6 +3088,7 @@ def main() -> None:
     kconv._library()  # loads them and checks the descriptor layouts
     kpow2._library()
     kscan._library()
+    kscan._bwd_library()
     klegacy._library()
 
     gen = torch.Generator().manual_seed(SEED)
@@ -3220,6 +3268,32 @@ def main() -> None:
         errs["ssm_scan"] = max(errs["ssm_scan"], err)
         print(f"[3c] ssm_scan {what} (Bz {bz}, S {s}, D {d}, N {n}, {dtype}, "
               f"h0 {'carried' if with_h0 else 'zero'}): max |delta| {err:.3e}")
+    errs["ssm_scan_bwd"] = 0.0
+    for what, bz, s, d, n, dtype, with_h0, with_gh in SSM_BWD_CASES:
+        args = (*ssm_inputs(bz, s, d, n, dtype, with_h0), randn(bz, s, d),
+                randn(bz, d, n) if with_gh else None)
+        got = kscan.ssm_scan_bwd_cuda(*args)
+        again = kscan.ssm_scan_bwd_cuda(*args)
+        want = ssm_scan_bwd_ref(*args)
+        torch.cuda.synchronize()
+        rels = {}
+        for name_, g_, a_, w_ in zip(SSM_BWD_LEAVES, got, again, want):
+            if w_ is None:
+                check(g_ is None, f"ssm_scan_bwd {what}: {name_} without h0")
+                continue
+            rels[name_] = rel_l2(g_.float(), w_.float())
+            check(g_.dtype == w_.dtype and g_.shape == w_.shape
+                  and bool(torch.isfinite(g_).all()) and rels[name_] <= SSM_BWD_REL_L2,
+                  f"ssm_scan_bwd {what} {name_}: {g_.dtype} {tuple(g_.shape)} against "
+                  f"{w_.dtype} {tuple(w_.shape)}, relative L2 {rels[name_]:.3e}")
+            check(torch.equal(g_, a_), f"ssm_scan_bwd {what} {name_}: two calls differ")
+            errs["ssm_scan_bwd"] = max(errs["ssm_scan_bwd"],
+                                       float((g_.float() - w_.float()).abs().max()))
+        print(f"[3c] ssm_scan_bwd {what} (Bz {bz}, S {s}, D {d}, N {n}, {dtype}, h0 "
+              f"{'carried' if with_h0 else 'zero'}, h_last {'read' if with_gh else 'unread'}): "
+              "relative L2 " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+              + "; two calls bit for bit")
+        del got, again, want, args
     for b_, h_, w_, c_, n_, k_ in SEED_SHAPES:
         xs, wt = randn(b_, h_, w_, c_), randn(k_, k_, c_, n_) * 0.2
         out = stream_conv2d_seed(xs, wt.reshape(k_ * k_, c_, n_), k=k_)
@@ -4521,6 +4595,41 @@ def main() -> None:
         bound_ms_one_sequence=ssm_times["one sequence"]["bound"],
         lanes={k: v["lanes"] for k, v in ssm_times.items()},
     ))
+    # The scan's gradient at 5j's training layer (bf16, h0 zero, h_last
+    # unread, as a step calls it): the call (the backward kernel and its
+    # reduction) on the profiler's clock and on CUDA events, the plain
+    # backward (autograd of the reference's composition), the bound, and
+    # the peak memory of each.
+    bz_, s_ = LM_TRAIN_BATCH, LM_TRAIN_LEN
+    args_ = (*ssm_inputs(bz_, s_, di_lm, n_lm, "bfloat16", False), randn(bz_, s_, di_lm), None)
+    peaks = {}
+    for what, fn in (("kernel", kscan.ssm_scan_bwd_cuda), ("plain", ssm_scan_bwd_ref)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fn(*args_)
+        torch.cuda.synchronize()
+        peaks[what] = (torch.cuda.max_memory_allocated() - before) / 1e9
+    t_k = time_ms(lambda: kscan.ssm_scan_bwd_cuda(*args_), iters=20)
+    d_k = device_ms(lambda: kscan.ssm_scan_bwd_cuda(*args_))
+    t_p = time_ms(lambda: ssm_scan_bwd_ref(*args_), iters=3, warmup=1)
+    b_ms, b_by, terms = ssm_bwd_bound(bz_, s_, di_lm, n_lm, 2)
+    plan_b = kscan.scan_bwd_plan(bz_, s_, di_lm, n_lm, n_sms=n_sms)
+    print(f"[6] ssm_scan_bwd (Bz {bz_}, S {s_}, D {di_lm}, N {n_lm}, bf16, g_y): {d_k:.5f} ms device "
+          f"(the kernel and its reduction), {t_k:.4f} ms (CUDA events), plain {t_p:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}; bytes {terms[0]:.5f}, one expf a state and step "
+          f"{terms[1]:.5f}, FLOPs {terms[2]:.5f} ms), {d_k / b_ms:.2f}x the bound, no library "
+          f"call; the forward kernel {ssm_times['prefill']['dev']:.5f} ms device; peak "
+          f"{peaks['kernel']:.3f} GB above its inputs (the gradients and a "
+          f"{plan_b['workspace'] * 4 / 1e9:.3f} GB workspace), the plain {peaks['plain']:.3f} "
+          f"GB; plan { {k: plan_b[k] for k in ('lanes', 'npl', 'chunk', 'dc', 'per_sm', 'nblk')} }")
+    kernels.append(dict(
+        name="ssm_scan_bwd", route="cuda", source="src/repro_torch/csrc/ssm_scan_bwd.cu",
+        replaces="src/repro/models/ssm.py:113",
+        launches=lm_train_launches["ssm_scan_bwd"], max_abs_err=errs["ssm_scan_bwd"],
+        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=d_k,
+    ))
+    del args_
 
     # The LM end to end at bf16, full depth: prefill and one decode step.
     # The decode step's bound is reading every weight once.
@@ -4913,10 +5022,10 @@ def main() -> None:
                   + f"phase 5's burst ({n_frames} frames), two runs: "
                   + ", ".join(f"{b:.0f} frames/s busy, {w:.0f} wall" for b, w in served[mode]))
 
-    # 5j's LM training step and the scan's recomputed backward, then 5o
-    # (f)'s LM train steps eager against their graphs, last: the heaviest
-    # profiles of the script. The bf16 falcon-mamba serving state is freed
-    # first: nothing after reads it.
+    # 5j's LM training step and the scan's backward kernel against the
+    # plain backward, then 5o (f)'s LM train steps eager against their
+    # graphs, last: the heaviest profiles of the script. The bf16
+    # falcon-mamba serving state is freed first: nothing after reads it.
     del params16, lm_cache, lm_logits, dec_args, tok, prompts
     gc_collect_and_empty()
     time_lm_training(smi)

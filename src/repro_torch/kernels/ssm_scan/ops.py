@@ -14,11 +14,17 @@ accepted; any other device raises. There is no fallback between paths.
 
 A call that autograd must see through (grad mode on, and an input
 requiring grad) goes through :class:`_ScanGrad`: its forward is the same
-dispatch, so the loss comes from the kernel's output; its backward
-recomputes the reference's training math (``ref.ssm_scan_chunked_ref``)
-from the saved inputs and differentiates it, the counterpart of XLA's
-autodiff of the reference's ``mamba_apply`` (the JAX package has no
-backward kernel). Every other call, inference included, is the bare
+dispatch, so the loss comes from the kernel's output; its backward is a
+second registered op, ``repro_torch::ssm_scan_bwd``, the counterpart of
+XLA's autodiff of the reference's ``mamba_apply`` (the JAX package has
+no backward kernel): on the card the hand-written reverse-time kernel
+(``scan.ssm_scan_bwd_cuda``), on the CPU the plain version, the
+vector-Jacobian product of the reference's training math
+(``ref.ssm_scan_bwd_ref`` of ``ref.ssm_scan_chunked_ref``). It is one
+node of an op log too, charged 2 Bz S D N FLOPs: the states' contraction
+with g_y into dC, what the reference's HLO analysis counts for its
+autodiff (the forward's einsum and dC's; the outer product g_y x C is a
+broadcast there). Every other call, inference included, is the bare
 dispatch.
 """
 from typing import Optional
@@ -26,10 +32,8 @@ from typing import Optional
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels.backends import backward_numerics
-from repro_torch.kernels.ssm_scan import ref as _ref
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
-from repro_torch.kernels.ssm_scan.scan import ssm_scan_cuda
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+from repro_torch.kernels.ssm_scan.scan import ssm_scan_bwd_cuda, ssm_scan_cuda
 
 
 @torch.library.custom_op("repro_torch::ssm_scan", mutates_args=(), device_types="cpu")
@@ -61,18 +65,76 @@ def scan_flops(x_shape, dt_shape, b_shape, *args, **kwargs) -> int:
     return 2 * bz * s * di * b_shape[-1]
 
 
+@torch.library.custom_op("repro_torch::ssm_scan_bwd", mutates_args=(), device_types="cpu")
+def scan_bwd_op(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                a: torch.Tensor, d_skip: torch.Tensor, h0: Optional[torch.Tensor],
+                g_y: Optional[torch.Tensor], g_h: Optional[torch.Tensor]
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor]:
+    """The scan's gradient as one op, given the cotangents of y and
+    h_last (either None): (dx, ddt, dB, dC, dA, dD_skip, dh0), contiguous,
+    dx, dB and dC in x's dtype, dh0 empty where ``h0`` is None. On the
+    CPU the plain version (this module's ``ssm_scan_bwd_ref``, looked up
+    at each call, so a test may count its calls), under
+    :func:`_autograd_below_the_op`."""
+    with _autograd_below_the_op():
+        grads = ssm_scan_bwd_ref(x, dt, b, c, a, d_skip, h0, g_y, g_h)
+    return tuple(_no_dh0(x) if g is None else g.contiguous() for g in grads)
+
+
+_AUTOGRAD_KEYS = (torch._C.DispatchKey.AutogradFunctionality, torch._C.DispatchKey.AutogradOther,
+                  torch._C.DispatchKey.AutogradNestedTensor, torch._C.DispatchKey.ADInplaceOrView)
+
+
+def _autograd_below_the_op():
+    """The dispatcher runs an op's implementation with autograd's keys
+    excluded, so the plain version's ``torch.autograd.grad`` would find
+    no graph: this guard takes them out of the thread's excluded set for
+    the call and leaves the rest (a dispatch mode that is handling the op,
+    such as the dry run's recorder, still does not see the ops inside,
+    as it does not see the forward op's)."""
+    excluded = torch._C._dispatch_tls_local_exclude_set()
+    for key in _AUTOGRAD_KEYS:
+        excluded = excluded.remove(key)
+    return torch._C._ForceDispatchKeyGuard(torch._C._dispatch_tls_local_include_set(), excluded)
+
+
+def _no_dh0(x):
+    return x.new_empty((0,), dtype=torch.float32)
+
+
+@scan_bwd_op.register_kernel("cuda")
+def _scan_bwd_cuda(x, dt, b, c, a, d_skip, h0, g_y, g_h):
+    grads = ssm_scan_bwd_cuda(x, dt, b, c, a, d_skip, h0, g_y, g_h)
+    return (*grads[:6], _no_dh0(x) if h0 is None else grads[6])
+
+
+@scan_bwd_op.register_fake
+def _scan_bwd_fake(x, dt, b, c, a, d_skip, h0, g_y, g_h):
+    f32 = torch.float32
+    return (x.new_empty(x.shape), x.new_empty(dt.shape, dtype=f32), x.new_empty(b.shape),
+            x.new_empty(c.shape), x.new_empty(a.shape, dtype=f32),
+            x.new_empty(d_skip.shape, dtype=f32),
+            _no_dh0(x) if h0 is None else x.new_empty(h0.shape, dtype=f32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan_bwd)
+def scan_bwd_flops(x_shape, dt_shape, b_shape, *args, **kwargs) -> int:
+    """2 Bz S D N: the states' contraction with g_y into dC."""
+    bz, s, di = x_shape
+    return 2 * bz * s * di * b_shape[-1]
+
+
 class _ScanGrad(torch.autograd.Function):
     """The selective scan with a gradient.
 
     The forward is the wrapper's dispatch: the kernel on a CUDA tensor,
-    the step loop on a CPU one. The backward recomputes
-    ``ref.ssm_scan_chunked_ref`` (the discretized (Bz, S, D, N) tensors,
-    ``chunked_linear_recurrence``, the contraction with C, ``D x``) from
-    the saved inputs under autograd and returns ``torch.autograd.grad``
-    of it, on the card under ``backward_numerics`` (TF32 off). It calls
-    ``ref.py`` directly, so the dispatch's plain version never runs on the
-    card. A gradient left undefined for ``h_last`` (training reads ``y``
-    alone) is skipped; bf16 ``x``, B and C get bf16 gradients."""
+    the step loop on a CPU one. The backward is ``scan_bwd_op`` on the
+    saved inputs: the reverse-time kernel on the card, the plain
+    version's vector-Jacobian product on the CPU; nothing else runs, so
+    the dispatch's plain versions never run on the card. A gradient left
+    undefined for ``h_last`` (training reads ``y`` alone) is skipped;
+    bf16 ``x``, B and C get bf16 gradients."""
 
     @staticmethod
     def forward(ctx, x, dt, b, c, a, d_skip, h0):
@@ -83,20 +145,14 @@ class _ScanGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_y, g_h):
-        saved = ctx.saved_tensors
-        need = ctx.needs_input_grad[: len(saved)]
-        pairs = [(out_g, i) for i, out_g in enumerate((g_y, g_h)) if out_g is not None]
-        if not pairs or not any(need):
+        need = ctx.needs_input_grad
+        if (g_y is None and g_h is None) or not any(need):
             return (None,) * 7
-        with torch.enable_grad(), backward_numerics(saved[0]):
-            leaves = [t.detach().requires_grad_(r) for t, r in zip(saved, need)]
-            outs = _ref.ssm_scan_chunked_ref(*leaves[:6], leaves[6] if ctx.has_h0 else None)
-            grads = iter(torch.autograd.grad(
-                [outs[i] for _, i in pairs], [t for t, r in zip(leaves, need) if r],
-                [g for g, _ in pairs], allow_unused=True,
-            ))
-        out = [next(grads) if r else None for r in need]
-        return (*out, *((None,) * (7 - len(out))))
+        x, dt, b, c, a, d_skip, *h0 = ctx.saved_tensors
+        grads = scan_bwd_op(x, dt, b, c, a, d_skip, h0[0] if h0 else None,
+                            None if g_y is None else g_y.contiguous(),
+                            None if g_h is None else g_h.contiguous())
+        return tuple(g if r else None for g, r in zip(grads, need))
 
 
 def ssm_scan(x, dt, b, c, a, d_skip, h0=None, *, block_d: int = 256):

@@ -15,8 +15,8 @@ that holds one (Bz, D, N) state, never the (Bz, S, D, N) discretized
 tensors. ``ssm_scan_chunked_ref`` is the reference's training math
 (``repro.models.ssm.mamba_apply``): the discretized tensors formed in
 full, ``chunked_linear_recurrence`` over them, the contraction with C;
-it is what the scan's autograd Function differentiates, on either
-device, and nothing dispatches to it.
+nothing dispatches to it. ``ssm_scan_bwd_ref`` differentiates it: the
+gradient's plain version, what the backward op runs on the CPU.
 
 ``chunked_linear_recurrence`` is the reference's (RG-LRU runs it too,
 ``models/ssm.py``): inside a chunk ``_associative_scan`` combines
@@ -131,3 +131,25 @@ def ssm_scan_chunked_ref(x, dt, b, c, a, d_skip, h0=None, *, chunk: int = 256):
     h_all, h_last = chunked_linear_recurrence(dta, bx, h0.float(), chunk=chunk)
     y = torch.einsum("bsdn,bsn->bsd", h_all, c.float())
     return y + x32 * d_skip.float(), h_last
+
+
+def ssm_scan_bwd_ref(x, dt, b, c, a, d_skip, h0, g_y, g_h):
+    """The scan's gradient: ``torch.autograd.grad`` of
+    ``ssm_scan_chunked_ref``, recomputed from (x, dt, B, C, A, D_skip,
+    h0), with the cotangents ``g_y`` of y and ``g_h`` of h_last. An
+    undefined (None) cotangent is skipped: that output is left out, as
+    autograd leaves out an output nothing reads. Returns (dx, ddt, dB,
+    dC, dA, dD_skip, dh0) in the inputs' dtypes (bf16 x, B and C get
+    bf16 gradients), dh0 None where ``h0`` is; an input no defined output
+    reaches gets zeros."""
+    primals = (x, dt, b, c, a, d_skip) + (() if h0 is None else (h0,))
+    picked = [(i, g) for i, g in enumerate((g_y, g_h)) if g is not None]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in primals]
+        grads = (None,) * len(leaves)
+        if picked:
+            outs = ssm_scan_chunked_ref(*leaves[:6], leaves[6] if h0 is not None else None)
+            grads = torch.autograd.grad([outs[i] for i, _ in picked], leaves,
+                                        [g for _, g in picked], allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, primals)]
+    return (*grads[:6], grads[6] if h0 is not None else None)

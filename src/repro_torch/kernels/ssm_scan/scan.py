@@ -1,5 +1,5 @@
-"""ctypes wrapper of the hand-written Hopper selective scan
-(``csrc/ssm_scan.cu``).
+"""ctypes wrappers of the hand-written Hopper selective scan
+(``csrc/ssm_scan.cu``) and of its gradient (``csrc/ssm_scan_bwd.cu``).
 
 ``ssm_scan_cuda`` replaces the reference's Pallas kernel
 (``repro/kernels/ssm_scan/scan.py:ssm_scan_pallas``) and adds what the
@@ -21,6 +21,14 @@ decode step adjusts the count: ``probe.uncount`` at its capture,
 launch is also logged on the calling thread's probe log, with the shared
 memory of its plan. The plain version is
 ``ref.py``; ``ops.py`` picks between them by the device of the input.
+
+``ssm_scan_bwd_cuda`` is the scan's gradient on the card (no Pallas
+kernel: the reference differentiates its composition with XLA), laid out
+by ``scan_bwd_plan``: the forward's lanes and channels per CTA, and the
+steps a checkpoint covers. It is checked as the forward is, allocates the
+gradients and one workspace (the chunks' checkpointed states and the
+partial sums the second kernel adds up in a fixed order) and counts its
+launches under ``LAUNCHES["ssm_scan_bwd"]``.
 """
 from __future__ import annotations
 
@@ -56,7 +64,12 @@ SM_SMEM = 233_472  # shared memory per SM (228 KB)
 BLOCK_SMEM = 232_448  # of which one block may use
 CTA_RESERVED_SMEM = 1024  # of which CUDA reserves 1 KB per resident CTA
 
-LAUNCHES = probe.counted({"ssm_scan": 0})
+# The backward: steps a checkpoint covers, a power of two up to
+# BWD_MAX_CHUNK; fewer CTAs an SM rather than fewer than BWD_MIN_CHUNK
+# steps, which would grow the checkpoints (1 / chunk of the states).
+BWD_MAX_CHUNK, BWD_MIN_CHUNK = 32, 16
+
+LAUNCHES = probe.counted({"ssm_scan": 0, "ssm_scan_bwd": 0})
 
 
 def reset_launch_counts() -> None:
@@ -152,6 +165,55 @@ def scan_plan(bz: int, s: int, d: int, n: int, *, n_sms: int, elem_bytes: int = 
                 warps=ctas * threads // 32)
 
 
+def bwd_smem_bytes(chunk: int, dc: int, lanes: int, npl: int, bcp: int, elem_bytes: int) -> int:
+    """Shared memory of one backward CTA (``ssmb_smem_bytes`` in the
+    source), per step: the chunk's recomputed states (``lanes * npl`` a
+    channel), dt, g_y, dx and ddt (f32 a channel), B and C (f32 rows of
+    ``bcp``), each warp's dB and dC sums, and x in its own dtype."""
+    warps = dc * lanes // 32
+    return chunk * (4 * (dc * lanes * npl + 4 * dc + 2 * bcp + warps * 2 * bcp) + dc * elem_bytes)
+
+
+@functools.lru_cache(maxsize=256)
+def scan_bwd_plan(bz: int, s: int, d: int, n: int, *, n_sms: int, elem_bytes: int = 2) -> dict:
+    """How the backward kernel covers a (Bz, S, D) scan of N states: the
+    forward's ``lanes``, ``npl``, ``dc``, ``threads`` and ``bcp``
+    (``scan_plan``), and ``chunk``, the steps a checkpoint covers and the
+    CTA stages at once: the largest power of two up to BWD_MAX_CHUNK (and
+    S) at which the forward's CTAs an SM fit its shared memory, but not
+    below BWD_MIN_CHUNK where one block fits (then fewer CTAs an SM,
+    ``per_sm``), and below it only as far as one block needs. Also the
+    CTA's shared-memory bytes, the channel blocks
+    ``nblk``, the checkpoints a row keeps (``n_ckpt``) and the
+    workspace's f32 elements: the checkpoints (Bz x n_ckpt x D x
+    lanes * npl), each block's dB and dC (Bz x nblk x S x 2N), each row's
+    dA (Bz x D x N) and dD (Bz x D), each piece padded to 4. Raises where
+    N is above MAX_N or one step of a CTA does not fit a block."""
+    fwd = scan_plan(bz, s, d, n, n_sms=n_sms, elem_bytes=elem_bytes)
+    lanes, npl, dc, bcp = (fwd[k] for k in ("lanes", "npl", "dc", "bcp"))
+
+    def smem(ch):
+        return bwd_smem_bytes(ch, dc, lanes, npl, bcp, elem_bytes)
+
+    def resident(ch):
+        return min(fwd["per_sm"], SM_SMEM // (smem(ch) + CTA_RESERVED_SMEM))
+
+    top = min(BWD_MAX_CHUNK, _pow2_at_least(s))
+    chunk = top
+    while chunk > min(BWD_MIN_CHUNK, top) and resident(chunk) < fwd["per_sm"]:
+        chunk //= 2
+    while chunk > 1 and smem(chunk) > BLOCK_SMEM:
+        chunk //= 2
+    if smem(chunk) > BLOCK_SMEM:
+        raise ValueError(f"a backward step of N={n} needs more shared memory than a block's "
+                         f"{BLOCK_SMEM} B")
+    n_ckpt, nblk = -(-s // chunk), -(-d // dc)
+    parts = [bz * n_ckpt * d * lanes * npl, bz * nblk * s * 2 * n, bz * d * n, bz * d]
+    return dict(lanes=lanes, npl=npl, dc=dc, threads=fwd["threads"], chunk=chunk, bcp=bcp,
+                smem=smem(chunk), per_sm=resident(chunk), nblk=nblk, n_ckpt=n_ckpt,
+                parts=tuple(parts), workspace=sum(round_up(v, 4) for v in parts))
+
+
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("ssm_scan")
     if not getattr(lib, "_ssm_checked", False):
@@ -245,3 +307,130 @@ def ssm_scan_cuda(
     LAUNCHES["ssm_scan"] += 1
     probe.launched("ssm_scan", plan["smem"], stream)
     return y, h_last
+
+
+class _SsmScanBwd(ctypes.Structure):
+    _fields_ = [
+        ("x", ctypes.c_void_p), ("dt", ctypes.c_void_p),
+        ("b", ctypes.c_void_p), ("c", ctypes.c_void_p),
+        ("a", ctypes.c_void_p), ("d_skip", ctypes.c_void_p),
+        ("h0", ctypes.c_void_p), ("g_y", ctypes.c_void_p), ("g_h", ctypes.c_void_p),
+        ("grad_x", ctypes.c_void_p), ("grad_dt", ctypes.c_void_p),
+        ("grad_b", ctypes.c_void_p), ("grad_c", ctypes.c_void_p),
+        ("grad_a", ctypes.c_void_p), ("grad_d", ctypes.c_void_p),
+        ("grad_h0", ctypes.c_void_p),
+        ("ckpt", ctypes.c_void_p), ("ws_bc", ctypes.c_void_p),
+        ("ws_a", ctypes.c_void_p), ("ws_d", ctypes.c_void_p),
+        ("x_sb", ctypes.c_longlong), ("x_ss", ctypes.c_longlong),
+        ("dt_sb", ctypes.c_longlong), ("dt_ss", ctypes.c_longlong),
+        ("b_sb", ctypes.c_longlong), ("b_ss", ctypes.c_longlong),
+        ("c_sb", ctypes.c_longlong), ("c_ss", ctypes.c_longlong),
+        ("gy_sb", ctypes.c_longlong), ("gy_ss", ctypes.c_longlong),
+        ("bz", ctypes.c_int), ("s", ctypes.c_int), ("d", ctypes.c_int),
+        ("n", ctypes.c_int), ("lanes", ctypes.c_int), ("chunk", ctypes.c_int),
+        ("dc", ctypes.c_int), ("bcp", ctypes.c_int), ("bf16", ctypes.c_int),
+    ]
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = _nvcc.load("ssm_scan_bwd")
+    if not getattr(lib, "_ssm_bwd_checked", False):
+        for fn in (lib.ssm_bwd_desc_bytes, lib.ssm_bwd_max_npl):
+            fn.argtypes, fn.restype = [], ctypes.c_int
+        lib.ssm_bwd_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.ssm_bwd_smem_bytes.restype = ctypes.c_int
+        lib.ssm_scan_bwd_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.ssm_scan_bwd_launch.restype = ctypes.c_int
+        if lib.ssm_bwd_max_npl() != MAX_NPL:
+            raise RuntimeError(f"the backward library keeps {lib.ssm_bwd_max_npl()} states a "
+                               f"lane, Python {MAX_NPL}")
+        if lib.ssm_bwd_desc_bytes() != ctypes.sizeof(_SsmScanBwd):
+            raise RuntimeError(
+                f"_SsmScanBwd is {ctypes.sizeof(_SsmScanBwd)} B in Python but "
+                f"{lib.ssm_bwd_desc_bytes()} B in the library: the layouts disagree"
+            )
+        for args in ((8, 64, 2, 8, 16, 2), (3, 8, 16, 32, 512, 4)):
+            if lib.ssm_bwd_smem_bytes(*args) != bwd_smem_bytes(*args):
+                raise RuntimeError(f"backward shared memory at {args}: library "
+                                   f"{lib.ssm_bwd_smem_bytes(*args)} B, Python "
+                                   f"{bwd_smem_bytes(*args)} B")
+        lib._ssm_bwd_checked = True
+    return lib
+
+
+def ssm_scan_bwd_cuda(
+    x: torch.Tensor,  # (Bz, S, D) bf16 or f32
+    dt: torch.Tensor,  # (Bz, S, D) f32
+    b: torch.Tensor,  # (Bz, S, N) x's dtype
+    c: torch.Tensor,  # (Bz, S, N) x's dtype
+    a: torch.Tensor,  # (D, N) f32
+    d_skip: torch.Tensor,  # (D,) f32
+    h0: torch.Tensor | None,  # (Bz, D, N) f32
+    g_y: torch.Tensor | None,  # (Bz, S, D) f32: the cotangent of y
+    g_h: torch.Tensor | None,  # (Bz, D, N) f32: the cotangent of h_last
+) -> tuple:
+    """The scan's gradient on the card, laid out by ``scan_bwd_plan``:
+    (dx, ddt, dB, dC, dA, dD_skip, dh0), dx, dB and dC in x's dtype, the
+    rest f32, all contiguous; dh0 None where ``h0`` is. An absent
+    cotangent counts as zeros. One call, one count: the kernel and its
+    reduction, launched together."""
+    bz, s, di = x.shape
+    n = b.shape[-1]
+    if x.dtype not in IN_DTYPES:
+        raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
+    _check("x", x, x.dtype, (bz, s, di), contiguous=False)
+    _check("dt", dt, torch.float32, (bz, s, di), contiguous=False)
+    _check("b", b, x.dtype, (bz, s, n), contiguous=False)
+    _check("c", c, x.dtype, (bz, s, n), contiguous=False)
+    _check("a", a, torch.float32, (di, n))
+    _check("d_skip", d_skip, torch.float32, (di,))
+    if h0 is not None:
+        _check("h0", h0, torch.float32, (bz, di, n))
+    if g_y is not None:
+        _check("g_y", g_y, torch.float32, (bz, s, di), contiguous=False)
+    if g_h is not None:
+        _check("g_h", g_h, torch.float32, (bz, di, n))
+    if bz > MAX_GRID_Y:
+        raise ValueError(f"batch {bz} above the grid's {MAX_GRID_Y} rows")
+    if s < 1:
+        raise ValueError("the backward needs at least one step")
+    plan = scan_bwd_plan(bz, s, di, n, n_sms=sm_count(x.device), elem_bytes=x.element_size())
+    dev = x.device
+    grads = (torch.empty((bz, s, di), device=dev, dtype=x.dtype),
+             torch.empty((bz, s, di), device=dev, dtype=torch.float32),
+             torch.empty((bz, s, n), device=dev, dtype=x.dtype),
+             torch.empty((bz, s, n), device=dev, dtype=x.dtype),
+             torch.empty((di, n), device=dev, dtype=torch.float32),
+             torch.empty((di,), device=dev, dtype=torch.float32),
+             None if h0 is None else torch.empty((bz, di, n), device=dev, dtype=torch.float32))
+    ws = torch.empty((plan["workspace"],), device=dev, dtype=torch.float32)
+    offsets, at = [], 0
+    for size in plan["parts"]:
+        offsets.append(ws.data_ptr() + 4 * at)
+        at += round_up(size, 4)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    gy_sb, gy_ss = (0, 0) if g_y is None else (g_y.stride(0), g_y.stride(1))
+    desc = _SsmScanBwd(
+        x=ptr(x), dt=ptr(dt), b=ptr(b), c=ptr(c), a=ptr(a), d_skip=ptr(d_skip), h0=ptr(h0),
+        g_y=ptr(g_y), g_h=ptr(g_h),
+        grad_x=ptr(grads[0]), grad_dt=ptr(grads[1]), grad_b=ptr(grads[2]), grad_c=ptr(grads[3]),
+        grad_a=ptr(grads[4]), grad_d=ptr(grads[5]), grad_h0=ptr(grads[6]),
+        ckpt=offsets[0], ws_bc=offsets[1], ws_a=offsets[2], ws_d=offsets[3],
+        x_sb=x.stride(0), x_ss=x.stride(1), dt_sb=dt.stride(0), dt_ss=dt.stride(1),
+        b_sb=b.stride(0), b_ss=b.stride(1), c_sb=c.stride(0), c_ss=c.stride(1),
+        gy_sb=gy_sb, gy_ss=gy_ss,
+        bz=bz, s=s, d=di, n=n, lanes=plan["lanes"], chunk=plan["chunk"], dc=plan["dc"],
+        bcp=plan["bcp"], bf16=IN_DTYPES[x.dtype],
+    )
+    lib = _bwd_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssm_scan_bwd_launch(ctypes.addressof(desc), stream)
+    if err:
+        raise RuntimeError(f"ssm_scan_bwd launch failed: CUDA error {err}")
+    LAUNCHES["ssm_scan_bwd"] += 1
+    probe.launched("ssm_scan_bwd", plan["smem"], stream)
+    return grads

@@ -5,7 +5,8 @@ The reference counts FLOPs, HBM bytes and collective bytes from XLA's
 post-optimization HLO. The port compiles nothing, so its "HLO" is its own
 **op log**: :class:`OpRecorder` (a ``TorchDispatchMode``) writes one
 :class:`Instr` for each op the step dispatches below autograd (aten ops,
-and the selective scan as the one op ``repro_torch.ssm_scan``), with each
+and the selective scan and its gradient as the ops ``repro_torch.ssm_scan``
+and ``repro_torch.ssm_scan_bwd``), with each
 operand's and result's shape, dtype, storage identity, base (storage)
 bytes and whether it is a view. The log's text form is one line per op
 (:func:`format_log`); :func:`parse_computations` reads it back. An eager
@@ -17,8 +18,9 @@ The reference's charging rules, restated for an eager program:
 
   flops            ``mm``, ``addmm``, ``bmm``, ``baddbmm`` and
                    ``convolution`` at 2 x output elements x contraction,
-                   plus the scan op's 2 Bz S D N (``kernels/ssm_scan/
-                   ops.py``): the total ``FlopCounterMode`` gives
+                   plus 2 Bz S D N for the scan op and for its
+                   gradient's (``kernels/ssm_scan/ops.py``): the total
+                   ``FlopCounterMode`` gives
   hbm_bytes        one entry per op. Eager PyTorch fuses nothing, so this
                    is the traffic the card does: an op reads its operands
                    (at most their base bytes: an expanded view is read
@@ -76,6 +78,7 @@ _SLICE_READ_OPS = {"aten.index_select", "aten.embedding", "aten.gather"}
 # Contractions: the operand index of the left factor.
 _CONTRACT_OPS = {"aten.mm": 0, "aten.bmm": 0, "aten.addmm": 1, "aten.baddbmm": 1}
 SCAN_OP = "repro_torch.ssm_scan"
+SCAN_BWD_OP = "repro_torch.ssm_scan_bwd"
 # The reference's collective kinds (XLA's op names), and the c10d
 # functional ops an op log records for each
 # (``torch.distributed._functional_collectives``). A permute is
@@ -280,13 +283,14 @@ def parse_computations(text: str) -> list:
 
 
 def instr_flops(i: Instr) -> int:
-    """FLOPs of one op (0 but for contractions, convolutions and the scan)."""
+    """FLOPs of one op (0 but for contractions, convolutions, the scan and
+    its gradient)."""
     p = i.packet
     if p in _CONTRACT_OPS:
         return 2 * math.prod(i.results[0].shape) * i.operands[_CONTRACT_OPS[p]].shape[-1]
     if p == "aten.convolution":
         return 2 * math.prod(i.results[0].shape) * math.prod(i.operands[1].shape[1:])
-    if p == SCAN_OP:
+    if p in (SCAN_OP, SCAN_BWD_OP):
         bz, s, d = i.operands[0].shape
         return 2 * bz * s * d * i.operands[2].shape[-1]
     return 0

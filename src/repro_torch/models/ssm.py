@@ -9,9 +9,11 @@ an einsum. The port calls the fused selective scan
 keeps the states in registers, on the CPU its plain step loop. Both give
 the same ``y`` and final state; neither forms the (B, S, d_inner, N)
 tensors. In training (grad mode on, an input requiring grad) the scan's
-autograd Function keeps that forward and differentiates the reference's
-own composition, recomputed from the saved inputs, in its backward
-(``kernels/ssm_scan/ops.py``).
+autograd Function keeps that forward; its backward is the scan's
+gradient op (``kernels/ssm_scan/ops.py``): on the card a hand-written
+reverse-time kernel that recomputes the states chunk by chunk from
+checkpoints and forms no (B, S, d_inner, N) tensor either, on the CPU
+autograd of the reference's own composition.
 
 RG-LRU runs the reference's ``chunked_linear_recurrence``
 (``kernels/ssm_scan/ref.py``; it and its ``_combine`` are imported here

@@ -44,9 +44,12 @@ unit when a gradient is being recorded (``"full"`` saves nothing,
 vocab chunk's padding is masked: the reference slices that chunk with
 ``dynamic_slice``, which clamps it back inside the vocab, so its loss is
 off whenever the chunk does not divide the vocab (``ROADMAP.md``,
-Queue 3). ``opt_bf16_ssm`` rounds the reference's discretized SSM
-tensors to bf16; the fused scan never forms them, so under the flag the
-port runs the same f32 scan.
+Queue 3). A Mamba layer's gradient goes through the scan's backward op
+(``kernels/ssm_scan/ops.py``): the reverse-time kernel on the card,
+autograd of the reference's composition on the CPU.
+``opt_bf16_ssm`` rounds the reference's discretized SSM tensors to bf16;
+neither the fused scan nor its backward kernel forms them, so under the
+flag the port runs the same f32 scan.
 """
 from __future__ import annotations
 

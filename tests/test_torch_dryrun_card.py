@@ -3,7 +3,7 @@ at a reduced depth) and the selective scan as a registered op on CUDA.
 
 - A CUDA call of ``repro_torch::ssm_scan`` launches the hand-written
   kernel, never the plain version, and is one op of the log.
-- A real step on the card (falcon-mamba train through the scan kernel,
+- A real step on the card (falcon-mamba train through the scan's kernels,
   qwen2.5-3b prefill; full width, a few layers, bf16) logs the ops its
   ``meta`` trace logged, per overload, and the same FLOPs; the peak the
   trace predicts (arguments + its live bytes' peak) is within 10 % of
@@ -56,6 +56,13 @@ def counted_plain(monkeypatch):
         return plain(*args)
 
     monkeypatch.setattr(kssm_ops, "ssm_scan_ref", counted)
+    bwd_plain = kssm_ops.ssm_scan_bwd_ref
+
+    def counted_bwd(*args):
+        calls[0] += 1
+        return bwd_plain(*args)
+
+    monkeypatch.setattr(kssm_ops, "ssm_scan_bwd_ref", counted_bwd)
     return calls
 
 
@@ -98,7 +105,7 @@ def test_a_step_on_the_card_logs_its_meta_trace_and_the_predicted_peak(
     torch.cuda.synchronize()
     assert D.tree_bytes(args) == D.tree_bytes(meta_args)
     torch.cuda.reset_peak_memory_stats()
-    before = kscan.LAUNCHES["ssm_scan"]
+    before = dict(kscan.LAUNCHES)
     out, rec, counter = H.record(step, *args, device=card)
     torch.cuda.synchronize()
     measured = torch.cuda.max_memory_allocated() - base
@@ -108,6 +115,8 @@ def test_a_step_on_the_card_logs_its_meta_trace_and_the_predicted_peak(
     assert counter == tr.counter_flops
     predicted = D.tree_bytes(args) + tr.peak_live_bytes
     assert abs(predicted / measured - 1) <= PEAK_RTOL, (predicted, measured)
-    launched = kscan.LAUNCHES["ssm_scan"] - before
-    assert launched == (2 * layers if arch == "falcon-mamba-7b" else 0)
+    launched = {k: kscan.LAUNCHES[k] - v for k, v in before.items()}
+    falcon = arch == "falcon-mamba-7b"
+    assert launched == {"ssm_scan": 2 * layers if falcon else 0,
+                        "ssm_scan_bwd": layers if falcon else 0}
     assert counted_plain[0] == 0

@@ -1,7 +1,7 @@
 """LM training on the card: the gradient through the selective-scan kernel
 (``kernels/ssm_scan/ops.py``'s ``_ScanGrad``: the kernel's forward, the
-reference's composition recomputed in the backward) against autograd of
-the plain composition on the card and against the CPU; the remat modes;
+backward kernel ``repro_torch::ssm_scan_bwd``) against autograd of the
+plain composition on the card and against the CPU; the remat modes;
 the chunked CE at a real vocabulary's width; µbatch accumulation.
 
 Every test needs an NVIDIA card: each one asks for it inside the test
@@ -15,9 +15,11 @@ This file imports no JAX: the machine with the card has none.
 Tolerances: gradients through the kernel against the plain composition
 (the card, TF32 off) and against the CPU: each leaf within a relative L2
 error of 1e-4 (the kernel's forward and the composition sum the scan in
-other orders); the scan's Function against native autograd of its
-composition on the same card tensors: bit for bit (the same ops on the
-same inputs); remat modes: bit for bit; the chunked CE against the full
+other orders); the gradient's plain version (``ssm_scan_bwd_ref``)
+against native autograd of its composition on the same card tensors:
+bit for bit (the same ops on the same inputs; the backward kernel is
+held to it in ``tests/test_torch_scan_bwd_card.py``); remat modes: bit
+for bit; the chunked CE against the full
 ``log_softmax``: rtol 1e-5, its gradients rtol 1e-4, atol 1e-7; µbatches
 against one batch: losses rtol 1e-5, parameters atol 1e-5 (the
 reference test's bounds).
@@ -37,7 +39,7 @@ from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as kssm_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import scan as kscan  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: E402
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_chunked_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_chunked_ref  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import ssm as mssm  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -89,10 +91,10 @@ def _plain_scan(x, dt, b, c, a, d_skip, h0=None, **_):
 
 
 def test_scan_gradient_through_the_kernel_matches_the_plain_composition(card, monkeypatch):
-    """A falcon-mamba training loss: its gradients through the kernel (one
-    launch a layer; the dispatch's plain scan never called) against
-    autograd of the plain composition on the card and against the CPU;
-    every leaf finite and nonzero."""
+    """A falcon-mamba training loss: its gradients through the kernels (one
+    forward and one backward launch a layer; the plain scan and its
+    gradient never called) against autograd of the plain composition on
+    the card and against the CPU; every leaf finite and nonzero."""
     cfg = _mamba_cfg()
     cpu = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     params = T.init_params(torch.Generator().manual_seed(0), cfg, device=card)
@@ -105,10 +107,12 @@ def test_scan_gradient_through_the_kernel_matches_the_plain_composition(card, mo
         return dispatch_plain(*args)
 
     monkeypatch.setattr(kssm_ops, "ssm_scan_ref", counted)
+    monkeypatch.setattr(kssm_ops, "ssm_scan_bwd_ref", counted)
     kscan.reset_launch_counts()
     loss, grads = _loss_and_grads(params, cfg, toks.to(card))
     torch.cuda.synchronize()
-    assert kscan.LAUNCHES["ssm_scan"] == cfg.n_layers and plain[0] == 0
+    assert kscan.LAUNCHES == {"ssm_scan": cfg.n_layers, "ssm_scan_bwd": cfg.n_layers}
+    assert plain[0] == 0
     monkeypatch.setattr(mssm, "ssm_scan", _plain_scan)
     want_loss, want = _loss_and_grads(params, cfg, toks.to(card))
     cpu_loss, cpu_grads = _loss_and_grads(cpu, cfg, toks)
@@ -124,10 +128,13 @@ def test_scan_gradient_through_the_kernel_matches_the_plain_composition(card, mo
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_scan_function_on_the_card_equals_native_autograd(card, dtype, with_h0):
     """``ssm_scan`` on card tensors with grad on (the kernel's forward)
-    against native autograd of its composition: the same gradients, bit
-    for bit, bf16 x, B and C getting bf16 ones; the forwards within a
+    against native autograd of its composition: the forwards within a
     relative L2 error of 1e-5 (states of unit-normal B and C grow large
-    here, so a few elements sit past the kernel gate's atol)."""
+    here, so a few elements sit past the kernel gate's atol); the
+    gradient's plain version, ``ssm_scan_bwd_ref``, on the same card
+    tensors: native autograd's gradients bit for bit, bf16 x, B and C
+    getting bf16 ones (the backward kernel that ``ssm_scan`` runs is held
+    to it in ``tests/test_torch_scan_bwd_card.py``)."""
     g = torch.Generator().manual_seed(3)
     bz, s, d, n = 2, 300, 384, 16
     x = torch.randn(bz, s, d, generator=g).to(card, dtype)
@@ -146,15 +153,18 @@ def test_scan_function_on_the_card_equals_native_autograd(card, dtype, with_h0):
         out.append((y.detach(), torch.autograd.grad((y * w_y).sum(),
                                                     [t for t in leaves if t is not None])))
     assert _rel(out[0][0], out[1][0]) <= 1e-5
-    for got, want in zip(out[0][1], out[1][1]):
+    plain = [g for g in ssm_scan_bwd_ref(*inputs, w_y, None) if g is not None]
+    assert len(plain) == len(out[1][1])
+    for got, want in zip(plain, out[1][1]):
         assert got.dtype == want.dtype and torch.equal(got, want)
-    assert out[0][1][0].dtype == dtype
+    assert plain[0].dtype == out[0][1][0].dtype == dtype
 
 
 def test_remat_modes_are_bit_equal_on_the_card(card):
     """"none", "full" and "dots" on the card: the same loss and gradients
-    bit for bit; the kernel launches once a layer a step, twice under
-    "full" and "dots" (the forward and its recompute)."""
+    bit for bit; the scan launches once a layer a step, twice under
+    "full" and "dots" (the forward and its recompute), its backward once
+    under every mode."""
     cfg = _mamba_cfg(remat="none")
     params = T.init_params(torch.Generator().manual_seed(1), cfg, device=card)
     toks = _tokens(cfg, seed=1).to(card)
@@ -164,6 +174,7 @@ def test_remat_modes_are_bit_equal_on_the_card(card):
         results[remat] = _loss_and_grads(params, dataclasses.replace(cfg, remat=remat), toks)
         torch.cuda.synchronize()
         assert kscan.LAUNCHES["ssm_scan"] == per_layer * cfg.n_layers, remat
+        assert kscan.LAUNCHES["ssm_scan_bwd"] == cfg.n_layers, remat
     for remat in ("full", "dots"):
         assert torch.equal(results[remat][0], results["none"][0])
         assert all(torch.equal(a, b) for a, b in zip(results[remat][1], results["none"][1]))

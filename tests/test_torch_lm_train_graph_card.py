@@ -108,8 +108,8 @@ def _graph_against_eager(cfg, opt_cfg, batches, dev):
     state: every step's params, optimizer state and metrics bit for bit
     (their digests equal; the two runs one after the other, so a card
     left fragmented by earlier tests holds one run at a time). Returns
-    the jitted step, the scan launches each jitted call counted and the
-    leaves of the state."""
+    the jitted step, the scan's launches each jitted call counted, its
+    backward's, and the leaves of the state."""
     eager = make_train_step(cfg, opt_cfg=opt_cfg)
     p, o = _init(cfg, opt_cfg, dev)
     want = []
@@ -121,29 +121,30 @@ def _graph_against_eager(cfg, opt_cfg, batches, dev):
     torch.cuda.empty_cache()
     jitted, _ = jit_train_step(cfg, None, _meta(cfg), batches[0], opt_cfg=opt_cfg)
     p, o = _init(cfg, opt_cfg, dev)
-    scans = []
+    scans, bwds = [], []
     for s, batch in enumerate(batches):
-        before = kscan.LAUNCHES["ssm_scan"]
+        before = dict(kscan.LAUNCHES)
         p, o, m = jitted(p, o, batch, s)
-        scans.append(kscan.LAUNCHES["ssm_scan"] - before)
+        scans.append(kscan.LAUNCHES["ssm_scan"] - before["ssm_scan"])
+        bwds.append(kscan.LAUNCHES["ssm_scan_bwd"] - before["ssm_scan_bwd"])
         got = _digest((p, o, m))
         assert got.shape == want[s].shape
         bad = torch.nonzero((got != want[s]).any(-1)).flatten().tolist()
         assert not bad, (s, bad[:8])
     torch.cuda.synchronize()
-    return jitted, scans, len(tree_leaves((p, o)))
+    return jitted, scans, bwds, len(tree_leaves((p, o)))
 
 
 def test_falcon_mamba_graph_is_the_eager_step_bit_for_bit(card):
     cfg = dataclasses.replace(get_arch("falcon-mamba-7b"), n_layers=LAYERS)
     assert cfg.dtype == "bfloat16" and cfg.remat == "full"
     opt_cfg = AdamWConfig(keep_master_copy=True)
-    jitted, scans, n_leaves = _graph_against_eager(cfg, opt_cfg, _batches(cfg, card, B, S, STEPS),
-                                                   card)
+    jitted, scans, bwds, n_leaves = _graph_against_eager(
+        cfg, opt_cfg, _batches(cfg, card, B, S, STEPS), card)
     assert jitted._cache_size() == 1 and jitted.captures == 1 and jitted.replays == STEPS - 1
     # The first call's warm-up counts as an eager step, each replay as its
-    # capture: 2 a layer.
-    assert scans == [2 * LAYERS] * STEPS
+    # capture: the scan 2 a layer, its backward 1.
+    assert scans == [2 * LAYERS] * STEPS and bwds == [LAYERS] * STEPS
     # Only the first call's trees were staged; the others were handed back.
     assert jitted.staged == n_leaves
     entry = next(iter(jitted._graphs.values()))
@@ -156,14 +157,18 @@ def test_a_replay_counts_the_scan_as_eager_does(card, remat, per_layer):
     n_layers = cfg.n_layers
     opt_cfg = AdamWConfig()
     batches = _batches(cfg, card, 2, 64, 3)
-    jitted, scans, _ = _graph_against_eager(cfg, opt_cfg, batches, card)
-    assert scans == [per_layer * n_layers] * 3
+    jitted, scans, bwds, _ = _graph_against_eager(cfg, opt_cfg, batches, card)
+    assert scans == [per_layer * n_layers] * 3 and bwds == [n_layers] * 3
     entry = next(iter(jitted._graphs.values()))
-    assert [n for n, _ in entry.launches] == ["ssm_scan"] * (per_layer * n_layers)
+    # The forward's scans, then per layer (remat's recompute and) the
+    # backward kernel, on autograd's thread.
+    unit = ["ssm_scan"] * (per_layer - 1) + ["ssm_scan_bwd"]
+    want = ["ssm_scan"] * n_layers + unit * n_layers
+    assert [n for n, _ in entry.launches] == want
     # A replay logs them on the calling thread's open log too.
     with probe.recording() as log:
         jitted(entry.params, entry.opt_state, batches[0], 3)
-    assert [n for _, n, _ in log.launches] == ["ssm_scan"] * (per_layer * n_layers)
+    assert [n for _, n, _ in log.launches] == want
 
 
 def test_another_threads_eager_launch_stays_out_of_a_capture(card):
