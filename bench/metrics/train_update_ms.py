@@ -1,0 +1,12 @@
+"""The train step's update, device ms a step: the self device time of the
+span ``repro_torch.train.update`` (clipping at global norm 1.0 and AdamW)
+in the train graph's matched replays (``bench/phases.py``). Moves
+``train_frames_per_s``."""
+from __future__ import annotations
+
+from bench import phases
+
+
+def read(r):
+    s = phases.self_seconds(r, phases.TRAIN, "repro_torch.train.update")
+    return None if s is None else 1e3 * s

@@ -53,6 +53,7 @@ from repro_torch.core.quant.fixed_point import (
     quantize_fixed,
 )
 from repro_torch.core.quant.pow2 import project_pow2, project_pow2_ste
+from repro_torch.kernels import probe
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.kernels.pow2_matmul import pow2_matmul, quantize_weights
 from repro_torch.kernels.stream_conv.conv import (
@@ -621,9 +622,11 @@ class CompiledDHM:
         check_plan(self)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
-        """Run the conv stages sequentially on the plan's device."""
+        """Run the conv stages sequentially on the plan's device, each
+        under the span ``repro_torch.dhm.stage``."""
         for st in self.stages:
-            x = st.fn(self.stage_params(st.index), x)
+            with probe.span("repro_torch.dhm.stage"):
+                x = st.fn(self.stage_params(st.index), x)
         return x
 
     def jitted_forward(self, *, donate: bool = False) -> Callable:

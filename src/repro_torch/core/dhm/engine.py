@@ -74,9 +74,12 @@ _LOG = logging.getLogger("repro_torch.dhm.engine")
 
 
 def forward(plan, x: torch.Tensor) -> torch.Tensor:
-    """Eager single-device forward: sequential fused stages + FC head.
+    """Eager single-device forward: sequential fused stages + FC head
+    (the spans ``repro_torch.dhm.stage`` and ``repro_torch.dhm.head``).
     x: (B, H, W, C) NHWC on the plan's device -> logits (B, n_classes)."""
-    return plan.head_fn(plan.features(x))
+    feats = plan.features(x)
+    with probe.span("repro_torch.dhm.head"):
+        return plan.head_fn(feats)
 
 
 _CACHE_LOCK = threading.Lock()
@@ -117,7 +120,10 @@ class JittedForward:
     ``fn``'s bit for bit. A capture that fails raises: nothing falls back
     to the eager composition. A replay runs no wrapper, so the launches
     (and the pipeline's edge transfers) the capture logged are counted
-    again at each replay (``kernels/probe.py``).
+    again at each replay (``kernels/probe.py``). ``captures``, ``replays``
+    and ``staged`` (the inputs copied in) count as
+    ``cuda_graphs.JittedTrainStep``'s do. A shape's first call leaves its
+    seconds in the capture's record (``cuda_graphs.graphs``).
 
     ``donate=True`` is the port's input donation: a caller that writes
     its batch into :meth:`input_buffer` and hands that buffer over gets a
@@ -141,6 +147,7 @@ class JittedForward:
         self.device = torch.device(device)
         self.donate = donate
         self.lock = threading.RLock()
+        self.staged = self.captures = self.replays = 0
         self._shapes: dict = {}  # (shape, dtype) -> _Captured
         self._stream = None  # the side stream of warm-ups and captures
 
@@ -152,27 +159,37 @@ class JittedForward:
         """The input shapes captured (on the CPU: run) so far."""
         return len(self._shapes)
 
-    def _entry(self, shape: tuple, dtype) -> _Captured:
+    def _entry(self, shape: tuple, dtype):
+        """The shape's entry, captured first if new, and the capture's
+        record where this call made it (else None)."""
         key = (tuple(shape), dtype)
         entry = self._shapes.get(key)
+        record = None
         if entry is None:
-            entry = self._capture(key) if self.on_card else _Captured()
+            entry = _Captured()
+            if self.on_card:
+                entry, record = self._capture(key)
             self._shapes[key] = entry
-        return entry
+        return entry, record
 
-    def _capture(self, key: tuple) -> _Captured:
+    def _capture(self, key: tuple) -> tuple:
         static_in = torch.zeros(key[0], dtype=key[1], device=self.device)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
-        cap = cuda_graphs.capture(lambda: self.fn(static_in), self.device, self._stream)
+        cap = cuda_graphs.capture(lambda: self.fn(static_in), self.device, self._stream,
+                                  owner="JittedForward", key=key)
+        self.captures += 1
         return _Captured(static_in=static_in, static_out=cap.out, graph=cap.graph,
-                         launches=cap.launches, transfers=cap.transfers)
+                         launches=cap.launches, transfers=cap.transfers), cap.record
 
     def input_buffer(self, shape, dtype=torch.float32) -> torch.Tensor:
         """The static input for ``shape`` (captured first if new), free to
         write once the last replay has read it."""
+        t_call = time.perf_counter()
         with self.lock, torch.inference_mode(False), torch.no_grad():
-            entry = self._entry(shape, dtype)
+            entry, record = self._entry(shape, dtype)
+            if record is not None:
+                cuda_graphs.first_call_done(record, t_call)
             if not self.on_card:
                 if entry.static_in is None:
                     entry.static_in = torch.zeros(tuple(shape), dtype=dtype)
@@ -184,9 +201,10 @@ class JittedForward:
     def __call__(self, x) -> torch.Tensor:
         """x: (B, H, W, C) frames -> logits (B, n_classes) on the closure's
         device."""
+        t_call = time.perf_counter()
         x = torch.as_tensor(x)
         with self.lock, torch.inference_mode(False), torch.no_grad():
-            entry = self._entry(x.shape, x.dtype)
+            entry, record = self._entry(x.shape, x.dtype)
             if not self.on_card:
                 return self.fn(x)
             stream = torch.cuda.current_stream(self.device)
@@ -194,12 +212,16 @@ class JittedForward:
                 stream.wait_event(entry.done)
             if not (self.donate and x is entry.static_in):
                 entry.static_in.copy_(x)
+                self.staged += 1
             entry.graph.replay()
+            probe.replayed(entry.launches, entry.transfers)
+            self.replays += 1
             out = entry.static_out.clone()
             if entry.done is None:
                 entry.done = torch.cuda.Event()
             entry.done.record(stream)
-            probe.replayed(entry.launches, entry.transfers)
+            if record is not None:
+                cuda_graphs.first_call_done(record, t_call)
             return out
 
 

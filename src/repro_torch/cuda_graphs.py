@@ -41,6 +41,21 @@ into a ``torch.cuda.CUDAGraph`` with :func:`capture`:
 
 The caller's stream then waits for the side stream.
 
+Each capture is given an id and leaves one :class:`GraphRecord` in the
+registry (:func:`graphs`), which nothing on a call's path reads: its
+owner and key, the host seconds of the warm-up, the release, the capture
+and (written by the owner, :func:`first_call_done`) the key's whole first
+call, and, for a capture that names its owner (the plan's graph and the
+train step's), the graph's **phase table**. That capture's log counts the
+device operations (kernel, memcpy and memset nodes) its graph holds,
+through the CUDA driver (:class:`_GraphNodes`), whenever a
+``kernels/probe.py`` span opens or closes inside it; the table cuts the
+graph's operations, which one stream runs in capture order, by those
+marks (``probe.phase_table``), and the record keeps each operation's
+name as the profiler's device trace names it. A reader of a profiled
+replay charges its operations, in order, to the phases. The whole of
+it runs during the capture, never at a replay.
+
 A captured train step holds a backward. ``torch.autograd.grad`` runs it
 on autograd's device thread, each node on the stream of its forward op:
 the side stream, under capture, so its kernels are recorded (in
@@ -70,9 +85,14 @@ again inside the capture.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
 import dataclasses
+import functools
 import gc
+import itertools
 import threading
+import time
 from typing import Callable, Optional
 
 import torch
@@ -84,42 +104,233 @@ CAPTURE_LOCK = threading.RLock()
 
 
 @dataclasses.dataclass
+class GraphRecord:
+    """One capture, as plain data. ``phases``: ((span path, operations),
+    ...) in capture order (``probe.phase_table``); ``ops``: each device
+    operation's name as the profiler's trace gives it ("Memcpy" and
+    "Memset" for the copies and fills, a kernel's demangled name, "" where
+    libcuda gave none); both empty for a capture that names no owner or
+    where libcuda could not be read (``unread`` then names the libcuda
+    call that failed). Host seconds: the warm-up, the release (0 where
+    not asked), the capture, and the key's whole first call (0 until its
+    owner ends it)."""
+
+    id: int
+    owner: str
+    key: str
+    phases: tuple
+    ops: tuple
+    warmup_s: float
+    release_s: float
+    capture_s: float
+    first_call_s: float = 0.0
+    unread: str = ""
+
+    @property
+    def n_ops(self) -> int:
+        return len(self.ops)
+
+
+_IDS = itertools.count(1)
+_GRAPHS: collections.deque = collections.deque(maxlen=1024)
+
+
+def graphs() -> list:
+    """The registry: the :class:`GraphRecord` of each capture of the
+    process (the last 1,024), oldest first."""
+    return list(_GRAPHS)
+
+
+def first_call_done(record: GraphRecord, t_call: float) -> None:
+    """Write the host seconds of a key's first call, from ``t_call`` (the
+    ``time.perf_counter()`` at its start) to now, into its record."""
+    record.first_call_s = time.perf_counter() - t_call
+
+
+class _KernelParams(ctypes.Structure):
+    """libcuda's ``CUDA_KERNEL_NODE_PARAMS_v2``."""
+
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("smem", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+_P = ctypes.POINTER
+_LIBCUDA_CALLS = {  # name -> argument types; each returns a CUresult
+    "cuStreamGetCaptureInfo_v2": [ctypes.c_void_p, _P(ctypes.c_int), _P(ctypes.c_uint64),
+                                  _P(ctypes.c_void_p), _P(ctypes.c_void_p),
+                                  _P(ctypes.c_size_t)],
+    "cuGraphGetNodes": [ctypes.c_void_p, _P(ctypes.c_void_p), _P(ctypes.c_size_t)],
+    "cuGraphNodeGetType": [ctypes.c_void_p, _P(ctypes.c_int)],
+    "cuGraphKernelNodeGetParams_v2": [ctypes.c_void_p, _P(_KernelParams)],
+    "cuFuncGetName": [_P(ctypes.c_char_p), ctypes.c_void_p],
+    "cuKernelGetName": [_P(ctypes.c_char_p), ctypes.c_void_p],
+}
+
+
+@functools.cache
+def _libcuda() -> dict:
+    """The CUDA driver API calls this module makes, by name ({} without
+    ``libcuda``); a call libcuda lacks is left out."""
+    try:
+        cu = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return {}
+    calls = {}
+    for name, args in _LIBCUDA_CALLS.items():
+        f = getattr(cu, name, None)
+        if f is not None:
+            f.argtypes, f.restype = args, ctypes.c_int
+            calls[name] = f
+    return calls
+
+
+@functools.cache
+def _cxx() -> Optional[tuple]:
+    """The C++ runtime's ``__cxa_demangle`` and the C library's ``free``
+    (None where either cannot be loaded)."""
+    try:
+        demangle = ctypes.CDLL("libstdc++.so.6").__cxa_demangle
+        free = ctypes.CDLL(None).free
+    except (OSError, AttributeError):
+        return None
+    demangle.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p, _P(ctypes.c_int)]
+    demangle.restype = ctypes.c_void_p
+    free.argtypes, free.restype = [ctypes.c_void_p], None
+    return demangle, free
+
+
+def _demangle(raw: bytes) -> str:
+    """``raw`` as the profiler names a kernel: demangled by the C++
+    runtime's ``__cxa_demangle`` where it is a mangled name and the
+    runtime loads, as it is otherwise."""
+    name = raw.decode(errors="replace")
+    cxx = _cxx() if raw.startswith(b"_Z") else None
+    if cxx is None:
+        return name
+    demangle, free = cxx
+    status = ctypes.c_int()
+    out = demangle(raw, None, None, ctypes.byref(status))
+    if status.value != 0 or not out:
+        return name
+    try:
+        return ctypes.string_at(out).decode(errors="replace")
+    finally:
+        free(out)
+
+
+class _GraphNodes:
+    """The device operations a stream's capture graph holds, read through
+    the CUDA driver: each call adds the nodes new since the last to
+    ``ops``, in the order the capture added them (a chain's order on one
+    stream), and returns their count; -1, and nothing read after, once a
+    libcuda call the count needs fails (``failed`` says which)."""
+
+    _KERNEL, _MEMCPY, _MEMSET = 0, 1, 2
+
+    def __init__(self, stream: int):
+        self.stream = stream
+        self.ops: list = []
+        self.failed = ""
+        self._seen: set = set()
+
+    def _call(self, fn: str, *args) -> bool:
+        if not self.failed:
+            f = _libcuda().get(fn)
+            rc = -1 if f is None else f(*args)
+            if rc != 0:
+                self.failed = f"{fn}: {'missing' if f is None else f'CUresult {rc}'}"
+        return not self.failed
+
+    @staticmethod
+    def _kernel_name(node: int) -> str:
+        """The kernel's name, "" where libcuda gives none (one older
+        than CUDA 12.3 has no ``cuFuncGetName``): only the count needs
+        it."""
+        cu, p, got = _libcuda(), _KernelParams(), ctypes.c_char_p()
+        get = cu.get("cuGraphKernelNodeGetParams_v2")
+        if get is None or get(node, ctypes.byref(p)) != 0:
+            return ""
+        name, handle = ((cu.get("cuFuncGetName"), p.func) if p.func
+                        else (cu.get("cuKernelGetName"), p.kern))
+        if name is None or not handle or name(ctypes.byref(got), handle) != 0:
+            return ""
+        return _demangle(got.value) if got.value else ""
+
+    def __call__(self) -> int:
+        status, graph, n = ctypes.c_int(), ctypes.c_void_p(), ctypes.c_size_t()
+        if not (self._call("cuStreamGetCaptureInfo_v2", self.stream, ctypes.byref(status),
+                           None, ctypes.byref(graph), None, None)
+                and self._call("cuGraphGetNodes", graph, None, ctypes.byref(n))):
+            return -1
+        if n.value == 0:
+            return len(self.ops)
+        nodes, kind = (ctypes.c_void_p * n.value)(), ctypes.c_int()
+        if not self._call("cuGraphGetNodes", graph, nodes, ctypes.byref(n)):
+            return -1
+        for node in nodes[:n.value]:
+            if node in self._seen:
+                continue
+            self._seen.add(node)
+            if not self._call("cuGraphNodeGetType", node, ctypes.byref(kind)):
+                return -1
+            if kind.value == self._KERNEL:
+                self.ops.append(self._kernel_name(node))
+            elif kind.value == self._MEMCPY:
+                self.ops.append("Memcpy")
+            elif kind.value == self._MEMSET:
+                self.ops.append("Memset")
+        return len(self.ops)
+
+
+@dataclasses.dataclass
 class Capture:
     """A captured ``fn``: the graph, its static output, the launches one
     replay makes ((kernel name, shared-memory bytes) each), the edge
     transfers it makes ((edge class, (src, dst) stages, buffer shape)
-    each) and the warm-up call's own output."""
+    each), the warm-up call's own output and the capture's record in the
+    registry."""
 
     graph: object  # torch.cuda.CUDAGraph
     out: object
     launches: tuple
     transfers: tuple
     warm: object
+    record: GraphRecord
 
 
-def capture(fn: Callable, device, side, *, release: bool = False) -> Capture:
+def capture(fn: Callable, device, side, *, release: bool = False, owner: str = "",
+            key=None) -> Capture:
     """Warm ``fn`` up on the stream ``side`` and capture it there (the
-    module's sequence; ``release`` its step 2). ``fn`` takes no argument:
-    it reads and writes static buffers the caller owns."""
+    module's sequence; ``release`` its step 2) and record it in the
+    registry under ``owner`` and ``key``; only a capture that names its
+    owner reads its graph's operations and phases. ``fn`` takes no
+    argument: it reads and writes static buffers the caller owns."""
     caller = torch.cuda.current_stream(device)
     side.wait_stream(caller)
+    t0 = time.perf_counter()
     with CAPTURE_LOCK:
         with torch.cuda.stream(side):
             warm = fn()  # the warm-up: real launches, counted
+        t1 = time.perf_counter()
         if release:
             torch.cuda.synchronize(device)
             gc.collect()
             torch.cuda.empty_cache()
+        t2 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        nodes = _GraphNodes(side.cuda_stream) if owner else None
         gc_on = gc.isenabled()
         gc.disable()
         try:
             with (torch.cuda.stream(side), probe.recording() as log,
-                  probe.capturing(side.cuda_stream, log)):
+                  probe.capturing(side.cuda_stream, log, nodes)):
                 graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
                                     capture_error_mode="thread_local")
                 try:
                     out = fn()
+                    total = nodes() if nodes is not None else -1
                 except BaseException:
                     try:
                         graph.capture_end()
@@ -133,9 +344,18 @@ def capture(fn: Callable, device, side, *, release: bool = False) -> Capture:
             if gc_on:
                 gc.enable()
     caller.wait_stream(side)
+    t3 = time.perf_counter()
+    read = total >= 0 and all(n >= 0 for *_, n in log.marks)
+    record = GraphRecord(
+        id=next(_IDS), owner=owner, key=repr(key),
+        phases=probe.phase_table(log.marks, total) if read else (),
+        ops=tuple(nodes.ops) if read else (),
+        unread=nodes.failed if nodes is not None else "",
+        warmup_s=t1 - t0, release_s=t2 - t1, capture_s=t3 - t2)
+    _GRAPHS.append(record)
     return Capture(graph=graph, out=out, warm=warm,
                    launches=tuple((name, smem) for _, name, smem in log.launches),
-                   transfers=tuple(log.transfers))
+                   transfers=tuple(log.transfers), record=record)
 
 
 def copy_leaves(dsts: list, srcs: list) -> None:
@@ -217,7 +437,8 @@ class JittedTrainStep:
     its bit for bit where ``fn``'s own ops are reproducible. A capture
     that fails raises: nothing falls back to the eager step. A replay runs
     no wrapper, so the launches the capture logged are counted again at
-    each replay. ``captures`` and ``replays`` count both.
+    each replay. ``captures`` and ``replays`` count both. A key's first
+    call leaves its seconds in the capture's record (:func:`graphs`).
 
     Metrics are always new tensors. With ``donate=True`` the graph ends by
     writing the new params and state over the static ones (one
@@ -270,6 +491,7 @@ class JittedTrainStep:
         return m_leaves
 
     def __call__(self, params, opt_state, batch, step=0):
+        t_call = time.perf_counter()
         with self.lock, torch.inference_mode(False), torch.enable_grad():
             p_leaves, p_def = tree_flatten(params)
             s_leaves, s_def = tree_flatten(opt_state)
@@ -303,13 +525,17 @@ class JittedTrainStep:
             else:
                 entry.step.fill_(int(step))
 
+            record = None
             if not on_card:
                 outs = self._run(entry)
             elif entry.graph is None:
                 if self._stream is None:
                     self._stream = torch.cuda.Stream(dev)
-                cap = capture(lambda: self._run(entry), dev, self._stream, release=True)
+                cap = capture(lambda: self._run(entry), dev, self._stream, release=True,
+                              owner="JittedTrainStep",
+                              key=tuple((tuple(t.shape), t.dtype) for t in b_leaves))
                 entry.graph, entry.out, entry.launches = cap.graph, cap.out, cap.launches
+                record = cap.record
                 self.captures += 1
                 outs = cap.warm
                 for t in outs:
@@ -325,6 +551,8 @@ class JittedTrainStep:
                 if entry.done is None:
                     entry.done = torch.cuda.Event()
                 entry.done.record(stream)
+            if record is not None:
+                first_call_done(record, t_call)
             out_p, out_s, out_m = entry.defs
             if self.donate:
                 return entry.params, entry.opt_state, out_m.unflatten(outs)

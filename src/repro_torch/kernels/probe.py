@@ -39,14 +39,35 @@ own log if that is another. A launch onto any other stream (a Router
 tenant's eager call from its own thread) never enters it. The table
 holds one entry at a time: ``cuda_graphs.capture`` registers under its
 process-wide ``CAPTURE_LOCK``.
+
+A **span** (:func:`span`, names ``repro_torch.*``) names a stretch of the
+program. With no ``torch.profiler`` running and no capture open it does
+nothing past one check of the profiler and one thread-local lookup. Under
+a running profiler it is a ``torch.profiler.record_function``, on the
+device trace's clock. Inside a capture that counts its graph's operations
+(:func:`capturing` given ``nodes``; ``cuda_graphs.capture`` counts them
+for a capture that names its owner) it also writes a **mark** into the
+capture's log at its entry and its exit:
+its name, its depth and the number of device operations (kernel, memcpy
+and memset nodes) the capture's graph holds then. A replay runs no
+Python, so those marks are what names a replay's device time: a graph
+captured on one stream is a chain, its operations run in capture order,
+and :func:`phase_table` cuts them by the marks into (span path, number
+of operations) phases. A captured train step's backward launches on
+autograd's device thread while the capturing thread waits inside its
+span, so its operations fall between that span's marks.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
+from torch.autograd import _profiler_enabled
 
 _local = threading.local()
+_NOOP = contextlib.nullcontext()
 _TABLES: dict = {}  # kernel name -> the LAUNCHES dict that counts it
 _CAPTURES: dict = {}  # raw CUDA stream handle under capture -> its DispatchLog
 
@@ -62,6 +83,12 @@ class DispatchLog:
         self.dispatches: list = []  # (phase, kernel name, plain version?)
         self.launches: list = []  # (phase, kernel name, dynamic shared-memory bytes)
         self.transfers: list = []  # (edge class, (src stage, dst stage), buffer shape)
+        # A capture's log only: the count of its graph's device operations
+        # (:func:`capturing`), and the spans' marks, (name, depth, entry?,
+        # operations) each.
+        self.nodes: Optional[Callable[[], int]] = None
+        self.marks: list = []
+        self.spans = 0
 
 
 def active() -> Optional[DispatchLog]:
@@ -81,15 +108,83 @@ def recording():
 
 
 @contextlib.contextmanager
-def capturing(stream: int, log: DispatchLog):
+def capturing(stream: int, log: DispatchLog, nodes: Optional[Callable[[], int]] = None):
     """Route every launch onto ``stream`` (a raw CUDA stream handle, the
     one each launcher launches on) into ``log`` for the duration of the
-    block, whichever thread makes it: the stream capture's log."""
+    block, whichever thread makes it: the stream capture's log. ``nodes()``
+    counts the device operations the capture's graph holds; given, the
+    spans opened on the thread mark the log."""
     _CAPTURES[stream] = log
+    log.nodes = nodes
     try:
         yield log
     finally:
         _CAPTURES.pop(stream, None)
+        log.nodes = None
+
+
+class _Marked:
+    """A span inside a capture: marks the capture's log at entry and exit,
+    and is a ``record_function`` besides while a profiler runs."""
+
+    __slots__ = ("log", "name", "inner")
+
+    def __init__(self, log: DispatchLog, name: str):
+        self.log, self.name = log, name
+        self.inner = torch.profiler.record_function(name) if _profiler_enabled() else None
+
+    def __enter__(self):
+        log = self.log
+        log.spans += 1
+        log.marks.append((self.name, log.spans, True, log.nodes()))
+        if self.inner is not None:
+            self.inner.__enter__()
+
+    def __exit__(self, *exc):
+        if self.inner is not None:
+            self.inner.__exit__(*exc)
+        log = self.log
+        log.marks.append((self.name, log.spans, False, log.nodes()))
+        log.spans -= 1
+
+
+def span(name: str):
+    """``with span("repro_torch.x"):`` names the block (the module's
+    spans)."""
+    log = getattr(_local, "log", None)
+    if log is not None and log.nodes is not None:
+        return _Marked(log, name)
+    if not _profiler_enabled():
+        return _NOOP
+    return torch.profiler.record_function(name)
+
+
+def phase_table(marks, total: int) -> tuple:
+    """A capture's phases from its marks and its graph's count of device
+    operations: ((span path, operations), ...) in capture order, the path
+    the span names from the outermost down joined by ``/`` ("" outside
+    every span), each stretch with no operation left out and neighbours
+    of one path merged."""
+    table, stack, at = [], [], 0
+
+    def cut(upto: int) -> None:
+        nonlocal at
+        if upto > at:
+            path = "/".join(stack)
+            if table and table[-1][0] == path:
+                table[-1] = (path, table[-1][1] + upto - at)
+            else:
+                table.append((path, upto - at))
+            at = upto
+
+    for name, _, entry, n in marks:
+        cut(n)
+        if entry:
+            stack.append(name)
+        else:
+            stack.pop()
+    cut(total)
+    return tuple(table)
 
 
 class dispatch:

@@ -104,10 +104,13 @@ def _validate_int8(int8_scales, act_bits, w) -> None:
 
 def _as_codes(x: torch.Tensor, in_bits: int) -> torch.Tensor:
     """Quantize a float frame onto the input stream grid as int8 codes
-    BEFORE the launch (the reference does it outside its pallas_call too):
-    the kernel's resident frame is 1 byte/element. Integer input is taken
-    as codes already."""
-    return quantize_stream(x, in_bits) if x.is_floating_point() else x
+    BEFORE the launch (the reference does it outside its pallas_call too),
+    under the span ``repro_torch.dhm.quantize``: the kernel's resident
+    frame is 1 byte/element. Integer input is taken as codes already."""
+    if not x.is_floating_point():
+        return x
+    with probe.span("repro_torch.dhm.quantize"):
+        return quantize_stream(x, in_bits)
 
 
 def _needs_grad(*tensors) -> bool:

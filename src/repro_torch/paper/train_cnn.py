@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch import cuda_graphs
 from repro_torch.core.dhm import QuantSpec, compile_dhm
 from repro_torch.data import make_image_dataset
+from repro_torch.kernels import probe
 from repro_torch.kernels.backends import resolve_device
 from repro_torch.models.cnn import CNNTopology, PAPER_TOPOLOGIES, cnn_apply, init_cnn
 from repro_torch.optim import (
@@ -74,16 +75,20 @@ def train_step(params, opt_state, x, y, lr, *, topo, cfg: AdamWConfig,
     at global norm 1.0, one AdamW update at ``lr`` (a number, or a 0-d
     tensor used where it lives: a schedule's value on the card keeps the
     step free of host reads). Returns ``(params, opt_state, loss,
-    grad_norm)``; the params come back as new tensors."""
+    grad_norm)``; the params come back as new tensors. Its phases are the
+    spans ``repro_torch.train.forward``, ``.backward`` and ``.update``."""
     leaves, treedef = tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in leaves]
-    loss = _loss_fn(treedef.unflatten(leaves), topo, x, y, weight_bits,
-                    act_bits, pow2_weights)
-    grads = treedef.unflatten(torch.autograd.grad(loss, leaves))
-    grads, gnorm = clip_by_global_norm(grads, 1.0)
-    params, opt_state = adamw_update(
-        grads, opt_state, treedef.unflatten([p.detach() for p in leaves]), cfg, lr
-    )
+    with probe.span("repro_torch.train.forward"):
+        loss = _loss_fn(treedef.unflatten(leaves), topo, x, y, weight_bits,
+                        act_bits, pow2_weights)
+    with probe.span("repro_torch.train.backward"):
+        grads = treedef.unflatten(torch.autograd.grad(loss, leaves))
+    with probe.span("repro_torch.train.update"):
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        params, opt_state = adamw_update(
+            grads, opt_state, treedef.unflatten([p.detach() for p in leaves]), cfg, lr
+        )
     return params, opt_state, loss.detach(), gnorm
 
 
