@@ -493,9 +493,10 @@ RELEASE_TURNS = 3
 # conv sum alone moves cifar10's by 6.6e-3 on the CPU,
 # tests/test_torch_training.py::test_qat8_gradients_move_with_the_last_bit_of_the_conv_sums).
 QAT_GRAD_REL_L2 = 2e-2
-# The backward's precision on lenet5's first layer at a small batch: the
-# frames (normal, seed SEED) under which cuDNN's algorithm is measured
-# against PyTorch's own convolution and a float64 composition.
+# The backward's precision on lenet5 at a small batch: the frames (normal,
+# seed SEED) under which the port's backward kernels, autograd of the plain
+# composition on PyTorch's own convolution and on cuDNN's deterministic
+# algorithm are measured against a float64 composition.
 PRECISION_BATCH = 16
 
 # Phase 5k, the dry run: the full-width cells traced on meta (decode_32k
@@ -558,25 +559,27 @@ def regroup_topologies(cnn) -> dict:
 
 
 def precise_convs():
-    """cuDNN off, TF32 off: the numerics of the training backward
-    (``kernels/backends.py`` ``backward_numerics``)."""
+    """cuDNN off, TF32 off: the numerics of the plain composition the
+    backward kernels are held to (PyTorch's own convolution)."""
     import torch
 
     return torch.backends.cudnn.flags(enabled=False, benchmark=False, deterministic=True,
                                       allow_tf32=False)
 
 
-def training_grads(topo, params, x, y, quant, *, plain=False) -> tuple:
+def training_grads(topo, params, x, y, quant, *, plain=False, cudnn=False) -> tuple:
     """(gradients, conv features) of the training loss (what
     ``paper/train_cnn.py``'s ``_loss_fn`` computes) at ``params`` on the
     device of ``x``: through the compiled plan, or ``plain``: native autograd of the per-layer
-    composition of ``ref.py`` (cuDNN off) around the same compiled plan's
-    baked params and head."""
+    composition of ``ref.py`` (cuDNN off, or with ``cudnn`` on cuDNN's
+    deterministic algorithm, ``backends.cudnn_backward``) around the same
+    compiled plan's baked params and head."""
     import contextlib
 
     import torch
 
     from repro_torch.core.dhm import QuantSpec, compile_dhm
+    from repro_torch.kernels.backends import cudnn_backward
     from repro_torch.kernels.stream_conv.halo import as_pyramid_layers
     from repro_torch.kernels.stream_conv.ref import stream_conv_pyramid_ref
     from repro_torch.tree_util import tree_flatten
@@ -584,7 +587,8 @@ def training_grads(topo, params, x, y, quant, *, plain=False) -> tuple:
     leaves, treedef = tree_flatten(params)
     leaves = [t.detach().to(x.device).requires_grad_() for t in leaves]
     plan = compile_dhm(topo, treedef.unflatten(leaves), quant=QuantSpec(**quant), device=x.device)
-    with precise_convs() if plain else contextlib.nullcontext():
+    convs = (cudnn_backward() if cudnn else precise_convs()) if plain else contextlib.nullcontext()
+    with convs:
         if plain:
             feats = stream_conv_pyramid_ref(
                 x, [c["w"] for c in plan.conv_params], [c["b"] for c in plan.conv_params],
@@ -656,17 +660,15 @@ def count_plain_versions() -> tuple:
 def phase_5g(smi: str) -> dict:
     """Training on the card (phase 5g). Returns the launches of the
     training path's window."""
-    import contextlib
     import tempfile
 
     import numpy as np
     import torch
 
-    from repro_torch.analysis.invariants import planned_launches
+    from repro_torch.analysis.invariants import planned_backward_launches, planned_launches
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core.dhm import compile_dhm
     from repro_torch.data import make_image_dataset
-    from repro_torch.kernels.backends import cudnn_backward
     from repro_torch.kernels.pow2_matmul import pow2 as kpow2
     from repro_torch.kernels.stream_conv import conv as kconv
     from repro_torch.kernels.stream_conv.epilogue import stream_quant_spec
@@ -699,8 +701,9 @@ def phase_5g(smi: str) -> dict:
                           training_grads(topos[n], init[n], xb.cpu(), yb.cpu(), q))
     # The backward's precision where cuDNN's own algorithm loses digits:
     # lenet5 at a small batch, against a float64 composition, through the
-    # port's backward (PyTorch's own convolution) and through cuDNN under
-    # deterministic, TF32-free flags.
+    # port's backward kernels, and autograd of the plain composition on
+    # PyTorch's own convolution and on cuDNN under deterministic, TF32-free
+    # flags.
     lenet = topos["lenet5"]
     rng = np.random.default_rng(SEED)
     xs = torch.from_numpy(rng.normal(size=(PRECISION_BATCH, 28, 28, 1)).astype(np.float32)).to(dev)
@@ -711,13 +714,15 @@ def phase_5g(smi: str) -> dict:
         return max(float((a.cpu() - b).norm() / b.norm()) for a, b in zip(grads, truth))
 
     port_err = rel_err(training_grads(lenet, init["lenet5"], xs, ys, {})[0])
-    with cudnn_backward():
-        cudnn_err = rel_err(training_grads(lenet, init["lenet5"], xs, ys, {})[0])
+    plain_err = rel_err(training_grads(lenet, init["lenet5"], xs, ys, {}, plain=True)[0])
+    cudnn_err = rel_err(training_grads(lenet, init["lenet5"], xs, ys, {}, plain=True,
+                                       cudnn=True)[0])
     cpu_err = rel_err(training_grads(lenet, init["lenet5"], xs.cpu(), ys.cpu(), {})[0])
     check(port_err <= 1e-5, f"5g lenet5 B={PRECISION_BATCH}: relative L2 {port_err} against float64")
     print(f"[5g] backward precision, lenet5 B={PRECISION_BATCH} (normal frames) against a float64 "
-          f"composition, largest relative L2 of a gradient: the port (PyTorch's CUDA conv, TF32 "
-          f"off) {port_err:.3e}, cuDNN (deterministic, TF32 off) {cudnn_err:.3e}, the CPU "
+          f"composition, largest relative L2 of a gradient: the port (its backward kernels) "
+          f"{port_err:.3e}, the plain composition on PyTorch's CUDA conv (TF32 off) "
+          f"{plain_err:.3e}, on cuDNN (deterministic, TF32 off) {cudnn_err:.3e}, the CPU "
           f"{cpu_err:.3e}")
     torch.cuda.synchronize()
 
@@ -728,14 +733,18 @@ def phase_5g(smi: str) -> dict:
         # One step's gradients, held as in the card tests.
         for n in names:
             xb, yb = batch[n]
-            want_launches = planned_launches(compile_dhm(topos[n], init[n], device=dev))
+            plan_n = compile_dhm(topos[n], init[n], device=dev)
+            want_launches = planned_launches(plan_n)
+            want_bwd = planned_backward_launches(plan_n)
             for m, q in modes.items():
-                before = sum(kconv.LAUNCHES.values())
+                before = dict(kconv.LAUNCHES)
                 got, feats = training_grads(topos[n], init[n], xb, yb, q)
-                n_launches = sum(kconv.LAUNCHES.values()) - before
-                check(n_launches == want_launches,
-                      f"5g {n} {m}: {n_launches} stream-conv launches for a forward whose plan "
-                      f"plans {want_launches}")
+                torch.cuda.synchronize()
+                n_launches = sum(kconv.LAUNCHES[k] - before[k] for k in kconv.FORWARD_KERNELS)
+                n_bwd = sum(kconv.LAUNCHES[k] - before[k] for k in kconv.BACKWARD_KERNELS)
+                check(n_launches == want_launches and n_bwd == want_bwd,
+                      f"5g {n} {m}: {n_launches} forward and {n_bwd} backward stream-conv launches "
+                      f"where the plan plans {want_launches} and {want_bwd}")
                 errs, steps = [], []
                 for (want, want_feats), what in zip(refs[n, m], ("plain on the card", "the CPU")):
                     d = (feats.cpu() - want_feats.cpu()).abs()
@@ -833,8 +842,8 @@ def phase_5g(smi: str) -> dict:
         restore_plain()
     launches = {**kconv.LAUNCHES, **kpow2.LAUNCHES}
     check(all(v == 0 for v in plain.values()), f"phase 5g called plain versions: {plain}")
-    check(launches["stream_conv_pyramid"] > 0 and launches["pow2_matmul"] > 0,
-          f"the training path's launches: {launches}")
+    check(launches["stream_conv_pyramid"] > 0 and launches["stream_conv_bwd_dw"] > 0
+          and launches["pow2_matmul"] > 0, f"the training path's launches: {launches}")
 
     stats = classify_model(trained.params, 3)
     print(f"[5g] classify_model(trained lenet5, 3 bits) (paper Table 1): "
@@ -891,23 +900,24 @@ def phase_5g(smi: str) -> dict:
                 print(f"[5g]   backward {v:.4f} ms  {k[:90]}")
             if q:
                 continue
-            # What the backward's precision costs: the loss and its
-            # gradient with the backward's convs on PyTorch's own CUDA
-            # convolution (the port's) and on cuDNN (deterministic, TF32
-            # off), host clock.
+            # The loss and its gradient through the port (its backward
+            # kernels) against autograd of the plain composition on
+            # PyTorch's own CUDA convolution and on cuDNN (deterministic,
+            # TF32 off), host clock.
             grad_ms = {}
-            for what, ctx in (("port", contextlib.nullcontext), ("cuDNN", cudnn_backward)):
-                with ctx():
-                    training_grads(topos[n], st[0], xb, yb, q)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    for _ in range(TRAIN_TIMED_STEPS):
-                        training_grads(topos[n], st[0], xb, yb, q)
-                    torch.cuda.synchronize()
-                    grad_ms[what] = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
+            for what, kw in (("port", {}), ("plain", dict(plain=True)),
+                             ("cuDNN", dict(plain=True, cudnn=True))):
+                training_grads(topos[n], st[0], xb, yb, q, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(TRAIN_TIMED_STEPS):
+                    training_grads(topos[n], st[0], xb, yb, q, **kw)
+                torch.cuda.synchronize()
+                grad_ms[what] = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
             print(f"[5g] {n} loss and gradient at B={TRAIN_BATCH} ({smi}): {grad_ms['port']:.3f} ms "
-                  f"with the backward's convs on PyTorch's CUDA convolution, {grad_ms['cuDNN']:.3f} "
-                  "ms on cuDNN (deterministic, TF32 off), host clock")
+                  f"through the port's backward kernels, {grad_ms['plain']:.3f} ms through the "
+                  f"plain composition on PyTorch's CUDA convolution, {grad_ms['cuDNN']:.3f} ms on "
+                  "cuDNN (deterministic, TF32 off), host clock")
     elapsed = time.perf_counter() - t_phase
     check(elapsed < PHASE_5G_LIMIT_S, f"phase 5g took {elapsed:.1f} s")
     print(f"[5g] training path launches: { {k: v for k, v in launches.items() if v} }; plain "
@@ -3078,14 +3088,15 @@ def main() -> None:
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _nvcc.build(["stream_conv", "pow2_matmul", "ssm_scan", "ssm_scan_bwd",
-                        "stream_conv_seed"])
+    logs = _nvcc.build(["stream_conv", "stream_conv_bwd", "pow2_matmul", "ssm_scan",
+                        "ssm_scan_bwd", "stream_conv_seed"])
     print(f"[2] nvcc build: {time.perf_counter() - t0:.1f} s"
           + ("" if logs else " (library already built in this checkout)"))
     for name, log in logs.items():
         for line in log.strip().splitlines():
             print(f"[2] {name}.cu: {line}")
     kconv._library()  # loads them and checks the descriptor layouts
+    kconv._bwd_library()
     kpow2._library()
     kscan._library()
     kscan._bwd_library()

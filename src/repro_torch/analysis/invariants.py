@@ -53,7 +53,7 @@ from typing import Callable, Dict
 
 import torch
 
-from repro_torch.kernels.stream_conv.conv import MAX_PYRAMID_LAYERS, SMEM_LIMIT
+from repro_torch.kernels.stream_conv.conv import MAX_PYRAMID_LAYERS, SMEM_LIMIT, bwd_launches
 
 SCOPES = ("plan", "structure", "resource", "pipeline")
 
@@ -108,6 +108,15 @@ def planned_launches(plan) -> int:
     the column strips times the channel slices the single-layer launcher
     plans for it (``conv.fused_plan`` over the SAME-padded frame)."""
     return sum(card_cost(plan, g)[0] for g in plan.fusion_groups)
+
+
+def planned_backward_launches(plan, *, frame_grad: bool = False) -> int:
+    """The kernel launches the card makes for the gradient of
+    ``plan.features``: ``conv.bwd_launches`` of each fusion group, whose
+    input needs a gradient in every group after the first, and in the
+    first where ``frame_grad``."""
+    return sum(bwd_launches(len(g.layers), i > 0 or frame_grad)
+               for i, g in enumerate(plan.fusion_groups))
 
 
 # ---------------------------------------------------------------------------

@@ -62,17 +62,18 @@ the side stream, under capture, so its kernels are recorded (in
 ``thread_local`` mode a launch from another thread onto the capturing
 stream is captured, and the caching allocator sends its allocations to
 the graph's pool by the stream's capture). The stream-conv groups'
-backward, a nested ``torch.autograd.grad`` of the recomputed plain
-composition under ``kernels/backends.py`` ``backward_numerics``
-(PyTorch's own convolution: im2col and cuBLAS), runs there too; the
-warm-up allocates that thread's cuBLAS workspace for the side stream.
-One warm-up is enough: on an H100 every key of ``chip_smoke.py`` phase
-5n captured at its first call and replays bit for bit the eager step.
-A hand-written kernel launched on that thread (the scan of a remat
-recompute, ``torch.utils.checkpoint`` unpacking a saved tensor inside
-the backward) carries no log of the thread, so it is logged by its
-stream, the side stream's: it is uncounted and replayed like the
-forward's.
+backward kernels (``kernels/stream_conv/ops.py`` ``_GroupGrad``: a
+recompute, dx and dW of each layer and one reduction, all on the card
+and with no float atomics) run there too, as does the head's cuBLAS
+backward; the warm-up allocates that thread's cuBLAS workspace for the
+side stream. One warm-up is enough: on an H100 every key of
+``chip_smoke.py`` phase 5n captured at its first call and replays bit
+for bit the eager step. A hand-written kernel launched on that thread
+(the stream-conv backward, the scan of a remat recompute,
+``torch.utils.checkpoint`` unpacking a saved tensor inside the
+backward) is logged by its stream, the side stream's, and the
+stream-conv backward in its forward caller's log too (``probe.attached``,
+the capture's own): it is uncounted and replayed like the forward's.
 
 PyTorch hands out the streams of its pool in turn, so a stream under
 capture may be one that other code uses too (a mesh's slot streams are

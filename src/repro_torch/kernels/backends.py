@@ -82,45 +82,21 @@ def sm_count(device: torch.device) -> int:
     return _sm_count(torch.cuda.current_device() if dev.index is None else dev.index)
 
 
-_BACKWARD_ON_CUDNN = False
-
-
 @contextlib.contextmanager
-def backward_numerics(t: torch.Tensor):
-    """IEEE fp32 and deterministic convolutions for a recomputed backward
-    on the card (the stream-conv and scan autograd Functions): TF32 off
-    for matmuls, and PyTorch's own CUDA convolution (im2col and cuBLAS
-    GEMMs) in place of cuDNN. On an H100, under ``deterministic=True,
-    allow_tf32=False``, cuDNN picks for lenet5's first layer at B=16 an
-    algorithm whose gradients sit 5.8e-4 (relative L2) from a float64
-    composition, where this path sits at 4.5e-7 (``chip_smoke.py`` phase
-    5g prints both); it costs a slower backward. Inside
-    :func:`cudnn_backward` the convolutions run on cuDNN instead, with
-    the same flags. On the CPU nothing changes."""
-    if not t.is_cuda:
-        yield
-        return
+def cudnn_backward():
+    """cuDNN on (``deterministic=True``, ``benchmark=False``), TF32 off
+    for convolutions and matmuls, within the block: the numerics of the
+    yardstick ``chip_smoke.py`` times and holds against float64 beside the
+    port's backward kernels, autograd of ``ref.py``'s composition through
+    cuDNN. The port never runs under it: its stream-conv gradient is the
+    hand-written kernels (``stream_conv/ops.py`` ``_GroupGrad``). On an
+    H100, for lenet5's first layer at B=16, cuDNN's deterministic
+    algorithm sits 5.8e-4 (relative L2) from a float64 composition."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        with torch.backends.cudnn.flags(enabled=_BACKWARD_ON_CUDNN, benchmark=False,
-                                        deterministic=True, allow_tf32=False):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-
-
-@contextlib.contextmanager
-def cudnn_backward():
-    """Within the block, :func:`backward_numerics` runs the recomputed
-    backward's convolutions on cuDNN (``deterministic=True``, TF32 off),
-    for comparing the two. The switch is process-wide, not per thread:
-    autograd runs a backward on its own device thread. A CUDA graph
-    records the numerics in force at its capture, so capture none inside
-    the block."""
-    global _BACKWARD_ON_CUDNN
-    prev, _BACKWARD_ON_CUDNN = _BACKWARD_ON_CUDNN, True
-    try:
-        yield
-    finally:
-        _BACKWARD_ON_CUDNN = prev

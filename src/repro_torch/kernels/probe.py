@@ -108,6 +108,20 @@ def recording():
 
 
 @contextlib.contextmanager
+def attached(log: Optional[DispatchLog]):
+    """Make ``log`` (a log another thread opened, or None for none) the
+    calling thread's log for the duration of the block: a backward that
+    autograd runs on its own device thread logs into its forward caller's
+    log, which waits on it."""
+    prev = active()
+    _local.log = log
+    try:
+        yield log
+    finally:
+        _local.log = prev
+
+
+@contextlib.contextmanager
 def capturing(stream: int, log: DispatchLog, nodes: Optional[Callable[[], int]] = None):
     """Route every launch onto ``stream`` (a raw CUDA stream handle, the
     one each launcher launches on) into ``log`` for the duration of the

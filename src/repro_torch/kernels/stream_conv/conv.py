@@ -40,11 +40,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import itertools
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _nvcc, probe
+from repro_torch.kernels.backends import sm_count
 from repro_torch.kernels.padding import round_up
 from repro_torch.kernels.stream_conv.epilogue import (
     normalize_pool,
@@ -60,12 +63,12 @@ THREADS = 256  # SC_THREADS in the source
 K_STAGE = 64  # SC_KC in the source: weight rows per shared-memory stage
 ACT_CODES = {"none": 0, "relu": 1, "tanh": 2}
 
-LAUNCHES = probe.counted({
-    "stream_conv_fused": 0,
-    "stream_conv_pyramid": 0,
-    "stream_conv_fused_int8": 0,
-    "stream_conv_pyramid_int8": 0,
-})
+FORWARD_KERNELS = ("stream_conv_fused", "stream_conv_pyramid", "stream_conv_fused_int8",
+                   "stream_conv_pyramid_int8")
+# The gradient's kernels (csrc/stream_conv_bwd.cu), in launch order.
+BACKWARD_KERNELS = ("stream_conv_bwd_recompute", "stream_conv_bwd_dx", "stream_conv_bwd_dw",
+                    "stream_conv_bwd_reduce")
+LAUNCHES = probe.counted({name: 0 for name in FORWARD_KERNELS + BACKWARD_KERNELS})
 # The int8 kernels' MMA (mma.sync m16n8k32 s8): K bytes per step, and the
 # staged weight rows' alignment (whole 128-byte groups of eight 16-byte
 # chunks, which the staging swizzles).
@@ -178,6 +181,12 @@ def _check_cuda(name: str, t: torch.Tensor, shape=None,
                 dtype=torch.float32) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    _check_operand(name, t, shape, dtype)
+
+
+def _check_operand(name: str, t: torch.Tensor, shape=None,
+                   dtype=torch.float32) -> None:
+    """dtype, contiguity and shape, the same on every device."""
     if t.dtype != dtype:
         raise ValueError(
             f"{name} must be {str(dtype).replace('torch.', '')}, got {t.dtype}"
@@ -993,3 +1002,367 @@ def stream_conv_pyramid_cuda(
     LAUNCHES[name] += 1
     probe.launched(name, smem, stream)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The gradient of a group (csrc/stream_conv_bwd.cu).
+
+BWD_SMEM_TARGET = 100 * 1024  # a dW block's shared memory the planner aims under
+BWD_MAX_POOL = 15  # the winner's index is one byte: pool windows up to 15 x 15
+BWD_MAX_WARPS = 16  # warps of a recompute or dx CTA (__launch_bounds__(512))
+BWD_PARTS_PER_SM = 2  # dW CTAs (K tiles x shares) the planner aims at per SM
+
+
+class _ScbLayer(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "batch", "hi", "wi", "c", "pt", "pl", "k", "s", "hc", "wc", "pw", "ps", "hq", "wq",
+        "n", "act", "qbits")] + [(f, ctypes.c_float) for f in (
+            "qscale", "qmin", "qmax", "qlo", "qhi")]
+
+
+class _ScbConv(ctypes.Structure):
+    _fields_ = [("L", _ScbLayer)] + [(f, ctypes.c_void_p) for f in (
+        "x", "w", "b", "g", "gate", "idx", "out", "gate_out", "idx_out")] + [
+        (f, ctypes.c_int) for f in ("rows", "n_rb", "cs", "rs", "np", "ys", "tap_off",
+                                    "wst_off", "y_off", "threads", "wpt", "tn", "kc")]
+
+
+class _ScbGrad(ctypes.Structure):
+    _fields_ = [("L", _ScbLayer)] + [(f, ctypes.c_void_p) for f in (
+        "x", "g", "gate", "idx", "part")] + [
+        (f, ctypes.c_int) for f in ("rows", "n_rb", "units", "parts", "cs", "rs", "np",
+                                    "dz_off", "kth", "ng", "threads", "tk", "tn")]
+
+
+class _ScbReduce(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p * MAX_PYRAMID_LAYERS) for f in ("part", "dw", "db")] + [
+        (f, ctypes.c_int * MAX_PYRAMID_LAYERS) for f in ("kk1", "n", "parts")] + [
+        ("layers", ctypes.c_int)]
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = _nvcc.load("stream_conv_bwd")
+    if not getattr(lib, "_scb_checked", False):
+        for fn, struct in ((lib.scb_conv_desc_bytes, _ScbConv),
+                           (lib.scb_grad_desc_bytes, _ScbGrad),
+                           (lib.scb_reduce_desc_bytes, _ScbReduce)):
+            fn.argtypes, fn.restype = [], ctypes.c_int
+            if fn() != ctypes.sizeof(struct):
+                raise RuntimeError(
+                    f"{struct.__name__} is {ctypes.sizeof(struct)} B in Python "
+                    f"but {fn()} B in the library: the layouts disagree"
+                )
+        lib.scb_conv_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p]
+        lib.scb_dw_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
+        lib.scb_reduce_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        for fn in (lib.scb_conv_launch, lib.scb_dw_launch, lib.scb_reduce_launch):
+            fn.restype = ctypes.c_int
+        lib._scb_checked = True
+    return lib
+
+
+def _ladder(n: int) -> tuple:
+    """n, then halved (rounded up) down to 1: the row blocks tried."""
+    out = [n]
+    while out[-1] > 1:
+        out.append(-(-out[-1] // 2))
+    return tuple(out)
+
+
+def bwd_conv_tiles(m: int, nout: int) -> tuple:
+    """The compiled tiles of a recompute or dx block of ``m`` positions and
+    ``nout`` output channels: (positions a thread, channels a thread,
+    warps, rounds) for 4, 2 or 1 positions x 8 or 4 channels, a warp task
+    being 16 x positions x 2 channel groups, one warp a task up to
+    ``BWD_MAX_WARPS`` and the tasks dealt round by round."""
+    out = []
+    for tn in (8, 4):
+        gpairs = -(-(-(-nout // tn)) // 2)
+        for wpt in (4, 2, 1):
+            tasks = -(-m // (16 * wpt)) * gpairs
+            warps = min(BWD_MAX_WARPS, tasks)
+            out.append((wpt, tn, warps, -(-tasks // warps)))
+    return tuple(out)
+
+
+def bwd_conv_cost(*, ctas: int, sms: int, smem: int, warps: int, rounds: int, wpt: int,
+                  tn: int, kdim: int, staged: int, slab: int) -> float:
+    """A launch's time in SM issue slots, to rank the planner's choices: a
+    CTA's threads each issue, a K row, ``wpt * tn`` FMAs and ``wpt + tn /
+    4`` shared loads a round, and stage ``staged`` weight and ``slab``
+    slab elements with the CTA, each weighed as 16 instructions (index
+    arithmetic and a load from L2 that few warps hide); an SM issues 4
+    warp instructions a clock given 4 warps a scheduler, fewer with fewer
+    (the CTAs it holds at once by shared memory, threads and the grid)."""
+    threads = 32 * warps
+    per_thread = rounds * round_up(kdim, 4) * (wpt * tn + wpt + tn / 4) \
+        + 16 * (staged + slab) / threads
+    held = max(1, min((SMEM_LIMIT + 1024) // (smem + 1024), 2048 // threads, 32,
+                      -(-ctas // sms)))
+    rate = min(4.0, held * warps / 4)
+    return -(-ctas // (sms * held)) * held * warps * per_thread / rate
+
+
+def bwd_dw_tile(kk1: int, n: int) -> dict:
+    """The dW kernel's thread tile for ``kk1`` K rows (k*k*c and db's) and
+    ``n`` channels: TN = 8 or 4 channels a thread in ``ng`` groups, ``kth``
+    K threads of up to 256, ``tk`` K rows each (at most 8) over ``ktiles``
+    tiles, the rows spread evenly; the TN with the fewer padded slots."""
+    best = None
+    for tn in (8, 4):
+        ng = -(-n // tn)
+        kth = min(THREADS // ng, kk1)
+        rows = -(-kk1 // kth)
+        ktiles = -(-rows // 8)
+        tk = -(-kk1 // (kth * ktiles))
+        slots = ktiles * kth * tk * ng * tn
+        if best is None or slots < best[0]:
+            best = (slots, dict(tn=tn, ng=ng, kth=kth, tk=tk, ktiles=ktiles,
+                                threads=round_up(ng * kth, 32)))
+    return best[1]
+
+
+def _bwd_conv_launch(g, batch: int, sms: int, dx: bool) -> dict:
+    """A recompute (``dx`` False) or dx launch of one layer (``halo.LayerGeom``
+    ``g``): the block's rows (pooled rows, or dx's input rows), tile and
+    weight stage of least ``bwd_conv_cost`` among those whose shared
+    memory fits: the slab (the input rows with zeros in the pads, or dz
+    dilated by the stride), the tap table, a stage of ``K_STAGE`` weight
+    rows (restaged every round) or of all of them (staged once) and, for
+    the recompute, the block's sums. Raises where one row does not fit."""
+    pw, ps = g.pw or 1, g.ps or 1
+    hc, wc = (g.out_rows - 1) * ps + pw, (g.out_cols - 1) * ps + pw
+    kin, nout = (g.n_out, g.in_ch) if dx else (g.in_ch, g.n_out)
+    cs = column_stride(kin)
+    kdim = g.k * g.k * kin
+    ys = 0 if dx else g.n_out | 1
+    best = None
+    for rows in _ladder(g.in_rows if dx else g.out_rows):
+        if dx:
+            m_rows, m_cols, step = rows, g.in_cols, 1
+            s_rows, s_cols = rows + g.k - 1, g.in_cols + g.k - 1
+        else:
+            m_rows, m_cols, step = (rows - 1) * ps + pw, wc, g.stride
+            s_rows, s_cols = (m_rows - 1) * g.stride + g.k, (wc - 1) * g.stride + g.k
+        m = m_rows * m_cols
+        rs = row_stride(s_cols, cs, step, m_cols, m)
+        tap_off = round_up(s_rows * rs, 4)
+        wst_off = tap_off + round_up(kdim, 4)
+        n_rb = -(-(g.in_rows if dx else g.out_rows) // rows)
+        for (wpt, tn, warps, rounds), kc in itertools.product(
+                bwd_conv_tiles(m, nout), (K_STAGE, round_up(kdim, 4))):
+            np_ = round_up(nout, tn)
+            if dx and np_ % 8 == 0:
+                np_ += 4  # the staging's column writes fall on 8 banks, not 1
+            y_off = wst_off + kc * np_
+            smem = 4 * (y_off + m * ys)
+            if smem > SMEM_LIMIT:
+                continue
+            stages = 1 if kc >= kdim else rounds
+            cost = bwd_conv_cost(ctas=batch * n_rb, sms=sms, smem=smem, warps=warps,
+                                 rounds=rounds, wpt=wpt, tn=tn, kdim=kdim,
+                                 staged=stages * round_up(kdim, kc) * np_,
+                                 slab=s_rows * s_cols * kin * (4 if dx else 1))
+            d = dict(rows=rows, n_rb=n_rb, cs=cs, rs=rs, np=np_, ys=ys, tap_off=tap_off,
+                     wst_off=wst_off, y_off=0 if dx else y_off, threads=32 * warps, wpt=wpt,
+                     tn=tn, kc=kc, smem=smem, hc=hc, wc=wc)
+            if best is None or cost < best[0]:
+                best = (cost, d)
+    if best is None:
+        raise ValueError(
+            f"stream-conv backward: one row of a {g.in_rows}x{g.in_cols}x{g.in_ch} frame "
+            f"needs more than the {SMEM_LIMIT} B of shared memory a block may use")
+    return best[1]
+
+
+def _bwd_dw(g, batch: int, sms: int, hc: int, wc: int) -> dict:
+    """A dW launch of one layer: the conv rows a unit (the largest whose
+    staged frame rows, with a channel of ones, and dz stay under
+    ``BWD_SMEM_TARGET`` and that give ``BWD_PARTS_PER_SM`` units an SM
+    over the K tiles, else the smallest that fits), the tile
+    (``bwd_dw_tile``) and the shares: ``BWD_PARTS_PER_SM`` CTAs an SM over
+    the K tiles, at most one a unit."""
+    kk1 = g.k * g.k * g.in_ch + 1
+    tile = bwd_dw_tile(kk1, g.n_out)
+    np_ = tile["ng"] * tile["tn"]
+    cs = column_stride(g.in_ch + 1)
+    s_cols = (wc - 1) * g.stride + g.k
+    choice = None
+    for rows in _ladder(hc):
+        s_rows = (rows - 1) * g.stride + g.k
+        rs = s_cols * cs
+        dz_off = round_up(s_rows * rs, 4)
+        smem = 4 * (dz_off + rows * wc * np_)
+        if smem <= SMEM_LIMIT:
+            choice = dict(rows=rows, cs=cs, rs=rs, dz_off=dz_off, smem=smem)
+            if (smem <= BWD_SMEM_TARGET and batch * -(-hc // rows) * tile["ktiles"]
+                    >= BWD_PARTS_PER_SM * sms):
+                break
+    if choice is None:
+        raise ValueError(
+            f"stream-conv backward: one conv row of dW of a {g.in_rows}x{g.in_cols}x{g.in_ch} "
+            f"frame needs more than the {SMEM_LIMIT} B of shared memory a block may use")
+    n_rb = -(-hc // choice["rows"])
+    units = batch * n_rb
+    parts = max(1, min(units, -(-BWD_PARTS_PER_SM * sms // tile["ktiles"])))
+    return dict(choice, np=np_, n_rb=n_rb, units=units, parts=parts, kk1=kk1, **tile)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdLayerPlan:
+    """One layer of a group's backward: ``frame``, the ``_ScbLayer``
+    geometry (its integer fields; the grid's floats are the epilogue's),
+    and the launches ``recompute``, ``dx`` (None where no dx is needed)
+    and ``dw``, each the kernel's tile and shared memory."""
+
+    frame: dict
+    recompute: dict
+    dx: Optional[dict]
+    dw: dict
+
+
+def bwd_plan(geom, batch: int, sms: int, need_dx: bool) -> tuple:
+    """The launches of a group's backward on a card of ``sms`` SMs, for a
+    group geometry (``halo.group_geometry`` at one block) and a batch:
+    per layer a ``BwdLayerPlan``; dx for every layer but the first, and
+    for the first where ``need_dx``. Raises where a pool window is above
+    ``BWD_MAX_POOL`` or a block does not fit in shared memory."""
+    out = []
+    for i, g in enumerate(geom.layers):
+        pw, ps = g.pw or 1, g.ps or 1
+        if pw > BWD_MAX_POOL:
+            raise ValueError(f"stream-conv backward: pool window {pw} above {BWD_MAX_POOL}")
+        rec = _bwd_conv_launch(g, batch, sms, False)
+        frame = dict(batch=batch, hi=g.in_rows, wi=g.in_cols, c=g.in_ch, pt=g.pads[0][0],
+                     pl=g.pads[1][0], k=g.k, s=g.stride, hc=rec["hc"], wc=rec["wc"], pw=pw,
+                     ps=ps, hq=g.out_rows, wq=g.out_cols, n=g.n_out, act=ACT_CODES[g.act])
+        dx = _bwd_conv_launch(g, batch, sms, True) if (i or need_dx) else None
+        out.append(BwdLayerPlan(frame=frame, recompute=rec, dx=dx,
+                                dw=_bwd_dw(g, batch, sms, rec["hc"], rec["wc"])))
+    return tuple(out)
+
+
+def bwd_launches(n_layers: int, need_dx: bool) -> int:
+    """Launches of a group's backward: a recompute, a dW and a dx a layer,
+    but no dx for the first layer unless ``need_dx``, and one reduction."""
+    return 3 * n_layers + need_dx
+
+
+def check_bwd_operands(x, weights, biases, g, geom) -> None:
+    """The backward wrapper's checks of dtype, shape and contiguity (every
+    device): float32 throughout, the group input and weights as the
+    geometry says, the gradient the group output's shape."""
+    layers = geom.layers
+    b_ = x.shape[0]
+    g0, last = layers[0], layers[-1]
+    named = [("x", x, (b_, g0.in_rows, g0.in_cols, g0.in_ch)),
+             ("g", g, (b_, last.out_rows, last.out_cols, last.n_out))]
+    for i, (lg, w, b) in enumerate(zip(layers, weights, biases)):
+        named += [(f"weights[{i}]", w, (lg.k, lg.k, lg.in_ch, lg.n_out)),
+                  (f"biases[{i}]", b, (lg.n_out,))]
+    for name, t, shape in named:
+        _check_operand(name, t, shape)
+
+
+def stream_conv_pyramid_bwd_cuda(
+    x: torch.Tensor,  # (B, H, W, C0), unpadded: the group input
+    weights,  # per layer (K, K, C, N) HWIO
+    biases,  # per layer (N,)
+    g: torch.Tensor,  # (B, H', W', N_last): the group output's gradient
+    *,
+    layers,  # halo.PyramidLayer per layer
+    act_bits: tuple,  # per layer int | None
+    need_dx: bool,
+) -> tuple:
+    """The gradient of one fp32 / fake-quant group on the card, as
+    autograd of ``ref.py``'s composition gives it: ``(dx, dws, dbs)``,
+    dx None unless ``need_dx``. Recomputes each layer's forward, its
+    pool winners and gates (``scb_conv_kernel<FWD>``), then per layer in
+    reverse dx (``<DX>``) and dW's partial sums (``scb_dw_kernel``), and
+    sums the partials of every layer in one ``scb_reduce_kernel``. Raises
+    on what the kernels do not take."""
+    layers, weights, biases = tuple(layers), tuple(weights), tuple(biases)
+    if not 1 <= len(layers) <= MAX_PYRAMID_LAYERS:
+        raise ValueError(
+            f"stream-conv backward takes 1 to {MAX_PYRAMID_LAYERS} layers, got {len(layers)}")
+    for name, t in (("x", x), ("g", g), *((f"weights[{i}]", w) for i, w in enumerate(weights)),
+                    *((f"biases[{i}]", b) for i, b in enumerate(biases))):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    b_, h, w, c = x.shape
+    geom = group_geometry(h, w, c, layers, tuple(wt.shape[0] for wt in weights),
+                          tuple(wt.shape[3] for wt in weights))
+    check_bwd_operands(x, weights, biases, g, geom)
+    if b_ > 65535:
+        raise ValueError(f"batch {b_} above the grid's 65535 images")
+    plan = bwd_plan(geom, b_, sm_count(x.device), need_dx)
+    lib = _bwd_library()
+    dev = x.device
+    layer_descs = []
+    for lp, bits in zip(plan, act_bits):
+        q = _quant_fields(bits)
+        layer_descs.append(_ScbLayer(**lp.frame, **q, qlo=q["qmin"] * q["qscale"],
+                                     qhi=q["qmax"] * q["qscale"]))
+
+    def launched(name, smem, err):
+        _raise_on(err, name)
+        LAUNCHES[name] += 1
+        probe.launched(name, smem, stream)
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ins, gates, idxs = [x], [], []
+        for i, (lp, lg) in enumerate(zip(plan, geom.layers)):
+            shape = (b_, lg.out_rows, lg.out_cols, lg.n_out)
+            out = torch.empty(shape, device=dev) if i + 1 < len(plan) else None
+            gates.append(torch.empty(shape, device=dev))
+            idxs.append(torch.empty(shape, device=dev, dtype=torch.uint8))
+            r = lp.recompute
+            desc = _ScbConv(
+                L=layer_descs[i], x=ins[-1].data_ptr(), w=weights[i].data_ptr(),
+                b=biases[i].data_ptr(), out=0 if out is None else out.data_ptr(),
+                gate_out=gates[-1].data_ptr(), idx_out=idxs[-1].data_ptr(),
+                **{f: r[f] for f in ("rows", "n_rb", "cs", "rs", "np", "ys", "tap_off",
+                                     "wst_off", "y_off", "threads", "wpt", "tn", "kc")})
+            launched("stream_conv_bwd_recompute", r["smem"],
+                     lib.scb_conv_launch(0, ctypes.addressof(desc), r["smem"], stream))
+            ins.append(out)
+        gy, dws, dbs, parts = g, [None] * len(plan), [None] * len(plan), [None] * len(plan)
+        dx = None
+        for i in reversed(range(len(plan))):
+            lp, lg = plan[i], geom.layers[i]
+            dx = None
+            if lp.dx is not None:
+                r = lp.dx
+                dx = torch.empty((b_, lg.in_rows, lg.in_cols, lg.in_ch), device=dev)
+                desc = _ScbConv(
+                    L=layer_descs[i], w=weights[i].data_ptr(), b=biases[i].data_ptr(),
+                    g=gy.data_ptr(), gate=gates[i].data_ptr(), idx=idxs[i].data_ptr(),
+                    out=dx.data_ptr(),
+                    **{f: r[f] for f in ("rows", "n_rb", "cs", "rs", "np", "ys", "tap_off",
+                                         "wst_off", "y_off", "threads", "wpt", "tn", "kc")})
+                launched("stream_conv_bwd_dx", r["smem"],
+                         lib.scb_conv_launch(1, ctypes.addressof(desc), r["smem"], stream))
+            d = lp.dw
+            parts[i] = torch.empty((d["parts"], d["kk1"], lg.n_out), device=dev)
+            desc = _ScbGrad(
+                L=layer_descs[i], x=ins[i].data_ptr(), g=gy.data_ptr(),
+                gate=gates[i].data_ptr(), idx=idxs[i].data_ptr(), part=parts[i].data_ptr(),
+                **{f: d[f] for f in ("rows", "n_rb", "units", "parts", "cs", "rs", "np",
+                                     "dz_off", "kth", "ng", "threads", "tk", "tn")})
+            launched("stream_conv_bwd_dw", d["smem"],
+                     lib.scb_dw_launch(ctypes.addressof(desc), d["ktiles"], d["smem"], stream))
+            dws[i] = torch.empty_like(weights[i])
+            dbs[i] = torch.empty_like(biases[i])
+            gy = dx
+        red = _ScbReduce(layers=len(plan))
+        for i, lp in enumerate(plan):
+            red.part[i], red.dw[i], red.db[i] = (parts[i].data_ptr(), dws[i].data_ptr(),
+                                                 dbs[i].data_ptr())
+            red.kk1[i], red.n[i], red.parts[i] = lp.dw["kk1"], geom.layers[i].n_out, lp.dw["parts"]
+        total = max(lp.dw["kk1"] * lg.n_out for lp, lg in zip(plan, geom.layers))
+        launched("stream_conv_bwd_reduce", 0,
+                 lib.scb_reduce_launch(ctypes.addressof(red), total, stream))
+    return (dx if need_dx else None), tuple(dws), tuple(dbs)

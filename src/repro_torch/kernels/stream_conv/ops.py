@@ -15,10 +15,13 @@ plain version is also logged to ``probe`` (for the plan verifier).
 A call that autograd must see through (grad mode on, and ``x``, a weight
 or a bias requiring grad) goes through :class:`_GroupGrad`: its forward is
 the same dispatch, so the loss comes from the kernel's output; its
-backward recomputes the group's composition in plain PyTorch ops and
-differentiates it, the counterpart of XLA's autodiff of the reference's
-``ref`` composition (the JAX package has no backward kernel). Int8 calls
-are forward-only: asking them for a gradient raises.
+backward is the counterpart of XLA's autodiff of the reference's ``ref``
+composition (the JAX package has no backward kernel), dispatched the same
+way: on a CUDA tensor the hand-written backward kernels
+(``conv.stream_conv_pyramid_bwd_cuda``), which raise on what they cannot
+take; on a CPU tensor autograd of the group's composition in plain
+PyTorch ops, recomputed. Int8 calls are forward-only: asking them for a
+gradient raises.
 """
 from __future__ import annotations
 
@@ -28,9 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import probe
-from repro_torch.kernels.backends import backward_numerics, on_cuda
+from repro_torch.kernels.backends import on_cuda
 from repro_torch.kernels.stream_conv.conv import (
     stream_conv_fused_cuda,
+    stream_conv_pyramid_bwd_cuda,
     stream_conv_pyramid_cuda,
 )
 from repro_torch.kernels.stream_conv.epilogue import (
@@ -129,20 +133,24 @@ class _GroupGrad(torch.autograd.Function):
     """One fp32 / fake-quant fusion group (or single layer) with a gradient.
 
     ``run(x, weights, biases)`` is the wrapper's own dispatch: the kernel on
-    a CUDA tensor, the plain version on a CPU one. The backward recomputes
-    the group from the saved input with the per-layer composition of
-    ``ref.py`` (conv, + bias, act, ``F.max_pool2d``, ``fake_quant_ste``),
-    which sends a tied pool window's gradient to its first element and
-    masks the clipped fake-quant elements as the reference's autodiff does,
-    and returns ``torch.autograd.grad`` of it, on the card under
-    ``backends.backward_numerics``. It calls ``ref.py`` directly, not
-    through a wrapper, so no plain-version dispatch is logged.
+    a CUDA tensor, the plain version on a CPU one. The backward gives what
+    autograd of ``ref.py``'s per-layer composition (conv, + bias, act,
+    ``F.max_pool2d``, ``fake_quant_ste``) gives: a tied pool window's
+    gradient to its first element, the clipped fake-quant elements masked,
+    relu's zero half the gradient. On a CUDA tensor it is the backward
+    kernels (``conv.stream_conv_pyramid_bwd_cuda``: the forward recomputed
+    from the saved input, then dx and dW over the whole batch), logged as
+    the dispatch ``stream_conv_pyramid_bwd`` in the forward caller's
+    ``probe`` log (autograd runs a card's backward on its own thread). On a
+    CPU tensor it recomputes the composition from the saved input and
+    returns ``torch.autograd.grad`` of it, calling ``ref.py`` directly, so
+    no plain-version dispatch is logged.
     """
 
     @staticmethod
     def forward(ctx, run, layers, bits, x, *params):
         n = len(params) // 2
-        ctx.layers, ctx.bits = layers, bits
+        ctx.layers, ctx.bits, ctx.log = layers, bits, probe.active()
         ctx.save_for_backward(x, *params)
         return run(x, params[:n], params[n:])
 
@@ -151,7 +159,18 @@ class _GroupGrad(torch.autograd.Function):
         saved = ctx.saved_tensors
         need = ctx.needs_input_grad[3:]
         n = (len(saved) - 1) // 2
-        with torch.enable_grad(), backward_numerics(g):
+        if on_cuda(g):
+            x, weights, biases = saved[0], saved[1 : 1 + n], saved[1 + n :]
+            with probe.attached(ctx.log):
+                with probe.dispatch("stream_conv_pyramid_bwd", plain=False):
+                    dx, dws, dbs = stream_conv_pyramid_bwd_cuda(
+                        x.contiguous(), [w.contiguous() for w in weights],
+                        [b.contiguous() for b in biases], g.contiguous(),
+                        layers=ctx.layers, act_bits=ctx.bits, need_dx=need[0],
+                    )
+            grads = (dx, *dws, *dbs)
+            return (None, None, None, *(t if r else None for t, r in zip(grads, need)))
+        with torch.enable_grad():
             leaves = [t.detach().requires_grad_(r) for t, r in zip(saved, need)]
             y = _ref.stream_conv_pyramid_ref(
                 leaves[0], leaves[1 : 1 + n], leaves[1 + n :],

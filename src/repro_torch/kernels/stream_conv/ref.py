@@ -14,10 +14,13 @@ explicitly with XLA's rule (``halo.same_pads``: total = max((ceil(d/s) -
 differently for even windows and refuses stride > 1. Pooling is
 ``F.max_pool2d`` with the VALID floor (a tied window's gradient goes to
 its first element, as under the reference's ``reduce_window``);
-quantization goes through ``fake_quant_ste``. The training backward
-differentiates this composition (``ops._GroupGrad``), so its autograd
-follows the reference's autodiff too (``relu`` as ``max(y, 0)``). On a CUDA tensor these run cuDNN convs: a caller that
-compares them with a kernel turns cuDNN's TF32 off first.
+quantization goes through ``fake_quant_ste``. On the CPU the training
+backward differentiates this composition (``ops._GroupGrad``), so its
+autograd follows the reference's autodiff too (``relu`` as ``max(y,
+0)``); on the card the backward kernels (``csrc/stream_conv_bwd.cu``)
+give the same semantics, and this composition is what their tests hold
+them to. On a CUDA tensor these run cuDNN convs: a caller that compares
+them with a kernel turns cuDNN's TF32 off first.
 
 With ``int8_scales`` the conv is the true-integer rendering: int8 input
 codes times int8 weight codes, summed exactly. ``F.conv2d`` has no

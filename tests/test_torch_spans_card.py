@@ -31,6 +31,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch import cuda_graphs  # noqa: E402
+from repro_torch.analysis.invariants import planned_backward_launches  # noqa: E402
 from repro_torch.core.dhm import QuantSpec, compile_dhm  # noqa: E402
 from repro_torch.models.cnn import ALL_TOPOLOGIES, LENET5, init_cnn  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, linear_warmup_cosine  # noqa: E402
@@ -160,8 +161,16 @@ def test_the_qat_train_steps_graph_by_phase(card, tmp_path):
     paths = [p for p, _ in record.phases]
     assert any(p.startswith(f"{FWD}/") and p.endswith(STAGE) for p in paths)
     assert any(p.startswith(f"{FWD}/") and p.endswith(HEAD) for p in paths)
-    backward = sum(n for p, n in record.phases if p == BWD)
-    assert backward > sum(n for p, n in record.phases if p.startswith(FWD)), record.phases
+    # The backward, launched on autograd's thread, lands in its own phase:
+    # the stream-conv group's backward kernels, as many as planned, all there.
+    plan = compile_dhm(LENET5, params, quant=QuantSpec(weight_bits=3, act_bits=3), device=card)
+    in_bwd, elsewhere, at = [], [], 0
+    for path, n in record.phases:
+        (in_bwd if path == BWD else elsewhere).extend(record.ops[at:at + n])
+        at += n
+    scb = [op for op in in_bwd if "scb_" in op]
+    assert len(scb) == planned_backward_launches(plan), record.phases
+    assert not [op for op in elsewhere if "scb_" in op] and len(in_bwd) > len(scb)
     assert record.first_call_s >= record.capture_s > 0 and record.release_s > 0
     events = _profiled(lambda: step_fn(params, state, x, y, 1), tmp_path)
     assert step_fn.replays == 1

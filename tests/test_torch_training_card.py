@@ -11,11 +11,12 @@ use):
 
 This file imports no JAX: the machine with the card has none.
 
-The plain composition on the card is differentiated with cuDNN off, as
-the Function's backward is (``backends.backward_numerics``): under
-``deterministic=True, allow_tf32=False`` cuDNN picks, for lenet5's first
-layer at B=16, an algorithm whose gradients sit 5.8e-4 (relative L2) from
-a float64 composition (``chip_smoke.py`` phase 5g prints the figure).
+The Function's backward on the card is the hand-written backward kernels
+(``csrc/stream_conv_bwd.cu``). The plain composition on the card is
+differentiated with cuDNN off: under ``deterministic=True,
+allow_tf32=False`` cuDNN picks, for lenet5's first layer at B=16, an
+algorithm whose gradients sit 5.8e-4 (relative L2) from a float64
+composition (``chip_smoke.py`` phase 5g prints the figure).
 
 Tolerances: fp32 and the pow2 QAT head per element at rtol 1e-4, atol
 1e-5 (IEEE fp32 sums in other orders), against the plain composition on
@@ -39,7 +40,10 @@ torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 
-from repro_torch.analysis.invariants import planned_launches  # noqa: E402
+from repro_torch.analysis.invariants import (  # noqa: E402
+    planned_backward_launches,
+    planned_launches,
+)
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core.dhm import QuantSpec, compile_dhm  # noqa: E402
 from repro_torch.core.dhm.engine import forward  # noqa: E402
@@ -189,6 +193,10 @@ def test_card_gradients_equal_plain_autograd_on_the_card_and_the_cpus(card, name
 @pytest.mark.parametrize("vmem_budget", [None, 0])
 @pytest.mark.parametrize("name", NAMES)
 def test_a_training_step_launches_each_group_once_and_no_plain_version(card, name, vmem_budget):
+    """The forward launches its planned kernels once a group; the backward,
+    logged in the caller's log though autograd runs it on its own thread,
+    its planned backward kernels once a group; neither calls a plain
+    version."""
     topo, params, x, y = _setup(name)
     _grads(topo, params, x, y, card, {}, vmem_budget=vmem_budget)  # builds and warms up
     kconv.reset_launch_counts()
@@ -196,8 +204,17 @@ def test_a_training_step_launches_each_group_once_and_no_plain_version(card, nam
         _, plan, _ = _grads(topo, params, x, y, card, {}, vmem_budget=vmem_budget)
     torch.cuda.synchronize()
     assert [d for d in log.dispatches if d[2]] == []  # no plain version
-    assert len(log.dispatches) == len(plan.fusion_groups)
-    assert sum(kconv.LAUNCHES.values()) == planned_launches(plan) == len(log.launches)
+    bwd = [d for d in log.dispatches if d[1] == "stream_conv_pyramid_bwd"]
+    assert len(log.dispatches) - len(bwd) == len(bwd) == len(plan.fusion_groups)
+
+    def launched(kernels):
+        return (sum(kconv.LAUNCHES[k] for k in kernels),
+                sum(1 for _, k, _ in log.launches if k in kernels))
+
+    want = planned_launches(plan)
+    assert launched(kconv.FORWARD_KERNELS) == (want, want)
+    want = planned_backward_launches(plan)
+    assert launched(kconv.BACKWARD_KERNELS) == (want, want)
 
 
 def test_the_pow2_head_carries_the_conv_features_gradient_on_the_card(card):
