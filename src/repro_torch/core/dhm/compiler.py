@@ -203,9 +203,14 @@ def _validate_layer(
 
 def validate_topology(topo) -> None:
     """Validate every conv layer of a CNNTopology at compile time: the
-    layer vocabulary, and that every layer keeps positive spatial dims."""
+    layer vocabulary, the head's activation, and that every layer keeps
+    positive spatial dims."""
     for li, spec in enumerate(topo.conv_layers):
         _validate_layer(f"{topo.name} conv layer {li}", **_spec_fields(spec))
+    if topo.fc_act not in ACTS:
+        raise ValueError(
+            f"{topo.name} head: unknown fc_act {topo.fc_act!r}; expected one of {ACTS}"
+        )
     h, w = topo.input_shape
     for li, spec in enumerate(topo.conv_layers):
         where = f"{topo.name} conv layer {li}"
@@ -255,6 +260,47 @@ def _conv_dims(topo, last: int) -> list:
     return dims
 
 
+def _singleton_plan(topo, layer: int, *, elem_bytes: int, block_r: int) -> dict:
+    """The single-layer launcher's ``conv.fused_plan`` for conv layer
+    ``layer`` alone, over the frame ``halo.padded_frame`` gives it."""
+    sp = topo.conv_layers[layer]
+    h, w, c = _conv_dims(topo, layer)[layer]
+    return fused_plan(*padded_frame(h, w, sp.kernel, sp.stride, sp.padding), c,
+                      k=sp.kernel, stride=sp.stride, pool=sp.pool,
+                      pool_stride=sp.pool_stride, block_r=block_r, n_out=sp.n_out,
+                      elem_bytes=elem_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class CardLaunch:
+    """The launches of one card fusion group: the kernel wrapper that runs
+    it (the ``conv.LAUNCHES`` key), its conv-layer indices, and its column
+    strips and output-channel slices (1 and 1 for a pyramid group), one
+    launch each pair."""
+
+    kernel: str
+    layers: tuple
+    strips: int = 1
+    slices: int = 1
+
+    @property
+    def launches(self) -> int:
+        return self.strips * self.slices
+
+
+def card_launch(topo, group, *, elem_bytes: int = 4, block_r: int = 8) -> CardLaunch:
+    """The :class:`CardLaunch` of one card fusion group: one pyramid launch
+    for a multi-layer group, the single-layer launcher's strips times its
+    slices (``conv.fused_plan``) for a singleton."""
+    suffix = "_int8" if elem_bytes == 1 else ""
+    layers = tuple(group.layers)
+    if len(layers) > 1:
+        return CardLaunch(kernel="stream_conv_pyramid" + suffix, layers=layers)
+    geo = _singleton_plan(topo, layers[0], elem_bytes=elem_bytes, block_r=block_r)
+    return CardLaunch(kernel="stream_conv_fused" + suffix, layers=layers,
+                      strips=len(geo["strips"]), slices=len(geo["slices"]))
+
+
 @functools.lru_cache(maxsize=1024)
 def card_group_cost(topo, layers: tuple, block_rows: int, *, elem_bytes: int = 4,
                     block_r: int = 8) -> tuple:
@@ -276,12 +322,7 @@ def card_group_cost(topo, layers: tuple, block_rows: int, *, elem_bytes: int = 4
         lay = int8_pyramid_layout(geom) if elem_bytes == 1 else pyramid_layout(geom)
         n, smem, tap_off, wst_off = 1, lay.smem, lay.tap_off, lay.wst_off
     else:
-        sp = topo.conv_layers[layers[0]]
-        h, w, c = _conv_dims(topo, layers[0])[layers[0]]
-        geo = fused_plan(*padded_frame(h, w, sp.kernel, sp.stride, sp.padding), c,
-                         k=sp.kernel, stride=sp.stride, pool=sp.pool,
-                         pool_stride=sp.pool_stride, block_r=block_r, n_out=sp.n_out,
-                         elem_bytes=elem_bytes)
+        geo = _singleton_plan(topo, layers[0], elem_bytes=elem_bytes, block_r=block_r)
         n = len(geo["strips"]) * len(geo["slices"])
         smem, tap_off, wst_off = geo["smem"], geo["tap_off"], geo["wst_off"]
     parts = {"slab buffers": unit * tap_off, "tap table": unit * (wst_off - tap_off),
@@ -485,9 +526,11 @@ def _pow2_linear_ste(x, w, x_spec=None, *, packed=None, scale=None):
     return _Pow2LinearSTE.apply(x, w, packed, scale, x_spec)
 
 
-def _emit_head(fc_params, quant: QuantSpec, device, head_in_bits=None) -> tuple:
-    """Emit the classifier head: flatten -> FC stack (tanh + feature-stream
-    quant between hidden layers; logits unquantized, as in the reference).
+def _emit_head(fc_params, quant: QuantSpec, device, head_in_bits=None,
+               fc_act: str = "tanh") -> tuple:
+    """Emit the classifier head: flatten -> FC stack (``fc_act`` +
+    feature-stream quant between hidden layers; logits unquantized, as in
+    the reference).
     Dense products are ``torch.matmul`` in float32; PyTorch's default keeps
     TF32 off for them (``torch.backends.cuda.matmul.allow_tf32``).
 
@@ -525,6 +568,8 @@ def _emit_head(fc_params, quant: QuantSpec, device, head_in_bits=None) -> tuple:
         else None
     )
 
+    act = {"tanh": torch.tanh, "relu": torch.relu, "none": lambda t: t}[fc_act]
+
     def head_fn(h):
         h = h.reshape(h.shape[0], -1)
         for i, p in enumerate(baked):
@@ -536,7 +581,7 @@ def _emit_head(fc_params, quant: QuantSpec, device, head_in_bits=None) -> tuple:
             else:
                 h = torch.matmul(h, p["w"]) + p["b"]
             if i < len(baked) - 1:
-                h = torch.tanh(h)
+                h = act(h)
                 if qact_spec is not None:
                     h = fake_quant_ste(h, qact_spec)
         return h
@@ -564,6 +609,8 @@ class CompiledStage:
     # group order (``card_group_cost``, which the verifier's resource scope
     # holds against SMEM_LIMIT); () on a CPU plan.
     card_smem: tuple = ()
+    # A card plan's CardLaunch per group, in group order; () on a CPU plan.
+    launches: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -613,6 +660,15 @@ class CompiledDHM:
         """The shared memory each fusion group's launches request on the
         card, in execution order (() on a CPU plan)."""
         return tuple(b for st in self.stages for b in st.card_smem)
+
+    @property
+    def launch_table(self) -> tuple:
+        """The conv launches of one forward on the card: a
+        :class:`CardLaunch` per fusion group, in execution order (() on a
+        CPU plan). Their ``launches`` sum to the stream-conv launches of
+        one call (and of one replay of the plan's graph, whose capture
+        record keeps this table)."""
+        return tuple(g for st in self.stages for g in st.launches)
 
     def stage_params(self, stage: int) -> list:
         return [self.conv_params[i] for i in self.stages[stage].conv_layers]
@@ -784,7 +840,7 @@ def compile_dhm(
         groups = plan_fusion_groups(
             topo, idxs, vmem_budget=budget, elem_bytes=elem_bytes
         )
-        card_smem = ()
+        card_smem = launches = ()
         if dev.type == "cuda":
             groups = card_fusion_groups(
                 topo, idxs, groups, elem_bytes=elem_bytes, block_r=block_r
@@ -794,6 +850,8 @@ def compile_dhm(
                                 block_r=block_r)[1]
                 for g in groups
             )
+            launches = tuple(card_launch(topo, g, elem_bytes=elem_bytes, block_r=block_r)
+                             for g in groups)
         local_groups = tuple(
             (tuple(li - idxs[0] for li in g.layers), g.block_rows)
             for g in groups
@@ -822,11 +880,13 @@ def compile_dhm(
                 groups=groups,
                 io=StageIOSpec(in_shape=in_shape, out_shape=(h, w, c)),
                 card_smem=card_smem,
+                launches=launches,
             )
         )
 
     head_fn, fc_params = _emit_head(
-        params["fc"], quant, dev, head_in_bits=per_layer_act[-1]
+        params["fc"], quant, dev, head_in_bits=per_layer_act[-1],
+        fc_act=topo.fc_act,
     )
     return CompiledDHM(
         topo=topo,

@@ -125,6 +125,9 @@ class JittedForward:
     ``cuda_graphs.JittedTrainStep``'s do. A shape's first call leaves its
     seconds in the capture's record (``cuda_graphs.graphs``).
 
+    ``launch_table`` (the plan's ``CompiledDHM.launch_table``, () for
+    any other closure) is written into each capture's record.
+
     ``donate=True`` is the port's input donation: a caller that writes
     its batch into :meth:`input_buffer` and hands that buffer over gets a
     replay with no device copy before it. Otherwise the caller's tensor
@@ -142,10 +145,12 @@ class JittedForward:
     into :meth:`input_buffer` holds it from there to the call.
     """
 
-    def __init__(self, fn: Callable, device, *, donate: bool = False):
+    def __init__(self, fn: Callable, device, *, donate: bool = False,
+                 launch_table: tuple = ()):
         self.fn = fn
         self.device = torch.device(device)
         self.donate = donate
+        self.launch_table = tuple(launch_table)
         self.lock = threading.RLock()
         self.staged = self.captures = self.replays = 0
         self._shapes: dict = {}  # (shape, dtype) -> _Captured
@@ -178,6 +183,7 @@ class JittedForward:
             self._stream = torch.cuda.Stream(self.device)
         cap = cuda_graphs.capture(lambda: self.fn(static_in), self.device, self._stream,
                                   owner="JittedForward", key=key)
+        cap.record.launch_table = self.launch_table
         self.captures += 1
         return _Captured(static_in=static_in, static_out=cap.out, graph=cap.graph,
                          launches=cap.launches, transfers=cap.transfers), cap.record
@@ -243,7 +249,8 @@ def plan_jitted_forward(plan, *, donate: bool = False) -> JittedForward:
             object.__setattr__(plan, "_fwd_cache", cache)
         if donate not in cache:
             cache[donate] = JittedForward(
-                lambda xb: forward(plan, xb), plan.device, donate=donate
+                lambda xb: forward(plan, xb), plan.device, donate=donate,
+                launch_table=plan.launch_table,
             )
         return cache[donate]
 

@@ -114,7 +114,9 @@ class GraphRecord:
     where libcuda could not be read (``unread`` then names the libcuda
     call that failed). Host seconds: the warm-up, the release (0 where
     not asked), the capture, and the key's whole first call (0 until its
-    owner ends it)."""
+    owner ends it). ``launch_table``: what the owner says one replay
+    launches (the plan's graph: its ``compiler.CardLaunch`` per conv
+    fusion group), () where it says nothing."""
 
     id: int
     owner: str
@@ -126,6 +128,7 @@ class GraphRecord:
     capture_s: float
     first_call_s: float = 0.0
     unread: str = ""
+    launch_table: tuple = ()
 
     @property
     def n_ops(self) -> int:

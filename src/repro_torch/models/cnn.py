@@ -10,7 +10,14 @@ Topologies (paper Table 1):
   SVHN     : same topology as Cifar10 (different learned kernel values).
 
 plus ``CIFAR10_FULL`` (Caffe's cifar10_full: overlapping 3x3/stride-2
-max-pool) and ``CIFAR10_STRIDED`` (stride-2 downsampling convs).
+max-pool) and ``CIFAR10_STRIDED`` (stride-2 downsampling convs), and
+``VGG16`` (configuration D of Simonyan & Zisserman, arXiv:1409.1556,
+Table 1: 13 3x3 SAME relu convs at 224x224x3, a relu classifier head),
+which stays out of ``ALL_TOPOLOGIES`` so that the loops over every
+topology do not run a 224x224 network.
+
+``fc_act`` is the activation between the head's FC layers, in the conv
+layers' vocabulary (``tanh`` by default, as the paper's networks have it).
 
 Parameters are a plain dict ``{"conv": [{"w", "b"}...], "fc": [...]}``
 with the reference's layouts: HWIO conv kernels, ``(in, out)`` FC weights;
@@ -87,6 +94,7 @@ class CNNTopology:
     conv_layers: tuple
     fc_dims: tuple  # hidden FC dims of the classifier head
     n_classes: int
+    fc_act: str = "tanh"  # activation between the head's FC layers
 
     def __post_init__(self):
         hw = self.input_hw
@@ -220,6 +228,22 @@ EXTRA_TOPOLOGIES = {
 ALL_TOPOLOGIES = {**PAPER_TOPOLOGIES, **EXTRA_TOPOLOGIES}
 
 
+VGG16 = CNNTopology(
+    name="vgg16",
+    input_hw=224,
+    input_channels=3,
+    conv_layers=tuple(
+        ConvLayerSpec(n_out=n, kernel=3, padding="SAME", pool=pool, act="relu")
+        for n, pool in ((64, 0), (64, 2), (128, 0), (128, 2), (256, 0), (256, 0),
+                        (256, 2), (512, 0), (512, 0), (512, 2), (512, 0), (512, 0),
+                        (512, 2))
+    ),
+    fc_dims=(4096, 4096),
+    n_classes=1000,
+    fc_act="relu",
+)
+
+
 def init_cnn(generator: torch.Generator, topo: CNNTopology, *, device=None) -> dict:
     """Glorot-style init (normal * sqrt(2 / fan_in), zero biases) drawn
     from ``generator`` (a CPU ``torch.Generator``) and moved to ``device``
@@ -325,6 +349,7 @@ def cnn_apply_reference(
         return fake_quant_ste(h, FixedPointSpec(bits=act_bits, frac_bits=act_bits - 2))
 
     act = {"tanh": torch.tanh, "relu": F.relu, "none": lambda t: t}
+    fc_act = act[topo.fc_act]
     h = x.to(torch.float32)
     for spec, p in zip(topo.conv_layers, params["conv"]):
         if spec.padding == "SAME":
@@ -344,5 +369,5 @@ def cnn_apply_reference(
     for i, p in enumerate(params["fc"]):
         h = h @ p["w"] + p["b"]
         if i < len(params["fc"]) - 1:
-            h = maybe_qact(torch.tanh(h))
+            h = maybe_qact(fc_act(h))
     return h
