@@ -12,8 +12,10 @@ Phases (each asserts or exits non-zero):
      topologies and the fp32 single-layer kernel on every layer of
      cifar10, cifar10_full and cifar10_strided, in fp32 and with
      act_bits=6; their int8 variants at act_bits=8 on the same groups and
-     layers; pow2_matmul in both modes at the cifar10 and lenet5 head
-     shapes;
+     layers; the int8 single-layer kernel's wgmma path at VGG-16's
+     layers VGG16_CHECK_LAYERS (224x224, C 128 and 512, with and without
+     the 2x2 pool), bit for bit, every launch on that path; pow2_matmul
+     in both modes at the cifar10 and lenet5 head shapes;
   3c. hold the selective scan against its plain version at the
      falcon-mamba layer (Bz 4, S 512, D 8192, N 16) in bf16 and f32 with
      zero and carried state, at decode (S = 1), at N = 64 and at D of 200
@@ -337,6 +339,14 @@ QUANT_BITS = 6
 # this share of such elements would mean a real fault.
 QUANT_MAX_STEP_SHARE = 1e-3
 INT8_BITS = 8
+# The single-layer int8 kernel's wgmma path at VGG-16's single layers
+# (conv layers 2-12 at 224x224, B = BATCH): the layers phase 3 holds bit
+# for bit (C 128 pooled at 112 wide, C 512 unpooled at 28, C 512 pooled at
+# 14); phase 6 times all eleven. Stream codes over the whole 8-bit grid,
+# weight codes in [-8, 8] at a weight scale of 2^-10, so that the outputs
+# spread over the grid rather than clip, and a bias of about 0.05.
+VGG16_CHECK_LAYERS = (3, 8, 12)
+VGG16_W_SCALE = 2.0 ** -10
 # pow2_matmul's fp32 mode against its plain version; the activations sit
 # on a 2^-4 grid, where every partial sum of these shapes is exact.
 POW2_RTOL, POW2_ATOL = 1e-5, 1e-6
@@ -3069,7 +3079,7 @@ def main() -> None:
     from repro_torch.models import ssm as mssm
     from repro_torch.models import transformer as T
     from repro_torch.models.accounting import model_flops, param_bytes, param_count
-    from repro_torch.models.cnn import ALL_TOPOLOGIES, cnn_apply_reference, init_cnn
+    from repro_torch.models.cnn import VGG16, ALL_TOPOLOGIES, cnn_apply_reference, init_cnn
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3234,6 +3244,42 @@ def main() -> None:
                   "step apart")
             h, w = spec.out_hw(h, w)
             c = spec.n_out
+    vgg_in, (vh, vw), vc = {}, VGG16.input_shape, VGG16.input_channels
+    for li, spec in enumerate(VGG16.conv_layers):
+        vgg_in[li] = (vh, vw, vc)
+        vh, vw = spec.out_hw(vh, vw)
+        vc = spec.n_out
+
+    def vgg16_layer(li):
+        """VGG-16 conv layer ``li``'s operands at B = BATCH (values on the
+        8-bit grid, weight codes, bias) and its ``stream_conv_block``
+        keywords, drawn from the layer's own seed."""
+        (hh, ww, cc), spec = vgg_in[li], VGG16.conv_layers[li]
+        g = torch.Generator(device=dev).manual_seed(SEED + li)
+        xv = torch.randint(-128, 128, (BATCH, hh, ww, cc), generator=g, device=dev) / 64.0
+        wq = torch.randint(-8, 9, (3, 3, cc, spec.n_out), generator=g, device=dev,
+                           dtype=torch.int8)
+        bv = 0.05 * torch.randn(spec.n_out, generator=g, device=dev)
+        kw = dict(padding=spec.padding, act=spec.act, pool=spec.pool, act_bits=INT8_BITS,
+                  int8_scales=Int8Scales(in_bits=INT8_BITS, w_scale=VGG16_W_SCALE))
+        return xv, wq, bv, kw
+
+    errs["stream_conv_fused_int8_wgmma"] = 0.0
+    kconv.reset_launch_counts()
+    for li in VGG16_CHECK_LAYERS:
+        xv, wq, bv, kw = vgg16_layer(li)
+        out = stream_conv_block(xv, wq, bv, **kw)
+        ref = stream_conv_block_ref(xv, wq, bv, **kw)
+        torch.cuda.synchronize()
+        what = f"int8 single-layer wgmma path VGG-16 layer {li} {vgg_in[li]} B={BATCH}"
+        check(out.shape == ref.shape, f"{what}: {out.shape} vs {ref.shape}")
+        check(torch.equal(out, ref), f"{what}: max |delta| {float((out - ref).abs().max())}")
+        check(int(torch.unique(ref).numel()) > 8, f"{what}: the outputs clip to the grid's ends")
+        print(f"[3] {what}: equal, {int(torch.unique(ref).numel())} distinct outputs")
+        del xv, wq, bv, out, ref
+    wgmma_launches = kconv.PATH_LAUNCHES["wgmma"]
+    check(kconv.PATH_LAUNCHES == {"wgmma": len(VGG16_CHECK_LAYERS), "mma_sync": 0},
+          f"VGG-16's single layers took the paths {kconv.PATH_LAUNCHES}, not one wgmma launch each")
     pow2_cases = {}
     for m, k, n in POW2_SHAPES:
         wt = randn(k, n) * (2.0 / k) ** 0.5
@@ -4416,6 +4462,85 @@ def main() -> None:
         ms=tot["ms"], plain_ms=tot["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=tot["lib"],
         device_ms=tot["dev"], library_device_ms=tot["dev_lib"], int_mm_device_ms=int_mm_dev,
         ctas_per_sm=min(fused8_ctas),
+    ))
+
+    # The same kernel's wgmma path at VGG-16's eleven single layers, B =
+    # BATCH, timed at its wrapper on padded codes with the K-major weights a
+    # plan bakes, each output bit for bit its plain version's. The
+    # yardstick: torch._int_mm of the layer's unfolded codes (built in int8
+    # from the padded frame, untimed) by its weight codes, the int8 products
+    # alone; PyTorch has no int8 conv on CUDA. The bound counts 2 operations
+    # a MAC, the padded codes and weights read once, the fp32 output
+    # written once.
+    tot = {"ms": 0.0, "plain": 0.0, "dev": 0.0, "lib": 0.0, "dev_lib": 0.0, "flops": 0,
+           "bytes": 0}
+    wg_ctas = []
+    for li in range(2, len(VGG16.conv_layers)):
+        spec = VGG16.conv_layers[li]
+        xv, wq, bv, kw = vgg16_layer(li)
+        codes = _pad_same(quantize_stream(xv, INT8_BITS), 3).contiguous()
+        wk = kconv.kmajor_weights(wq)
+        g_i = kconv.fused_plan(*codes.shape[1:], k=3, stride=1, pool=spec.pool, pool_stride=None,
+                               block_r=8, n_out=spec.n_out, elem_bytes=1)
+        check(g_i["path"] == "wgmma" and len(g_i["strips"]) == len(g_i["slices"]) == 1,
+              f"VGG-16 layer {li}: {g_i['path']}, {len(g_i['strips'])} strips, "
+              f"{len(g_i['slices'])} slices")
+        wg_ctas.append(kconv.ctas_per_sm("stream_conv_fused_int8_wgmma", g_i["smem"],
+                                         g_i["threads"]))
+
+        def run_k():
+            return kconv.stream_conv_fused_cuda(codes, wq, bv, act=spec.act, pool=spec.pool,
+                                                act_bits=INT8_BITS, int8_scales=kw["int8_scales"],
+                                                w_kmajor=wk)
+
+        ref = stream_conv_block_ref(xv, wq, bv, **kw)
+        check(torch.equal(run_k(), ref), f"VGG-16 layer {li}: the wgmma path differs from its "
+              "plain version")
+        t_k = time_ms(run_k)
+        d_k = device_ms(run_k, kernel="sc_fused_i8_kernel")
+        t_p = time_ms(lambda: stream_conv_block_ref(xv, wq, bv, **kw), iters=3, warmup=1)
+        del ref, xv
+        hh, ww, cc = vgg_in[li]
+        a = codes.unfold(1, 3, 1).unfold(2, 3, 1)  # (B, H, W, C, 3, 3)
+        a = a.permute(0, 1, 2, 4, 5, 3).reshape(BATCH * hh * ww, 9 * cc).contiguous()
+        wmat = wq.reshape(9 * cc, spec.n_out).contiguous()
+        if li == 2:
+            rows = torch.arange(0, a.shape[0], 9973, device=dev)
+            check(torch.equal(torch._int_mm(a, wmat)[rows].double(),
+                              a[rows].double() @ wmat.double()),
+                  "torch._int_mm yardstick disagrees with VGG-16's int8 products")
+        t_l = time_ms(lambda: torch._int_mm(a, wmat), iters=10, warmup=2)
+        d_l = device_ms(lambda: torch._int_mm(a, wmat))
+        del a, wmat
+        f_i = 2 * BATCH * hh * ww * 9 * cc * spec.n_out
+        b_i = (codes.numel() + wq.numel() + 4 * spec.n_out
+               + 4 * BATCH * g_i["h_keep"] * g_i["w_keep"] * spec.n_out)
+        lb_ms, lb_by = bound(f_i, b_i, peak=PEAK_INT8_OPS)
+        print(f"[6] int8 single-layer wgmma VGG-16 layer {li} {vgg_in[li]} N {spec.n_out} pool "
+              f"{spec.pool} B={BATCH}: {t_k:.4f} ms (CUDA events), {d_k:.4f} ms device, plain "
+              f"{t_p:.3f} ms, torch._int_mm {t_l:.4f} ms ({d_l:.4f} ms device), bound "
+              f"{lb_ms:.4f} ms ({lb_by}); {f_i / d_k / 1e9:.1f} TOP/s; {g_i['smem']} B of shared "
+              f"memory, {g_i['stages']} ring stages, {g_i['r_o']} output rows x "
+              f"{g_i['n_rb']} row blocks x {BATCH} images")
+        for key, val in (("ms", t_k), ("plain", t_p), ("dev", d_k), ("lib", t_l),
+                         ("dev_lib", d_l), ("flops", f_i), ("bytes", b_i)):
+            tot[key] += val
+        del codes, wk, wq, bv
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(tot["flops"], tot["bytes"], peak=PEAK_INT8_OPS)
+    print(f"[6] int8 single-layer wgmma VGG-16 layers 2-12 (11 launches): {tot['ms']:.4f} ms "
+          f"(CUDA events), {tot['dev']:.4f} ms device, plain {tot['plain']:.3f} ms, "
+          f"torch._int_mm {tot['lib']:.4f} ms ({tot['dev_lib']:.4f} ms device), bound "
+          f"{b_ms:.4f} ms ({b_by}); {tot['dev'] / b_ms:.2f}x the bound, "
+          f"{tot['dev'] / tot['dev_lib']:.2f}x torch._int_mm's device time")
+    kernels.append(dict(
+        name="stream_conv_fused_int8_wgmma", route="cuda",
+        source="src/repro_torch/csrc/stream_conv.cu",
+        replaces="src/repro/kernels/stream_conv/conv.py:168",
+        launches=wgmma_launches, max_abs_err=errs["stream_conv_fused_int8_wgmma"],
+        ms=tot["ms"], plain_ms=tot["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=tot["lib"],
+        device_ms=tot["dev"], library_device_ms=tot["dev_lib"], int_mm_device_ms=tot["dev_lib"],
+        ctas_per_sm=min(wg_ctas),
     ))
 
     # pow2_matmul at all four head shapes; the record sums the cifar10

@@ -60,6 +60,7 @@ from repro_torch.kernels.stream_conv.conv import (
     card_groups,
     fused_plan,
     int8_pyramid_layout,
+    kmajor_weights,
     pyramid_layout,
 )
 from repro_torch.kernels.stream_conv.epilogue import (
@@ -276,12 +277,15 @@ class CardLaunch:
     """The launches of one card fusion group: the kernel wrapper that runs
     it (the ``conv.LAUNCHES`` key), its conv-layer indices, and its column
     strips and output-channel slices (1 and 1 for a pyramid group), one
-    launch each pair."""
+    launch each pair; and the main loop its launches take
+    (``conv.fused_path`` for an int8 singleton): "wgmma" or "mma_sync"
+    (int8), "fma" (fp32)."""
 
     kernel: str
     layers: tuple
     strips: int = 1
     slices: int = 1
+    path: str = "mma_sync"
 
     @property
     def launches(self) -> int:
@@ -291,14 +295,15 @@ class CardLaunch:
 def card_launch(topo, group, *, elem_bytes: int = 4, block_r: int = 8) -> CardLaunch:
     """The :class:`CardLaunch` of one card fusion group: one pyramid launch
     for a multi-layer group, the single-layer launcher's strips times its
-    slices (``conv.fused_plan``) for a singleton."""
+    slices and its path (``conv.fused_plan``) for a singleton."""
     suffix = "_int8" if elem_bytes == 1 else ""
     layers = tuple(group.layers)
     if len(layers) > 1:
-        return CardLaunch(kernel="stream_conv_pyramid" + suffix, layers=layers)
+        return CardLaunch(kernel="stream_conv_pyramid" + suffix, layers=layers,
+                          path="mma_sync" if elem_bytes == 1 else "fma")
     geo = _singleton_plan(topo, layers[0], elem_bytes=elem_bytes, block_r=block_r)
     return CardLaunch(kernel="stream_conv_fused" + suffix, layers=layers,
-                      strips=len(geo["strips"]), slices=len(geo["slices"]))
+                      strips=len(geo["strips"]), slices=len(geo["slices"]), path=geo["path"])
 
 
 @functools.lru_cache(maxsize=1024)
@@ -385,7 +390,9 @@ def emit_conv_stage(
 
     The returned ``stage_fn(params, x)`` runs the stage on the device of
     ``x``; ``params`` is a list with one ``{"w", "b"}`` dict per layer (a
-    bare dict is accepted for single-layer stages).
+    bare dict is accepted for single-layer stages), which may also hold
+    ``"wk"``, the int8 codes as the single-layer kernel's wgmma path reads
+    them (``conv.kmajor_weights``).
     """
     from repro_torch.kernels.stream_conv import (
         stream_conv_block,
@@ -440,7 +447,7 @@ def emit_conv_stage(
                 x = stream_conv_block(
                     x, p["w"], p["b"], act_bits=bits[g[0]],
                     int8_scales=None if scales is None else scales[g[0]],
-                    block_r=block_r, **layer_kw[g[0]],
+                    block_r=block_r, w_kmajor=p.get("wk"), **layer_kw[g[0]],
                 )
             else:
                 x = stream_conv_pyramid(
@@ -493,6 +500,21 @@ def _bake_conv_params(conv_params, quant: QuantSpec, device) -> tuple:
             b = fake_quant_dynamic(b, wb)
         out.append({"w": w.contiguous(), "b": b.contiguous()})
     return tuple(out), (tuple(w_scales) if quant.int8_compute else None)
+
+
+def _kmajor_params(conv_params, launches) -> tuple:
+    """A card int8 plan's codes with, for each singleton its launch table
+    sends down the single-layer kernel's wgmma path (``CardLaunch.path``),
+    the codes laid out once as that path streams them
+    (``conv.kmajor_weights``) under ``"wk"``, beside ``"w"``. Any other
+    call of the kernel on that path (eager, or the Engine's single-layer
+    rung for a layer the plan fuses) lays them out at the call."""
+    out = list(conv_params)
+    for ln in launches:
+        if ln.path == "wgmma":
+            (i,) = ln.layers
+            out[i] = {**out[i], "wk": kmajor_weights(out[i]["w"])}
+    return tuple(out)
 
 
 class _Pow2LinearSTE(torch.autograd.Function):
@@ -884,6 +906,7 @@ def compile_dhm(
             )
         )
 
+    conv_params = _kmajor_params(conv_params, (g for st in stages for g in st.launches))
     head_fn, fc_params = _emit_head(
         params["fc"], quant, dev, head_in_bits=per_layer_act[-1],
         fc_act=topo.fc_act,

@@ -143,6 +143,56 @@
 //     bit for bit those of the plain versions.
 //   - Frames and weights are read 32 bits at a time only where the pointer
 //     and the row stride are 4-byte aligned, byte by byte otherwise.
+//
+// sc_fused_i8_kernel<true>, the wgmma path (sc_fused_i8_wgmma)
+//   Replaces: for the layers conv.py fused_path sends to it (C a multiple
+//             of 64, N >= 64, conv stride 1, no pool or 2x2/2), the
+//             mma.sync path of the same kernel above, which the TPU's
+//             single-layer kernel (conv.py:168 stream_conv_fused_pallas,
+//             int8) was first ported to. That path stages a layer's weights
+//             whole per CTA: at C = 512 a channel slice of 32 (147 KB), 16
+//             launches a layer, each CTA of 56 conv positions re-reading the
+//             slab the 15 other slices read, its staging 71 % of the CTA's
+//             cycles at VGG-16's layer 8 (chip_phases.py), with no overlap
+//             of loads and MMAs.
+//   Bound on this card: operations at VGG-16's layers 3 and 5-12 (at B=256
+//             layer 8 is 0.947 Top, 0.48 ms at 1,979 TOP/s, against 0.53 GB,
+//             0.16 ms); bytes at layers 2 and 4, whose float32 outputs
+//             (1.6 GB at layer 2) outweigh their products. Over layers 2-12,
+//             6.87 Top, 3.82 ms at the larger of the two a layer.
+//   Design:   one implicit GEMM, M = a block's conv positions (at most 256:
+//             whole output rows, or a column strip of one where a row's
+//             slab would leave no room for the ring; conv.py
+//             wgmma_geometry), N = all of the layer's output channels,
+//             K = 9 C in (ki, kj, c) order, on the s8 wgmma (m64n128k32,
+//             int32 accumulators), A from registers and B from shared memory.
+//   - Weights in K steps, never whole: the plan lays each layer's codes out
+//     once (conv.py kmajor_weights) as the kernel streams them, N tile (128
+//     channels) by N tile, K step (64 bytes, one tap's run of channels) by
+//     K step, each an 8 KB stage in wgmma's K-major core matrices, so a
+//     stage is one bulk copy (TMA without a tensor map) into a ring of 4-8
+//     stages with full/empty mbarriers, which one thread of the producer
+//     warpgroup keeps in flight, nothing transposed per block.
+//   - The slab stays: a block loads its rows' slab once (cp.async, code 0
+//     below the frame; columns C + 16 bytes apart, rows padded so that the
+//     A loads' phases fall on distinct bank groups) and walks every N tile
+//     from it, one launch a layer; a persistent grid (one CTA an SM, 228 KB
+//     at most) walks (image, row block) items, so the producer fills the
+//     ring for the next tile or item during an epilogue.
+//   - Two consumer warpgroups, two m64 tiles each: the A fragments by
+//     ldmatrix from the slab at the K step's tap offset (as the mma.sync
+//     path's), loaded for the next step while this step's wgmmas run, one
+//     wgmma group in flight. The producer warpgroup gives its registers to
+//     the consumers (setmaxnreg 40 / 232) for the 128 accumulators a thread.
+//   - M order: without a pool, position 128 wg + 64 t + 16 warp + row; with
+//     the 2x2 pool, window 32 wg + 8 warp + row % 8 at pool position (tile,
+//     row / 8), its column flipped for rows 4-7 where that spreads the
+//     phases, so a thread's accumulators hold all four positions of its
+//     window and the pool is a max over registers.
+//   - Epilogue in registers in the single layer's order (dequantize, bias,
+//     act per position, max, quantize), the four lanes of a quad storing 32
+//     contiguous bytes of a position's channels. The int32 sums do not
+//     depend on order: the outputs are bit for bit the plain version's.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -204,6 +254,10 @@ struct ScFused {
   // fp32 words, int8 bytes
   int threads;  // threads per CTA (a multiple of 32, at most 256)
   int q, cpad, kpad, wrow, swz;  // int8 kernel, as ScLayer
+  // int8 kernel: 1 on the wgmma path, whose ring has `stages` stages at
+  // byte wst_off, its N tiles in tn, and whose persistent grid is `grid`
+  // CTAs.
+  int wg, stages, grid;
 };
 
 __device__ __forceinline__ float sc_act(float y, int act) {
@@ -1305,8 +1359,379 @@ __global__ void __launch_bounds__(SC_THREADS, 2)
   }
 }
 
-__global__ void __launch_bounds__(SC_THREADS) sc_fused_i8_kernel(const ScFused F) {
+// ---------------------------------------------------------------------------
+// The wgmma path of sc_fused_i8_kernel (sc_fused_i8_wgmma below; conv.py
+// fused_path picks it, wgmma_geometry sizes it, kmajor_weights lays out its
+// weights). Every layout decision here is mirrored by conv.py (wgmma_row,
+// wgmma_w_offset), which the CPU tests check.
+
+#define SC_WG_KS 64                       // K bytes of one ring stage: one tap's channel run
+#define SC_WG_NT 128                      // output channels of one N tile
+#define SC_WG_STAGE (SC_WG_KS * SC_WG_NT)  // bytes of one ring stage
+#define SC_WG_CONSUMERS 256               // two consumer warpgroups
+#define SC_WG_THREADS (SC_WG_CONSUMERS + 128)  // and the producer warpgroup
+
+__device__ __forceinline__ void sc_mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void sc_mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void sc_mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One bulk copy (TMA, no tensor map) of `bytes` contiguous bytes into shared
+// memory, its completion counted on `bar`, which expects them.
+__device__ __forceinline__ void sc_bulk_g2s(unsigned dst, const void* src, unsigned bytes,
+                                            unsigned bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// 16 bytes into shared memory without a register round trip; zeros where
+// `bytes` is 0 (nothing is read then).
+__device__ __forceinline__ void sc_cp16_zfill(unsigned dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// The B operand's descriptor: a ring stage's 32-byte K step at `addr`,
+// K-major without swizzle, in core matrices of 8 channels x 16 bytes (128
+// contiguous bytes): the two 16-byte halves of the step LBO = 128 bytes
+// apart, groups of 8 channels SBO = 512 bytes apart (conv.py
+// wgmma_w_offset).
+__device__ __forceinline__ unsigned long long sc_wg_desc(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | ((unsigned long long)(128 >> 4) << 16) |
+         ((unsigned long long)(512 >> 4) << 32);
+}
+
+// d (this thread's share of a 64 x 128 int32 tile) = a (64 x 32 s8: this
+// warp's 16 rows as mma.sync's A fragment) * b (32 x 128 s8 at desc),
+// plus d where scale_d. Exact int32 sums.
+__device__ __forceinline__ void sc_wgmma_s8(int (&d)[64], const unsigned (&a)[4],
+                                            unsigned long long desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void sc_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void sc_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void sc_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from touching an accumulator while a wgmma that
+// writes it may be in flight.
+__device__ __forceinline__ void sc_wg_pin(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Slab offset of row rho of this warp's slice of m64 tile t (0 or 1) of
+// consumer warpgroup wg, warp wi of it: without a pool, conv position m =
+// 128 wg + 64 t + 16 wi + rho of the block, row-major over its rows; with
+// the 2x2 pool, window v = 32 wg + 8 wi + rho % 8 at pool position (t, rho
+// / 8), its column flipped for rows 4-7 and 12-15 where swz, so that a
+// thread's accumulators (rows gid and gid + 8 of both tiles) hold all four
+// positions of its window. Rows past the block's outputs read output 0's.
+__device__ __forceinline__ int sc_wg_row(const ScFused& F, int n_valid, int wg, int wi, int t,
+                                         int rho) {
+  if (F.pw == 2) {
+    int v = 32 * wg + 8 * wi + (rho & 7);
+    if (v >= n_valid) v = 0;
+    const int wr = v / F.w_keep;
+    const int wc = v - wr * F.w_keep;
+    const int pj = (rho >> 3) ^ ((F.swz && (rho & 4)) ? 1 : 0);
+    return (2 * wr + t) * F.rs + (2 * wc + pj) * F.cs;
+  }
+  int m = 128 * wg + 64 * t + 16 * wi + rho;
+  if (m >= n_valid) m = 0;
+  const int pr = m / F.w_keep;
+  return pr * F.rs + (m - pr * F.w_keep) * F.cs;
+}
+
+// The A fragments of K step ks (one tap's run of 64 channels): two 32-byte
+// halves of this lane's row of each m64 tile, whose bases are ab0, ab1.
+__device__ __forceinline__ void sc_wg_lda(unsigned (&a)[2][2][4], const ScFused& F, unsigned ab0,
+                                          unsigned ab1, int ks) {
+  const int k0 = ks * SC_WG_KS;
+  const int tap = k0 / F.c;
+  const int ki = tap / F.k;
+  const int toff = ki * F.rs + (tap - ki * F.k) * F.cs + (k0 - tap * F.c);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sc_ldm_x4(a[0][h], ab0 + toff + 32 * h);
+    sc_ldm_x4(a[1][h], ab1 + toff + 32 * h);
+  }
+}
+
+// The ring's consumer side: the stage a warpgroup reads next, the parity
+// of its fill, and the stage its last wgmmas still read (-1: none).
+struct ScWgRing {
+  unsigned ring, full, empty;
+  int stages, stage, prev;
+  unsigned phase;
+};
+
+// K step ks of both m64 tiles (scale_d 0 at the tile's first step): wait
+// for the stage, four wgmmas, then wait for the previous step's, whose
+// stage goes back to the producer. One group stays in flight.
+__device__ __forceinline__ void sc_wg_step(int (&acc)[2][64], const unsigned (&a)[2][2][4],
+                                           ScWgRing& R, int ks, int lane) {
+  const unsigned st = R.ring + R.stage * SC_WG_STAGE;
+  sc_mbar_wait(R.full + 8 * R.stage, R.phase);
+  sc_wgmma_fence();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const unsigned long long desc = sc_wg_desc(st + 256 * h);
+    sc_wgmma_s8(acc[0], a[0][h], desc, ks | h);
+    sc_wgmma_s8(acc[1], a[1][h], desc, ks | h);
+  }
+  sc_wgmma_commit();
+  sc_wgmma_wait<1>();
+  sc_wg_pin(acc[0]);
+  sc_wg_pin(acc[1]);
+  if (R.prev >= 0 && lane == 0) sc_mbar_arrive(R.empty + 8 * R.prev);
+  R.prev = R.stage;
+  if (++R.stage == R.stages) {
+    R.stage = 0;
+    R.phase ^= 1;
+  }
+}
+
+// The stream code of y as its fp32 grid value (sc_put8's arithmetic).
+__device__ __forceinline__ float sc_wg_code(const ScFused& F, float qinv, float y) {
+  return fminf(fmaxf(rintf(y * qinv), F.qmin), F.qmax) * F.qscale;
+}
+
+// Channels n0 and n0 + 1 of the output at p: one 8-byte store where N is
+// even (the four lanes of a quad fill 32 contiguous bytes).
+__device__ __forceinline__ void sc_wg_put2(const ScFused& F, float qinv, float* p, int n0,
+                                           float y0, float y1) {
+  const float q0 = sc_wg_code(F, qinv, y0);
+  const float q1 = sc_wg_code(F, qinv, y1);
+  if ((F.n & 1) == 0) {
+    *reinterpret_cast<float2*>(p + n0) = make_float2(q0, q1);
+  } else {
+    p[n0] = q0;
+    if (n0 + 1 < F.n) p[n0 + 1] = q1;
+  }
+}
+
+// One row block of one image a work item; a persistent grid walks them.
+// Warpgroup 2, the producer, gives up registers and one thread of it
+// streams each item's weights (kmajor_weights: N tile by N tile, K step
+// by K step, one SC_WG_STAGE-byte stage each) through a ring of F.stages
+// stages with bulk copies and mbarriers. Warpgroups 0 and 1, the
+// consumers, take the registers, fill the item's slab once (cp.async,
+// code 0 below the frame), then for each N tile run every K step: ldmatrix
+// the next step's A rows from the slab (a K step is one tap's channel run,
+// at the tap's offset) while this step's wgmmas run, two m64n128k32 a
+// tile, one group in flight; then the epilogue of the tile in registers,
+// in the single layer's order, while the producer fills the ring for the
+// next.
+__device__ __forceinline__ void sc_fused_i8_wgmma(const ScFused& F, i8* smem) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const unsigned slab = sc_smem_addr(smem);
+  ScWgRing R;
+  R.ring = slab + F.wst_off;
+  R.full = R.ring + F.stages * SC_WG_STAGE;  // full[s] at 8 s, then empty[s]
+  R.empty = R.full + 8 * F.stages;
+  R.stages = F.stages;
+  R.stage = 0;
+  R.prev = -1;
+  R.phase = 0;
+  const int ksteps = F.kpad / SC_WG_KS;
+  const int items = F.n_rb * F.batch;
+  if (tid == 0) {
+    for (int s = 0; s < F.stages; ++s) {
+      sc_mbar_init(R.full + 8 * s, 1);
+      sc_mbar_init(R.empty + 8 * s, SC_WG_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp >= SC_WG_CONSUMERS / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == SC_WG_CONSUMERS) {
+      const i8* w = reinterpret_cast<const i8*>(F.w);
+      for (int item = blockIdx.x; item < items; item += gridDim.x)
+        for (int i = 0; i < F.tn * ksteps; ++i) {
+          sc_mbar_wait(R.empty + 8 * R.stage, R.phase ^ 1);
+          sc_bulk_g2s(R.ring + R.stage * SC_WG_STAGE, w + (size_t)i * SC_WG_STAGE, SC_WG_STAGE,
+                      R.full + 8 * R.stage);
+          if (++R.stage == F.stages) {
+            R.stage = 0;
+            R.phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp >> 2;
+  const int wi = warp & 3;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int rho = lane & 15;
+  const bool pooled = F.pw == 2;
+  const float qinv = 1.0f / F.qscale;
+  ScJob8 J;  // sc_deq_act's fields
+  J.act = F.act;
+  J.deq = F.deq;
+  int acc[2][64];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[t][i] = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int bi = item / F.n_rb;
+    const int rb = item - bi * F.n_rb;
+    const int row0 = rb * F.r;
+    const i8* xb = reinterpret_cast<const i8*>(F.x) + (size_t)bi * F.x_img + (size_t)row0 * F.x_rs;
+    const int n_valid = min(F.r_o, F.h_keep - rb * F.r_o) * F.w_keep;
+    float* const dst = F.out + (size_t)bi * F.out_img + (size_t)rb * F.r_o * F.out_rs;
+    // This thread's outputs: rows gid and gid + 8 of both tiles, one window
+    // with the pool; nullptr past the block's outputs.
+    float* op[2][2];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = pooled ? 32 * wg + 8 * wi + gid : 128 * wg + 64 * t + 16 * wi + gid + 8 * h;
+        const int orow = o / F.w_keep;
+        op[t][h] = o < n_valid ? dst + (size_t)orow * F.out_rs + (size_t)(o - orow * F.w_keep) * F.out_cs
+                               : nullptr;
+      }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(SC_WG_CONSUMERS) : "memory");  // the last slab is read
+    {  // the slab: rows past the frame read code 0
+      const int cw = F.c >> 4;
+      const int px_row = F.w_in * cw;
+      const int total = F.in_rows_blk * px_row;
+      const int rows_in = F.h - row0;
+      for (int idx = tid; idx < total; idx += SC_WG_CONSUMERS) {
+        const int rr = idx / px_row;
+        const int e = idx - rr * px_row;
+        const int x = e / cw;
+        const int ci = e - x * cw;
+        const bool in = rr < rows_in;
+        const void* src = xb + (size_t)rr * F.x_rs + (size_t)x * F.c + 16 * ci;
+        sc_cp16_zfill(slab + rr * F.rs + x * F.cs + 16 * ci, in ? src : F.x, in ? 16 : 0);
+      }
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(SC_WG_CONSUMERS) : "memory");
+    const unsigned ab0 = slab + sc_wg_row(F, n_valid, wg, wi, 0, rho) + 16 * (lane >> 4);
+    const unsigned ab1 = slab + sc_wg_row(F, n_valid, wg, wi, 1, rho) + 16 * (lane >> 4);
+    for (int nt = 0; nt < F.tn; ++nt) {
+      unsigned a0[2][2][4], a1[2][2][4];
+      sc_wg_lda(a0, F, ab0, ab1, 0);
+      int ks = 0;
+#pragma unroll 1
+      for (; ks + 1 < ksteps; ks += 2) {
+        sc_wg_step(acc, a0, R, ks, lane);
+        sc_wg_lda(a1, F, ab0, ab1, ks + 1);
+        sc_wg_step(acc, a1, R, ks + 1, lane);
+        if (ks + 2 < ksteps) sc_wg_lda(a0, F, ab0, ab1, ks + 2);
+      }
+      if (ks < ksteps) sc_wg_step(acc, a0, R, ks, lane);
+      sc_wgmma_wait<0>();
+      sc_wg_pin(acc[0]);
+      sc_wg_pin(acc[1]);
+      if (lane == 0) sc_mbar_arrive(R.empty + 8 * R.prev);
+      R.prev = -1;
+      // Epilogue: dequantize, bias, act per position, then the max over the
+      // window, then the stream code as its fp32 grid value.
+#pragma unroll
+      for (int j = 0; j < SC_WG_NT / 8; ++j) {
+        const int n0 = nt * SC_WG_NT + 8 * j + 2 * tig;
+        if (n0 >= F.n) continue;
+        const float b0 = __ldg(F.b + n0);
+        const float b1 = n0 + 1 < F.n ? __ldg(F.b + n0 + 1) : 0.0f;
+        if (pooled) {
+          if (!op[0][0]) continue;
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float bv = e ? b1 : b0;
+            y[e] = sc_deq_act(J, acc[0][4 * j + e], bv);
+            y[e] = fmaxf(y[e], sc_deq_act(J, acc[0][4 * j + 2 + e], bv));
+            y[e] = fmaxf(y[e], sc_deq_act(J, acc[1][4 * j + e], bv));
+            y[e] = fmaxf(y[e], sc_deq_act(J, acc[1][4 * j + 2 + e], bv));
+          }
+          sc_wg_put2(F, qinv, op[0][0], n0, y[0], y[1]);
+        } else {
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (op[t][h])
+                sc_wg_put2(F, qinv, op[t][h], n0, sc_deq_act(J, acc[t][4 * j + 2 * h], b0),
+                           sc_deq_act(J, acc[t][4 * j + 2 * h + 1], b1));
+        }
+      }
+    }
+  }
+}
+
+// WG: the wgmma path (sc_fused_i8_wgmma, a persistent grid of
+// SC_WG_THREADS-thread CTAs); else the mma.sync path below, a CTA per
+// (row block, image).
+template <bool WG>
+__global__ void __launch_bounds__(WG ? SC_WG_THREADS : SC_THREADS)
+    sc_fused_i8_kernel(const ScFused F) {
   extern __shared__ __align__(16) i8 slab8[];
+  if (WG) {
+    sc_fused_i8_wgmma(F, slab8);
+    return;
+  }
   int* const taps = reinterpret_cast<int*>(slab8 + F.tap_off);
   i8* const wst = slab8 + F.wst_off;
   const int rb = blockIdx.x;
@@ -1368,9 +1793,12 @@ extern "C" int sc_fused_desc_bytes() { return (int)sizeof(ScFused); }
 // `threads` per CTA and smem_bytes of dynamic shared memory; negative: a
 // CUDA error.
 extern "C" int sc_ctas_per_sm(int which, int smem_bytes, int threads) {
-  const void* kernels[4] = {(const void*)sc_pyramid_kernel, (const void*)sc_fused_kernel,
-                            (const void*)sc_pyramid_i8_kernel, (const void*)sc_fused_i8_kernel};
-  const void* kernel = kernels[which & 3];
+  const void* kernels[5] = {(const void*)sc_pyramid_kernel, (const void*)sc_fused_kernel,
+                            (const void*)sc_pyramid_i8_kernel,
+                            (const void*)sc_fused_i8_kernel<false>,
+                            (const void*)sc_fused_i8_kernel<true>};
+  if (which < 0 || which > 4) return -(int)cudaErrorInvalidValue;
+  const void* kernel = kernels[which];
   int err = sc_opt_in_smem(kernel, smem_bytes);
   if (err) return -err;
   int n = 0;
@@ -1411,10 +1839,17 @@ extern "C" int sc_pyramid_i8_launch(const ScPyramid* desc, int smem_bytes,
 
 extern "C" int sc_fused_i8_launch(const ScFused* desc, int smem_bytes,
                                   void* stream) {
-  int err = sc_opt_in_smem((const void*)sc_fused_i8_kernel, smem_bytes);
+  if (desc->wg) {
+    int err = sc_opt_in_smem((const void*)sc_fused_i8_kernel<true>, smem_bytes);
+    if (err) return err;
+    sc_fused_i8_kernel<true><<<desc->grid, SC_WG_THREADS, smem_bytes, (cudaStream_t)stream>>>(
+        *desc);
+    return (int)cudaGetLastError();
+  }
+  int err = sc_opt_in_smem((const void*)sc_fused_i8_kernel<false>, smem_bytes);
   if (err) return err;
   dim3 grid(desc->n_rb, desc->batch);
-  sc_fused_i8_kernel<<<grid, desc->threads, smem_bytes, (cudaStream_t)stream>>>(
+  sc_fused_i8_kernel<false><<<grid, desc->threads, smem_bytes, (cudaStream_t)stream>>>(
       *desc);
   return (int)cudaGetLastError();
 }

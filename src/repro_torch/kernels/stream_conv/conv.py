@@ -7,7 +7,11 @@ one CTA per (row block, image) over a host-SAME-padded frame, fused
 bias -> act -> pool -> quant epilogue; a frame too wide for one block
 runs as column strips (the reference's ``block_w``), one launch each into
 one output tensor, and a layer whose weight stages do not fit as slices
-of its channels (``fused_plan``). ``stream_conv_pyramid_cuda``
+of its channels (``fused_plan``). An int8 layer whose channels are whole
+64-byte K steps takes the kernel's wgmma path instead (``fused_path``):
+one launch, its weights streamed in K steps (``kmajor_weights``) past a
+resident slab that serves every output channel (``wgmma_geometry``).
+``stream_conv_pyramid_cuda``
 replaces the cross-layer pyramid (``stream_conv_pyramid_pallas``): one CTA
 per (row block, image) streams a whole fusion group with every
 inter-layer slab in shared memory. The fp32 kernels run each layer as a
@@ -69,6 +73,11 @@ FORWARD_KERNELS = ("stream_conv_fused", "stream_conv_pyramid", "stream_conv_fuse
 BACKWARD_KERNELS = ("stream_conv_bwd_recompute", "stream_conv_bwd_dx", "stream_conv_bwd_dw",
                     "stream_conv_bwd_reduce")
 LAUNCHES = probe.counted({name: 0 for name in FORWARD_KERNELS + BACKWARD_KERNELS})
+# The single-layer int8 kernel's launches by main loop (``fused_path``),
+# as its wrapper makes them: eager calls and the calls a graph's capture
+# records. A replay runs no wrapper; its capture record's launch table
+# (``CardLaunch.path``) names the paths of what it launches.
+PATH_LAUNCHES = {"wgmma": 0, "mma_sync": 0}
 # The int8 kernels' MMA (mma.sync m16n8k32 s8): K bytes per step, and the
 # staged weight rows' alignment (whole 128-byte groups of eight 16-byte
 # chunks, which the staging swizzles).
@@ -80,8 +89,9 @@ I8_TILES_N = {1: (4, 2, 1), 2: (4, 2, 1), 3: (2, 1)}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for table in (LAUNCHES, PATH_LAUNCHES):
+        for name in table:
+            table[name] = 0
 
 
 class _ScLayer(ctypes.Structure):
@@ -140,6 +150,7 @@ class _ScFused(ctypes.Structure):
         ("threads", ctypes.c_int),
         ("q", ctypes.c_int), ("cpad", ctypes.c_int), ("kpad", ctypes.c_int),
         ("wrow", ctypes.c_int), ("swz", ctypes.c_int),
+        ("wg", ctypes.c_int), ("stages", ctypes.c_int), ("grid", ctypes.c_int),
     ]
 
 
@@ -203,12 +214,14 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def ctas_per_sm(kernel: str, smem_bytes: int, threads: int = THREADS) -> int:
-    """CTAs of one of the four kernels (named as in ``LAUNCHES``) that fit
-    on one SM of the current card at ``threads`` per CTA and
-    ``smem_bytes`` of dynamic shared memory
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    """CTAs of one of the four kernels (named as in ``LAUNCHES``; the
+    single-layer int8 kernel's wgmma path as
+    ``"stream_conv_fused_int8_wgmma"``) that fit on one SM of the current
+    card at ``threads`` per CTA and ``smem_bytes`` of dynamic shared
+    memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     which = {"stream_conv_pyramid": 0, "stream_conv_fused": 1,
-             "stream_conv_pyramid_int8": 2, "stream_conv_fused_int8": 3}[kernel]
+             "stream_conv_pyramid_int8": 2, "stream_conv_fused_int8": 3,
+             "stream_conv_fused_int8_wgmma": 4}[kernel]
     n = _library().sc_ctas_per_sm(which, smem_bytes, threads)
     _raise_on(-n if n < 0 else 0, f"{kernel} occupancy query")
     return n
@@ -612,6 +625,7 @@ def fused_geometry(h: int, wd: int, c: int, *, k: int, stride: int,
     r_o = r // ps if pw else r
     slices = tuple((n0, min(n_out, n0 + ns)) for n0 in range(0, n_out, ns)) if n_out else ()
     return dict(
+        path="mma_sync" if elem_bytes == 1 else "fma",
         r=r, r_o=r_o, in_rows_blk=in_rows, h_keep=h_keep, w_keep=w_keep,
         n_rb=-(-h_keep // r_o), smem=smem, strips=strips, slices=slices, **fp32,
     )
@@ -620,14 +634,19 @@ def fused_geometry(h: int, wd: int, c: int, *, k: int, stride: int,
 def fused_plan(h: int, wd: int, c: int, *, k: int, stride: int, pool: int,
                pool_stride, block_r: int, block_w: int = 0, n_out: int,
                elem_bytes: int = 4) -> dict:
-    """The single-layer launcher's ``fused_geometry``: the caller's
-    ``block_w`` where the smallest row block fits in shared memory, else
-    column strips halved until one fits, then slices of the output
-    channels halved until one fits. Raises where even one strip of the
-    narrowest legal width and one slice of four (fp32) or eight (int8)
+    """The single-layer launcher's geometry. An int8 layer that
+    ``fused_path`` sends to the wgmma path takes ``wgmma_geometry``.
+    Every other layer takes ``fused_geometry``: the
+    caller's ``block_w`` where the smallest row block fits in shared
+    memory, else column strips halved until one fits, then slices of the
+    output channels halved until one fits. Raises where even one strip of
+    the narrowest legal width and one slice of four (fp32) or eight (int8)
     channels do not fit (fp32: a tap table of K * K * C words above the
-    block, about 58,000)."""
+    block, about 58,000). The result's ``path`` names the main loop:
+    "wgmma", "mma_sync" (int8) or "fma" (fp32)."""
     pw, ps = normalize_pool(pool, pool_stride)
+    if elem_bytes == 1 and fused_path(c, n_out, stride=stride, pw=pw, ps=ps) == "wgmma":
+        return wgmma_geometry(h, wd, c, k=k, pw=pw, n_out=n_out, block_w=block_w)
     mult = _block_multiple(k, stride, pw, ps)[0]
     w_out = (wd - k) // stride + 1
     kw = dict(k=k, stride=stride, pool=pool, pool_stride=pool_stride, block_r=block_r,
@@ -646,8 +665,182 @@ def fused_plan(h: int, wd: int, c: int, *, k: int, stride: int, pool: int,
             try:
                 return fused_geometry(h, wd, c, block_w=bw, n_slice=ns, **kw)
             except ValueError as e:
-                err = e
+                # Without its traceback: a kept traceback's frames would pin
+                # the callers' frames, and their tensors, until the cyclic GC.
+                err = e.with_traceback(None)
     raise err
+
+
+# ---------------------------------------------------------------------------
+# The single-layer int8 kernel's wgmma path (sc_fused_i8_wgmma in the
+# source): a layer's weights stream through a ring in K steps, and a block
+# covers every output channel of its outputs from one resident slab. The
+# functions below mirror the kernel's address arithmetic, so the layout can
+# be checked on the CPU.
+
+WG_KS = 64  # SC_WG_KS: K bytes of one ring stage, a run of one tap's channels
+WG_NT = 128  # SC_WG_NT: output channels of one N tile
+WG_STAGE = WG_KS * WG_NT  # bytes of one ring stage
+WG_THREADS = 384  # SC_WG_THREADS: two consumer warpgroups and the producer's
+# Outputs of one block: two warpgroups x two m64 tiles of conv positions, or
+# of 2x2 windows whose four positions one thread holds (32 a warpgroup).
+WG_POSITIONS = 256
+WG_WINDOWS = 64
+WG_STAGES = (4, 8)  # ring stages: the fewest a block takes, the most it uses
+
+
+def fused_path(c: int, n: int, *, stride: int, pw: int, ps: int) -> str:
+    """The main loop of the single-layer int8 kernel for a layer of ``c``
+    input and ``n`` output channels, conv ``stride`` and pool ``(pw, ps)``
+    (``normalize_pool``'s): "wgmma" where a K step of ``WG_KS`` bytes stays
+    inside one tap (C a multiple of it), N fills at least half an N tile,
+    the conv stride is 1 and the pool none or 2x2/2; else "mma_sync", whose
+    tap table also takes C of 1, 3, 20 and 32."""
+    if c % WG_KS == 0 and n >= WG_KS and stride == 1 and (pw, ps) in ((0, 0), (2, 2)):
+        return "wgmma"
+    return "mma_sync"
+
+
+def wgmma_row(*, pooled: bool, n_wc: int, rs: int, cs: int, swz: int, n_valid: int, wg: int,
+              wi: int, t: int, rho: int) -> tuple:
+    """(slab offset, output) of A row ``rho`` of warp ``wi``'s slice of m64
+    tile ``t`` of consumer warpgroup ``wg`` (``sc_wg_row``): without a
+    pool, conv position ``128 wg + 64 t + 16 wi + rho`` of the block, row
+    major over ``n_wc`` columns; with the 2x2 pool, window ``32 wg + 8 wi +
+    rho % 8`` at pool position ``(t, rho // 8)``, its column flipped for
+    rows 4-7 and 12-15 where ``swz``. The output is None past the
+    block's ``n_valid``, whose rows read output 0's."""
+    if pooled:
+        o = 32 * wg + 8 * wi + (rho & 7)
+        valid = o < n_valid
+        wr, wc = divmod(o if valid else 0, n_wc)
+        pj = (rho >> 3) ^ (1 if swz and rho & 4 else 0)
+        return (2 * wr + t) * rs + (2 * wc + pj) * cs, (o if valid else None)
+    o = 128 * wg + 64 * t + 16 * wi + rho
+    valid = o < n_valid
+    pr, pc = divmod(o if valid else 0, n_wc)
+    return pr * rs + pc * cs, (o if valid else None)
+
+
+def wgmma_tap(kk: int, *, c: int, k: int, rs: int, cs: int) -> int:
+    """Slab offset of K index ``kk`` ((ki, kj, c) order) from a row's
+    base."""
+    tap, ch = divmod(kk, c)
+    ki, kj = divmod(tap, k)
+    return ki * rs + kj * cs + ch
+
+
+def wgmma_wavefronts(*, pooled: bool, n_wc: int, rs: int, cs: int, swz: int,
+                     n_valid: int) -> int:
+    """Shared-memory wavefronts of one K step's ``ldmatrix`` A loads of a
+    block: per phase (eight rows of 16 bytes), the most distinct rows on
+    one of the eight 16-byte bank groups (every K step shifts all rows
+    alike)."""
+    total = 0
+    for wg, wi, t, half in itertools.product(range(2), range(4), range(2), range(2)):
+        rows = {wgmma_row(pooled=pooled, n_wc=n_wc, rs=rs, cs=cs, swz=swz, n_valid=n_valid,
+                          wg=wg, wi=wi, t=t, rho=8 * half + i)[0] for i in range(8)}
+        total += _most_on_one_bank({r // 16 for r in rows}, 8)
+    return total
+
+
+def wgmma_w_offset(kk: int, n: int, *, ksteps: int) -> int:
+    """Byte of weight (K index ``kk``, channel ``n``) in ``kmajor_weights``:
+    N tile by N tile, K step by K step, one ``WG_STAGE``-byte ring stage
+    each, which holds core matrices of 8 channels x 16 bytes (128
+    contiguous bytes), the four of a group's K step 128 bytes apart, the
+    groups of 8 channels 512 apart (``sc_wg_desc``)."""
+    nt, nn = divmod(n, WG_NT)
+    ks, kb = divmod(kk, WG_KS)
+    return ((nt * ksteps + ks) * WG_STAGE + (nn // 8) * 512 + (kb // 16) * 128
+            + (nn % 8) * 16 + kb % 16)
+
+
+def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
+    """The wgmma path's weights: HWIO codes ``w`` (K, K, C, N) laid out
+    once as the kernel streams them (``wgmma_w_offset``), N padded with
+    zero channels to whole N tiles; flat int8 on ``w``'s device."""
+    k, _, c, n = w.shape
+    kdim, n_pad = k * k * c, round_up(n, WG_NT)
+    wt = torch.zeros((n_pad, kdim), dtype=w.dtype, device=w.device)
+    wt[:n] = w.reshape(kdim, n).t()
+    v = wt.reshape(n_pad // WG_NT, WG_NT // 8, 8, kdim // WG_KS, WG_KS // 16, 16)
+    return v.permute(0, 3, 1, 4, 2, 5).contiguous().reshape(-1)
+
+
+@functools.lru_cache(maxsize=1024)
+def _wgmma_slab(pooled: bool, cols_in: int, cs: int, n_wc: int, n_valid: int) -> tuple:
+    """(row stride, swizzle) of a wgmma-path slab: the row pad and window
+    swizzle that put the A loads in the fewest wavefronts, then the
+    fewest bytes."""
+    best = None
+    for pad in range(0, 128, 16):
+        for swz in ((0, 1) if pooled else (0,)):
+            rs = cols_in * cs + pad
+            key = (wgmma_wavefronts(pooled=pooled, n_wc=n_wc, rs=rs, cs=cs, swz=swz,
+                                    n_valid=n_valid), rs, swz)
+            best = key if best is None or key < best else best
+    return best[1:]
+
+
+def wgmma_geometry(h: int, wd: int, c: int, *, k: int, pw: int, n_out: int,
+                   block_w: int = 0) -> dict:
+    """The wgmma path's blocking of a stride-1 layer over an already padded
+    (h, wd, c) frame, pool none (``pw`` 0) or 2x2/2: whole output rows a
+    block, as many as ``WG_POSITIONS`` conv positions or ``WG_WINDOWS``
+    windows hold, spread evenly over the row blocks; column strips only
+    where one output row is more than that, or ``block_w`` asks for them;
+    one channel slice (a block walks every N tile). The slab keeps a
+    column of C + 16 bytes and the row pad and window swizzle that put
+    the A loads in the fewest wavefronts (``wgmma_wavefronts``), then
+    the ring of ``WG_STAGES`` stages and its 2 mbarriers a stage. While
+    the slab leaves no room for the fewest stages, rows are halved, and
+    at one row the strips' columns; raises only where one output a block
+    does not fit either (C above about 12,000). Returns
+    ``fused_geometry``'s keys (``tap_off`` and ``wst_off`` both the
+    ring's offset: there is no tap table) and ``stages``."""
+    pooled = pw == 2
+    h_out, w_out = h - k + 1, wd - k + 1
+    h_keep = h_out // 2 if pooled else h_out
+    w_keep = w_out // 2 if pooled else w_out
+    cap = WG_WINDOWS if pooled else WG_POSITIONS
+    cols_keep = min(w_keep, cap)
+    if block_w > 0:
+        cols_keep = min(cols_keep, max(1, round_up(block_w, 2) // 2 if pooled else block_w))
+    cs = c + 16
+    kdim = k * k * c
+    n_tiles = -(-n_out // WG_NT)
+    rows = cap // cols_keep
+    while True:
+        if cols_keep < w_keep:
+            strips = column_strips(wd, k, 1, 2 if pooled else 0, 2 if pooled else 0, cols_keep)
+            cols_in = (2 * cols_keep if pooled else cols_keep) + k - 1
+        else:
+            strips, cols_in = ((0, wd, 0, w_keep),), wd
+        n_rb = -(-h_keep // rows)
+        r_o = -(-h_keep // n_rb)
+        r = 2 * r_o if pooled else r_o
+        in_rows = r + k - 1
+        rs, swz = _wgmma_slab(pooled, cols_in, cs, cols_keep, r_o * cols_keep)
+        ring_off = round_up(in_rows * rs, 128)
+        stages = min(WG_STAGES[1], (SMEM_LIMIT - ring_off) // (WG_STAGE + 16))
+        if stages >= WG_STAGES[0]:
+            break
+        if rows > 1:
+            rows //= 2
+        elif cols_keep > 1:
+            cols_keep = -(-cols_keep // 2)
+        else:
+            raise ValueError(
+                f"wgmma path: a slab of {in_rows} rows of {rs} B leaves no room for "
+                f"{WG_STAGES[0]} weight stages in {SMEM_LIMIT} B")
+    return dict(
+        path="wgmma", r=r, r_o=r_o, in_rows_blk=in_rows, h_keep=h_keep, w_keep=w_keep,
+        n_rb=n_rb, smem=ring_off + stages * (WG_STAGE + 16), strips=strips,
+        slices=((0, n_out),), threads=WG_THREADS, cs=cs, rs=rs, tn=n_tiles,
+        np=n_tiles * WG_NT, q=cols_in, cpad=c, kpad=kdim, wrow=WG_KS, swz=swz,
+        tap_off=ring_off, wst_off=ring_off, stages=stages,
+    )
 
 
 def _int8_operands(name: str, int8_scales, act_bits) -> tuple:
@@ -679,6 +872,7 @@ def stream_conv_fused_cuda(
     int8_scales=None,
     block_r: int = 8,
     block_w: int = 0,
+    w_kmajor: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused streaming conv on the card: VALID conv of stride ``stride``
     over the padded frame, then bias -> act -> pool -> quant. Returns
@@ -688,7 +882,10 @@ def stream_conv_fused_cuda(
 
     With ``int8_scales`` (an ``epilogue.Int8Scales``) ``x`` and ``w`` must
     be int8 codes (the frame padded with code 0) and the int8 kernel runs:
-    int32 accumulation, ``deq_scale`` dequantization, fp32 values out."""
+    int32 accumulation, ``deq_scale`` dequantization, fp32 values out. On
+    its wgmma path it reads ``w`` as ``kmajor_weights(w)``, which a plan
+    lays out once and passes as ``w_kmajor``; without it the launch lays
+    them out first."""
     b_, h, wd, c = x.shape
     k, n = w.shape[0], w.shape[3]
     dtype, elem_bytes = _int8_operands("stream_conv_fused", int8_scales, (act_bits,))
@@ -721,6 +918,16 @@ def stream_conv_fused_cuda(
         common.update(q=g["q"], cpad=g["cpad"], kpad=g["kpad"], wrow=g["wrow"], swz=g["swz"])
     else:
         common.update(wst_elems=g["wst_elems"])
+    wg = g["path"] == "wgmma"
+    if wg:
+        if w_kmajor is None:
+            w_kmajor = kmajor_weights(w)
+        _check_cuda("w_kmajor", w_kmajor, (g["np"] * g["kpad"],), dtype=torch.int8)
+        if x.data_ptr() % 16:  # the slab's 16-byte copies
+            x = x.clone()
+        w = w_kmajor
+        common.update(wg=1, stages=g["stages"],
+                      grid=min(g["n_rb"] * b_, sm_count(x.device)))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for in_lo, in_hi, o_lo, o_hi in g["strips"]:
@@ -734,6 +941,8 @@ def stream_conv_fused_cuda(
                 )
                 _raise_on(launch(ctypes.addressof(desc), g["smem"], stream), name)
                 LAUNCHES[name] += 1
+                if int8:
+                    PATH_LAUNCHES[g["path"]] += 1
                 probe.launched(name, g["smem"], stream)
     return out
 

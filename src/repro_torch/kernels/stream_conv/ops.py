@@ -214,6 +214,7 @@ def stream_conv_block(
     int8_scales=None,
     block_r: int = 8,
     block_w: int = 0,
+    w_kmajor: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Fused conv -> bias -> act -> NxN/stride-s-max-pool block (one DHM
     pipeline stage). ``pool=0`` disables pooling, ``pool_stride=None``
@@ -229,7 +230,10 @@ def stream_conv_block(
     arithmetic: ``w`` must be int8 weight codes, the input is quantized
     onto its stream grid (exact for on-grid values), and the conv sums
     int8 x int8 products into int32 before the requantizing epilogue —
-    fp32 values on the ``act_bits`` grid out."""
+    fp32 values on the ``act_bits`` grid out. ``w_kmajor`` is ``w`` as the
+    card kernel's wgmma path reads it (``conv.kmajor_weights``), laid out
+    once by a plan; the card lays it out at each call where it is not
+    given, the plain version never reads it."""
     _validate_fused(
         x, w, b, padding=padding, stride=stride, act=act, pool=pool,
         pool_stride=pool_stride, act_bits=act_bits,
@@ -238,7 +242,7 @@ def stream_conv_block(
     run = functools.partial(
         _run_block, padding=padding, stride=stride, act=act, pool=pool,
         pool_stride=pool_stride, act_bits=act_bits, int8_scales=int8_scales,
-        block_r=block_r, block_w=block_w,
+        block_r=block_r, block_w=block_w, w_kmajor=w_kmajor,
     )
     if _needs_grad(x, w, b):
         _refuse_int8_grad(int8_scales)
@@ -249,7 +253,7 @@ def stream_conv_block(
 
 
 def _run_block(x, ws, bs, *, padding, stride, act, pool, pool_stride,
-               act_bits, int8_scales, block_r, block_w) -> torch.Tensor:
+               act_bits, int8_scales, block_r, block_w, w_kmajor) -> torch.Tensor:
     """``stream_conv_block``'s dispatch, on validated arguments."""
     (w,), (b,) = ws, bs
     name = "stream_conv_fused" if int8_scales is None else "stream_conv_fused_int8"
@@ -269,6 +273,7 @@ def _run_block(x, ws, bs, *, padding, stride, act, pool, pool_stride,
             x.contiguous(), w.contiguous(), b.contiguous(), stride=stride,
             act=act, pool=pool, pool_stride=pool_stride, act_bits=act_bits,
             int8_scales=int8_scales, block_r=block_r, block_w=block_w,
+            w_kmajor=w_kmajor,
         )
 
 

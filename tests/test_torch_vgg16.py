@@ -121,9 +121,9 @@ def test_an_unknown_head_activation_is_refused():
 
 def test_vgg16_launch_table_at_224():
     """The int8 plan for the card: one pyramid launch for layers 0-1, then
-    each layer alone on the single-layer kernel, in as many channel slices
-    as its own ``fused_plan`` gives (1, 1, 2, 4, 4, 8 and 16 for each
-    512-channel layer after the third pool), one column strip each."""
+    each layer alone on the single-layer kernel's wgmma path, one launch
+    each (one column strip, one channel slice), as its own ``fused_plan``
+    gives."""
     idxs = tuple(range(len(VGG16.conv_layers)))
     groups = plan_fusion_groups(VGG16, idxs, vmem_budget=DEFAULT_VMEM_BUDGET, elem_bytes=1)
     groups = card_fusion_groups(VGG16, idxs, groups, elem_bytes=1, block_r=8)
@@ -136,11 +136,13 @@ def test_vgg16_launch_table_at_224():
                          block_r=8, n_out=sp.n_out, elem_bytes=1)
         assert e.kernel == "stream_conv_fused_int8"
         assert (e.strips, e.slices) == (len(geo["strips"]), len(geo["slices"]))
+        assert e.path == geo["path"] == "wgmma"
         h, w = sp.out_hw(h, w)
         c = sp.n_out
-    assert [e.slices for e in table[1:]] == [1, 1, 2, 4, 4, 8, 16, 16, 16, 16, 16]
+    assert table[0].path == "mma_sync"
+    assert [e.slices for e in table[1:]] == [1] * 11
     assert all(e.strips == 1 for e in table)
-    assert sum(e.launches for e in table) == 101
+    assert sum(e.launches for e in table) == 12
 
 
 def test_a_cpu_plan_has_no_launch_table():

@@ -79,8 +79,14 @@ def test_a_replay_launches_the_launch_table(plan_and_frames):
     table = plan.launch_table
     assert [e.kernel for e in table] == (["stream_conv_pyramid_int8"]
                                          + ["stream_conv_fused_int8"] * 11)
-    assert [e.slices for e in table] == [1, 1, 1, 2, 4, 4, 8, 16, 16, 16, 16, 16]
-    want = {"stream_conv_pyramid_int8": 1, "stream_conv_fused_int8": 100}
+    assert [e.slices for e in table] == [1] * 12
+    assert [e.path for e in table] == ["mma_sync"] + ["wgmma"] * 11
+    want = {"stream_conv_pyramid_int8": 1, "stream_conv_fused_int8": 11}
+    paths = dict(kconv.PATH_LAUNCHES)
+    with torch.no_grad():
+        plan.features(x)  # eager
+    assert {k: v - paths[k] for k, v in kconv.PATH_LAUNCHES.items()} == {"wgmma": 11,
+                                                                         "mma_sync": 0}
     plan(x)  # the first call: warm-up and capture
     before = dict(kconv.LAUNCHES)
     plan(x)
@@ -90,5 +96,5 @@ def test_a_replay_launches_the_launch_table(plan_and_frames):
     record = [r for r in cuda_graphs.graphs() if r.owner == "JittedForward"][-1]
     assert record.launch_table == table
     if record.ops:
-        assert sum("sc_fused_i8_kernel" in op for op in record.ops) == 100
+        assert sum("sc_fused_i8_kernel" in op for op in record.ops) == 11
         assert sum("sc_pyramid_i8_kernel" in op for op in record.ops) == 1
